@@ -4,14 +4,15 @@
 
 Phases (each prints a line; any failure exits non-zero, with no result):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the strip kernel from spgemm_tpu_torch/csrc with nvcc and
-     print the build seconds and the ptxas register report;
-  3. compare the kernel with its plain PyTorch version on the card, on
-     random banded plans: 64x128 and 16x128 A tiles (B 128x128), integer
-     values (equal exactly) and Gaussian values (rtol 1e-5, atol
+  2. build the strip kernel and the ESC scan kernels from
+     spgemm_tpu_torch/csrc with nvcc (one nvcc per source, started
+     together) and print the build seconds and the ptxas register report;
+  3. compare the strip kernel with its plain PyTorch version on the card,
+     on random banded plans: 64x128 and 16x128 A tiles (B 128x128),
+     integer values (equal exactly) and Gaussian values (rtol 1e-5, atol
      1e-6*max|C|), in both plan shapes (windowed and window=False);
      counts must be equal exactly in every case;
-  4. drive the main path, C = A^2 on the 62,451^2 cant-like matrix of
+  4. drive the strip path, C = A^2 on the 62,451^2 cant-like matrix of
      bench.py, through spgemm_csr(device="cuda") and through
      StripExecutor.run_compact(), with the launch counters zeroed just
      before: C's pattern must equal the scipy oracle's and its values be
@@ -20,7 +21,23 @@ Phases (each prints a line; any failure exits non-zero, with no result):
   5. time it: symbolic_ms (host, best of 5), the kernel's numeric_ms and
      the plain version's on the same plan (CUDA events, median), and
      GFLOPS = 2*nnzCub / (symbolic_ms + numeric_ms) as bench.py counts it;
-  6. print the kernels JSON line, then the contract line
+  6. compare the three scan kernels (premul, mul, double-double) with
+     their plain versions on a random 8192^2 and a full banded 2048^2
+     (band 40: 7 passes, windows taller than COMBINE_K) plan, G = 1 and 4,
+     integer and Gaussian values: bit-equal (torch.equal) in every case;
+  7. drive the ESC path at full size, C = A^2 on the JAX suite's
+     rmat65536 (tools/run_suite.py), through spgemm_csr(device="cuda")
+     (auto routing must pick esc) and EscExecutor.run_csr() in modes
+     premul and mul, counters zeroed just before: C equal to the scipy
+     oracle (pattern and values exactly), the scan kernels launched and
+     their plain versions not run;
+  8. drive the f64 path: random65536 with standard-normal values through
+     spgemm_csr(compute_dtype=float64): within rtol 1e-10, atol
+     1e-11*max|C| of scipy, through the double-double kernel;
+  9. time the ESC path at rmat65536 (host plan, upload, kernels and their
+     plain versions with CUDA events, combine, download) and print device
+     GFLOPS = 2*F / mul-kernel ms;
+ 10. print the kernels JSON line, then the contract line
      {"ok": true, "device": {...}} as the last line.
 """
 
@@ -34,6 +51,8 @@ import numpy as np
 ROWS, BAND = 62451, 64          # bench.py's cant-like matrix
 TM, TN = 64, 128                # bench.py's tiles: A 64x128, B 128x128
 GAUSS_RTOL = 1e-5               # f32, summation order differs
+SUITE_N = 65536                 # tools/run_suite.py's full-size suite
+F64_RTOL, F64_ATOL = 1e-10, 1e-11  # tests/test_esc.py:334 (atol x max|C|)
 
 
 class SmokeFailure(Exception):
@@ -87,6 +106,253 @@ def compare_random_plans() -> None:
                 check(torch.equal(cc, pc), "kernel counts disagree")
 
 
+def build_kernels() -> None:
+    """Phase 2: one nvcc per kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spgemm_tpu_torch.ops import kernels, scan_kernels
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        futs = [pool.submit(kernels.load_strip_kernel),
+                pool.submit(scan_kernels.load_scan_kernel)]
+        for f in futs:
+            f.result()
+    print(f"phase build: both kernels in {time.perf_counter() - t0!r} s")
+    for info in (kernels.build_info, scan_kernels.build_info):
+        print(f"phase build: {info['seconds']!r} s -> {info['path']}")
+        for ln in info["ptxas"].splitlines():
+            if "registers" in ln:
+                print(f"phase build: ptxas {ln.strip()}")
+
+
+def compare_scan_kernels() -> None:
+    """Phase 6: the three scan kernels against their plain versions."""
+    import torch
+
+    from spgemm_tpu_torch.ops import scan_kernels as sk
+    from spgemm_tpu_torch.ops.esc import (COMBINE_K, build_esc_scan_plan,
+                                          gather_planes, scan_dd_planes)
+    from spgemm_tpu_torch.utils.generators import banded, random_uniform
+
+    rng = np.random.default_rng(11)
+    # the full band gives 7 passes and, at G=1, windows taller than
+    # COMBINE_K rows
+    mats = {"random8192": random_uniform(rng, 8192),
+            "band2048": banded(rng, 2048, 40, fill=1.0)}
+    for name, a0 in mats.items():
+        for values in ("integer", "gaussian"):
+            a = a0 if values == "integer" else a0.with_data(
+                rng.standard_normal(a0.nnz))
+            for g in (1, 4):
+                plan = build_esc_scan_plan(a, a, group_rows=g)
+                wr = np.diff(plan.win_rowptr) // g
+                up = lambda x: torch.from_numpy(x).to("cuda")
+                meta = up(plan.meta16())
+                kw = dict(passes=plan.passes, group_rows=g)
+                cases = (
+                    ("esc_scan", sk.esc_scan, sk.esc_scan_plain,
+                     (up(plan.qv),)),
+                    ("esc_scan_mul", sk.esc_scan_mul, sk.esc_scan_mul_plain,
+                     tuple(map(up, gather_planes(plan, a.data, a.data)))),
+                    ("esc_scan_dd", sk.esc_scan_dd, sk.esc_scan_dd_plain,
+                     tuple(map(up, scan_dd_planes(plan, a.data, a.data)))))
+                for label, kern, plain, planes in cases:
+                    got = _planes(kern(*planes, meta, **kw))
+                    exp = _planes(plain(*planes, meta, **kw))
+                    torch.cuda.synchronize()
+                    equal = all(torch.equal(x, y) for x, y in zip(got, exp))
+                    err = max((x - y).abs().max().item()
+                              for x, y in zip(got, exp))
+                    print(f"phase scan-compare: {name} {values} G={g} "
+                          f"{label} R={plan.qv.shape[0]} "
+                          f"passes={plan.passes} tall_windows="
+                          f"{int((wr > COMBINE_K).sum())} max_abs_err={err!r} "
+                          f"bit_equal={equal}")
+                    check(equal, f"{label} differs from its plain version "
+                                 f"({name}, {values}, G={g}): {err}")
+
+
+def _planes(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _zero_counters(*wrappers) -> None:
+    for w in wrappers:
+        w.kernel_launches = 0
+        w.plain_launches = 0
+
+
+def _check_exact(label, got, ref) -> None:
+    from spgemm_tpu_torch.ops import golden
+
+    got = golden.drop_explicit_zeros(got)
+    pat = got.pattern_equal(ref)
+    exact = pat and np.array_equal(got.data, ref.data)
+    print(f"phase check: {label} nnzC={got.nnz} oracle nnzC={ref.nnz} "
+          f"pattern_equal={pat} values_exact={exact}")
+    check(pat and exact, f"{label} result differs from the scipy oracle")
+
+
+def run_esc_path(suite: dict) -> list:
+    """Phases 7 and 9: the ESC scan path at rmat65536, then its timings.
+    Returns the kernels JSON entries of the premul and mul kernels."""
+    import torch
+
+    from spgemm_tpu_torch.ops import esc, golden, kernels
+    from spgemm_tpu_torch.ops import scan_kernels as sk
+    from spgemm_tpu_torch.ops.executor import EscExecutor
+    from spgemm_tpu_torch.ops.spgemm import spgemm_csr
+    from spgemm_tpu_torch.utils.timing import cuda_event_ms
+
+    name = f"rmat{SUITE_N}"
+    a = suite[name]
+    _zero_counters(sk.esc_scan, sk.esc_scan_mul, sk.esc_scan_dd,
+                   kernels.strip_numeric)
+    t0 = time.perf_counter()
+    c, res = spgemm_csr(a, device="cuda")
+    csr_s = time.perf_counter() - t0
+    check(res.stats["backend"] == "esc",
+          f"auto routing picked {res.stats['backend']} for {name}")
+    plan = res.schedule
+    ex_p = EscExecutor(plan, mode="premul", device="cuda")
+    c_p = ex_p.run_csr()
+    ex_m = EscExecutor(plan, mode="mul", device="cuda")
+    c_m = ex_m.run_csr()
+    torch.cuda.synchronize()
+    launches = {w.__name__: (w.kernel_launches, w.plain_launches)
+                for w in (sk.esc_scan, sk.esc_scan_mul)}
+    print(f"phase esc: {name} {a.m}x{a.n} nnz={a.nnz} spgemm_csr "
+          f"{csr_s!r} s backend={res.stats['backend']} launches "
+          f"(kernel, plain)={launches} strip kernel="
+          f"{kernels.strip_numeric.kernel_launches}")
+    check(all(k > 0 and p == 0 for k, p in launches.values()),
+          f"the ESC path did not run through the scan kernels: {launches}")
+    wr = np.diff(plan.win_rowptr) // plan.group_rows
+    print(f"phase esc: plan F={plan.num_products} nnzC={plan.nnz_c} "
+          f"R={plan.qv.shape[0]} G={plan.group_rows} passes={plan.passes} "
+          f"windows={wr.size} tall_windows={int((wr > esc.COMBINE_K).sum())} "
+          f"tallest={int(wr.max())} rows")
+    t0 = time.perf_counter()
+    ref = golden.spgemm_scipy(a, a)
+    print(f"phase esc: scipy oracle {time.perf_counter() - t0!r} s")
+    for label, got in (("spgemm_csr(esc)", c), ("EscExecutor(premul)", c_p),
+                       ("EscExecutor(mul)", c_m)):
+        _check_exact(label, got, ref)
+    del c, c_p, c_m, ref
+
+    # --- phase 9: timings ---------------------------------------------
+    tms = res.timings_ms
+    print(f"phase esc-time: spgemm_csr symbolic_ms={tms['symbolic_ms']!r} "
+          f"upload_ms={tms['upload_ms']!r} numeric_ms={tms['numeric_ms']!r} "
+          f"(kernel + combine) compact_ms={tms['compact_ms']!r} "
+          f"(download + tail + host) wall_s={csr_s!r}")
+    kw = dict(passes=plan.passes, group_rows=plan.group_rows)
+    entries = []
+    for label, ex, plain in (("esc_scan", ex_p, sk.esc_scan_plain),
+                             ("esc_scan_mul", ex_m, sk.esc_scan_mul_plain)):
+        got = ex.run()
+        exp = plain(*ex._vals, ex._meta, **kw)
+        torch.cuda.synchronize()
+        err = (got - exp).abs().max().item()
+        check(torch.equal(got, exp), f"{label} differs from its plain "
+                                     f"version at {name}: {err}")
+        del got, exp
+        ms = ex.time_numeric(warmup=3, iters=20)
+        plain_ms = cuda_event_ms(lambda: plain(*ex._vals, ex._meta, **kw),
+                                 warmup=1, iters=5)
+        print(f"phase esc-time: {label} kernel_ms={ms!r} "
+              f"plain_ms={plain_ms!r} max_abs_err={err!r}")
+        entries.append(dict(
+            name=label, route="cuda",
+            source="spgemm_tpu_torch/csrc/esc_scan.cu",
+            replaces={"esc_scan": "spgemm_tpu/ops/esc.py:662",
+                      "esc_scan_mul": "spgemm_tpu/ops/esc.py:713"}[label],
+            launches=launches[label][0], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms))
+    out = ex_p.run()
+    combine_ms = cuda_event_ms(lambda: esc._combine_apply(plan, out),
+                               warmup=1, iters=5)
+    r, tail = esc._combine_apply(plan, out)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r_h = r.cpu()
+    dl_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    esc.esc_scan_trim_combined(plan, r_h, tail)
+    trim_ms = (time.perf_counter() - t0) * 1e3
+    gflops = 2.0 * plan.num_products / (entries[1]["ms"] * 1e6)
+    print(f"phase esc-time: combine_ms={combine_ms!r} (device) "
+          f"download_ms={dl_ms!r} ({r.numel() * 4} bytes) "
+          f"tail+host_ms={trim_ms!r}")
+    print(f"phase esc-time: device GFLOPS={gflops!r} (2*F / mul kernel ms); "
+          f"peak device memory {torch.cuda.max_memory_allocated()!r} bytes")
+    return entries
+
+
+def run_f64_path(suite: dict) -> dict:
+    """Phase 8: the double-double route on random65536, Gaussian values.
+    Returns the kernels JSON entry of the DD kernel."""
+    import torch
+
+    from spgemm_tpu_torch.ops import golden
+    from spgemm_tpu_torch.ops import scan_kernels as sk
+    from spgemm_tpu_torch.ops.esc import scan_dd_planes
+    from spgemm_tpu_torch.ops.spgemm import spgemm_csr
+    from spgemm_tpu_torch.utils.timing import cuda_event_ms
+
+    name = f"random{SUITE_N}"
+    a0 = suite[name]
+    a = a0.with_data(np.random.default_rng(23).standard_normal(a0.nnz))
+    _zero_counters(sk.esc_scan, sk.esc_scan_mul, sk.esc_scan_dd)
+    t0 = time.perf_counter()
+    c, res = spgemm_csr(a, compute_dtype=torch.float64, device="cuda")
+    torch.cuda.synchronize()
+    csr_s = time.perf_counter() - t0
+    dd = (sk.esc_scan_dd.kernel_launches, sk.esc_scan_dd.plain_launches)
+    plan = res.schedule
+    print(f"phase f64: {name} nnz={a.nnz} F={plan.num_products} "
+          f"nnzC={plan.nnz_c} R={plan.qv.shape[0]} G={plan.group_rows} "
+          f"passes={plan.passes} backend={res.stats['backend']} "
+          f"spgemm_csr {csr_s!r} s dd launches (kernel, plain)={dd}")
+    check(dd[0] > 0 and dd[1] == 0, "the f64 path did not run the DD kernel")
+    ref = golden.spgemm_scipy(a, a)
+    got = golden.drop_explicit_zeros(c)
+    pat = got.pattern_equal(ref)
+    scale = float(np.abs(ref.data).max())
+    close = pat and np.allclose(got.data, ref.data, rtol=F64_RTOL,
+                                atol=F64_ATOL * scale)
+    rel = (float(np.max(np.abs(got.data - ref.data)
+                        / np.maximum(np.abs(ref.data), 1e-300)))
+           if pat else float("nan"))
+    print(f"phase check: f64 {name} pattern_equal={pat} close={close} "
+          f"max_rel_err={rel!r} max|C|={scale!r}")
+    check(close, "f64 result differs from the scipy oracle")
+
+    up = lambda x: torch.from_numpy(x).to("cuda")
+    planes = tuple(map(up, scan_dd_planes(plan, a.data, a.data)))
+    meta = up(plan.meta16())
+    kw = dict(passes=plan.passes, group_rows=plan.group_rows)
+    got, exp = sk.esc_scan_dd(*planes, meta, **kw), \
+        sk.esc_scan_dd_plain(*planes, meta, **kw)
+    torch.cuda.synchronize()
+    err = max((x - y).abs().max().item() for x, y in zip(got, exp))
+    check(all(torch.equal(x, y) for x, y in zip(got, exp)),
+          f"esc_scan_dd differs from its plain version at {name}: {err}")
+    ms = cuda_event_ms(lambda: sk.esc_scan_dd(*planes, meta, **kw),
+                       warmup=3, iters=20)
+    plain_ms = cuda_event_ms(lambda: sk.esc_scan_dd_plain(*planes, meta,
+                                                          **kw),
+                             warmup=1, iters=5)
+    print(f"phase f64-time: esc_scan_dd kernel_ms={ms!r} "
+          f"plain_ms={plain_ms!r} max_abs_err={err!r} timings_ms="
+          f"{ {k: round(v, 3) for k, v in res.timings_ms.items()} }")
+    return dict(name="esc_scan_dd", route="cuda",
+                source="spgemm_tpu_torch/csrc/esc_scan.cu",
+                replaces="spgemm_tpu/ops/esc.py:760", launches=dd[0],
+                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+
 def run() -> dict:
     import torch
 
@@ -98,6 +364,7 @@ def run() -> dict:
     from spgemm_tpu_torch.ops.executor import StripExecutor
     from spgemm_tpu_torch.ops.gustavson import run_strip_symbolic
     from spgemm_tpu_torch.ops.spgemm import spgemm_csr
+    from spgemm_tpu_torch.utils import generators as pgen
     from spgemm_tpu_torch.utils.generators import cantlike
     from spgemm_tpu_torch.utils.timing import cuda_event_ms
 
@@ -111,13 +378,7 @@ def run() -> dict:
           f"torch={torch.__version__} cuda={torch.version.cuda} "
           f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
-    kernels.load_strip_kernel()
-    info = kernels.build_info
-    regs = [ln.strip() for ln in info["ptxas"].splitlines()
-            if "registers" in ln]
-    print(f"phase build: {info['seconds']!r} s -> {info['path']}")
-    for ln in regs:
-        print(f"phase build: ptxas {ln}")
+    build_kernels()
 
     compare_random_plans()
 
@@ -183,6 +444,15 @@ def run() -> dict:
     print(f"phase time: peak device memory "
           f"{torch.cuda.max_memory_allocated()!r} bytes")
 
+    del ex, ops
+    torch.cuda.empty_cache()
+
+    compare_scan_kernels()
+    suite = pgen.suite(SUITE_N)
+    esc_entries = run_esc_path(suite)
+    torch.cuda.empty_cache()
+    dd_entry = run_f64_path(suite)
+
     return {
         "kernels": [{
             "name": "strip_numeric",
@@ -194,9 +464,9 @@ def run() -> dict:
             "max_abs_err": max_abs_err,
             "ms": numeric_ms,
             "plain_ms": plain_ms,
-        }],
-        "device": {"platform": "gpu", "kind": dev_name,
-                   "count": torch.cuda.device_count()},
+        }] + esc_entries + [dd_entry],
+        # the number of cards this run uses
+        "device": {"platform": "gpu", "kind": dev_name, "count": 1},
     }
 
 

@@ -8,8 +8,11 @@ Layout mirrors the JAX package:
   * models/ — CSR and the tiled format (TileMat), NumPy host code.
   * ops/    — strip planner (gustavson.py), the hand-written CUDA strip
               kernel and its plain PyTorch version (kernels.py, source in
-              csrc/strip_numeric.cu), orchestrator (spgemm.py), resident
-              executor (executor.py), scipy oracle (golden.py).
+              csrc/strip_numeric.cu), the ESC scan route for unstructured
+              patterns (esc.py) with its three CUDA scan kernels and their
+              plain versions (scan_kernels.py, source in csrc/esc_scan.cu),
+              orchestrator (spgemm.py), resident executors (executor.py),
+              scipy oracle (golden.py).
   * io/     — Matrix Market reader.
   * utils/  — native C++ host layer (g++-built `native/csr2tile.cpp`),
               generators, CUDA-event timing, CSV sinks.
@@ -20,8 +23,9 @@ card; "cpu" runs the plain PyTorch versions (the tests use it).
 
 from spgemm_tpu_torch.models.csr import CSR
 from spgemm_tpu_torch.models.tile import TileMat, csr_to_tiles, tiles_to_csr
+from spgemm_tpu_torch.ops.esc import ScanPlan, build_esc_scan_plan, spgemm_esc
 from spgemm_tpu_torch.ops.spgemm import SpGEMMResult, spgemm, spgemm_csr
-from spgemm_tpu_torch.ops.executor import StripExecutor
+from spgemm_tpu_torch.ops.executor import EscExecutor, StripExecutor
 from spgemm_tpu_torch.io.mmio import read_mtx
 
 __all__ = [
@@ -33,5 +37,9 @@ __all__ = [
     "spgemm_csr",
     "SpGEMMResult",
     "StripExecutor",
+    "spgemm_esc",
+    "build_esc_scan_plan",
+    "ScanPlan",
+    "EscExecutor",
     "read_mtx",
 ]

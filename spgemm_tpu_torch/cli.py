@@ -6,8 +6,9 @@ reference's `./test` binary:
 Prints the same lines as the JAX package's CLI (matrix info, load time,
 tile size, flops, conversion ms, format space, step times, tile/nnz
 counts, runtime + GFLOPS, check verdict) and appends the four CSV sinks.
-The strip route is the only one ported: `--backend` takes auto|strip,
-and `--dtype f64` exits with an error naming its ROADMAP.md item.
+`--backend` takes auto|strip|esc: auto sends unstructured inputs to the
+ESC scan route. `--dtype f64` follows spgemm_csr's f64 routing and exits 2
+naming the ROADMAP.md item where that routing has no ported engine.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("matrix", help="Matrix Market file (.mtx[.gz])")
     p.add_argument("tile_m", nargs="?", type=int, default=16)
     p.add_argument("tile_n", nargs="?", type=int, default=128)
-    p.add_argument("--backend", default="auto", choices=["auto", "strip"])
+    p.add_argument("--backend", default="auto",
+                   choices=["auto", "strip", "esc"])
     p.add_argument("--dtype", default="f32", choices=["f32", "f64"])
     p.add_argument("--check", default="values",
                    choices=["none", "pattern", "values"],
@@ -60,10 +62,7 @@ def main(argv=None) -> int:
     from spgemm_tpu_torch.utils import csv_sink
     from spgemm_tpu_torch.utils.timing import resolve_device
 
-    if args.dtype == "f64":
-        print("error: --dtype f64 is not ported to spgemm_tpu_torch yet "
-              "(ROADMAP.md, Queue 1: f64)", file=sys.stderr)
-        return 2
+    compute_dtype = torch.float64 if args.dtype == "f64" else torch.float32
     try:
         dev = resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
@@ -113,8 +112,13 @@ def main(argv=None) -> int:
     best = None
     best_runtime = float("inf")
     for _ in range(max(1, args.repeat)):
-        c, res = spgemm_csr(a, aat=bool(args.aat), tm=tm, tn=tn,
-                            backend=args.backend, device=dev)
+        try:
+            c, res = spgemm_csr(a, aat=bool(args.aat), tm=tm, tn=tn,
+                                backend=args.backend,
+                                compute_dtype=compute_dtype, device=dev)
+        except NotImplementedError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
         rt = res.timings_ms["symbolic_ms"] + res.timings_ms["numeric_ms"]
         if rt < best_runtime:
             best_runtime, best = rt, (c, res)
@@ -142,7 +146,8 @@ def main(argv=None) -> int:
         if args.check == "pattern":
             verdict = "PASSED" if pattern_ok else "NOT PASSED"
         else:
-            ok = pattern_ok and np.allclose(got.data, ref.data, rtol=1e-5)
+            tol = 1e-12 if args.dtype == "f64" else 1e-5
+            ok = pattern_ok and np.allclose(got.data, ref.data, rtol=tol)
             verdict = "PASSED" if ok else "NOT PASSED"
         print(f"check ({args.check} vs scipy oracle): [{verdict}]")
 

@@ -1,10 +1,9 @@
-"""Device-resident strip executor: build once, run many (port of
-`spgemm_tpu/ops/executor.py:StripExecutor`).
+"""Device-resident executors: build once, run many (port of
+`spgemm_tpu/ops/executor.py:StripExecutor` and `EscExecutor`).
 
 The packed operands stay resident as tensors on the device; each run is
-one launch of the strip numeric phase. `update_values(a)` repacks and
-re-uploads only A's value plane, for workloads whose pattern is fixed
-while values change.
+one kernel launch. `update_values` re-uploads only the value plane(s),
+for workloads whose pattern is fixed while values change.
 """
 
 from __future__ import annotations
@@ -12,8 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spgemm_tpu_torch.models.csr import CSR
 from spgemm_tpu_torch.models.tile import TileMat
-from spgemm_tpu_torch.ops import kernels
+from spgemm_tpu_torch.ops import esc, kernels, scan_kernels
+from spgemm_tpu_torch.ops.esc import ScanPlan
 from spgemm_tpu_torch.ops.gustavson import (StripArgs, build_strip_args,
                                             check_strip_feasible,
                                             download_compact)
@@ -94,3 +95,72 @@ class StripExecutor:
         check_strip_feasible(args, self.device)
         self._dev = args.to_device(self.device)
         return self
+
+
+class EscExecutor:
+    """Resident-operand executor for the ESC scan route (port of
+    `spgemm_tpu/ops/executor.py:EscExecutor`). The int16 meta plane and
+    the value plane(s) stay on the device; `update_values` refreshes only
+    the values, so a pattern-fixed rerun is one upload and one launch.
+
+    mode="premul": the host-premultiplied qv plane (6 B per product, each
+    product rounded once from f64). mode="mul": separate (av, bv) planes
+    multiplied in the kernel (10 B per product); the device then does one
+    multiply per product, so 2*F / kernel time is a device GFLOPS with
+    the accounting of the strip kernel. `device` None means CUDA."""
+
+    def __init__(self, plan: ScanPlan, *, mode: str = "premul",
+                 device=None):
+        if not isinstance(plan, ScanPlan):
+            raise TypeError("EscExecutor wraps a ScanPlan; build one with "
+                            "build_esc_scan_plan")
+        if mode not in ("premul", "mul"):
+            raise ValueError(f"mode must be 'premul' or 'mul': {mode!r}")
+        self.plan = plan
+        self.mode = mode
+        self.device = resolve_device(device)
+        self._meta = torch.from_numpy(plan.meta16()).to(self.device)
+        qv = torch.from_numpy(plan.qv).to(self.device)
+        if mode == "premul":
+            self._vals = (qv,)
+        else:
+            # without fresh input values, split the premultiplied plane as
+            # (qv, ones): the same products, the same kernel traffic, and
+            # still one multiply per product (padding lanes hold qv == 0)
+            self._vals = (qv, torch.ones_like(qv))
+
+    def run(self) -> torch.Tensor:
+        """One numeric launch; returns the (R/G, 128) device output in
+        window-major C slot order."""
+        kw = dict(passes=self.plan.passes, group_rows=self.plan.group_rows)
+        if self.mode == "premul":
+            return scan_kernels.esc_scan(self._vals[0], self._meta, **kw)
+        return scan_kernels.esc_scan_mul(self._vals[0], self._vals[1],
+                                         self._meta, **kw)
+
+    def run_csr(self) -> CSR:
+        """run() + device window combine + host epilogue: C as CSR."""
+        res, tail = esc._combine_apply(self.plan, self.run())
+        return esc.esc_scan_trim_combined(self.plan, res, tail)
+
+    def update_values(self, a_data: np.ndarray, b_data: np.ndarray) -> None:
+        """Pattern-fixed value refresh: gather(+multiply) into fresh value
+        plane(s) and upload them; plan.qv is never changed, so other
+        executors of the same plan keep their values."""
+        plan = self.plan
+        if plan.a_src is None:
+            raise ValueError(
+                "update_values needs a plan built with keep_sources=True")
+        if a_data.size and int(plan.a_src.max()) >= a_data.size:
+            raise ValueError("a_data is smaller than the plan's A pattern")
+        if self.mode == "premul":
+            planes = (esc.refresh_qv(plan, a_data, b_data),)
+        else:
+            planes = esc.gather_planes(plan, a_data, b_data)
+        self._vals = tuple(torch.from_numpy(p).to(self.device)
+                           for p in planes)
+
+    def time_numeric(self, *, warmup: int = 3, iters: int = 50) -> float:
+        """Median device milliseconds of one numeric launch (CUDA events
+        around each launch after `warmup` untimed ones)."""
+        return cuda_event_ms(self.run, warmup=warmup, iters=iters)

@@ -52,8 +52,27 @@ def _nvcc() -> str:
                  shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the strip kernel "
-                       "is built from spgemm_tpu_torch/csrc at first use")
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                       "are built from spgemm_tpu_torch/csrc at first use")
+
+
+def build_cuda_library(src: str, stem: str, flags: list[str]):
+    """Build `src` with nvcc (once per source hash and flags) and load it.
+    Returns (ctypes.CDLL, info) where info holds the library path, the
+    build seconds and the compiler's -Xptxas -v report. Shared by every
+    kernel module of the port."""
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    try:
+        path = build_shared_library([nvcc], src, stem, flags, timeout=900)
+    except (subprocess.SubprocessError, OSError) as e:
+        detail = getattr(e, "stderr", "") or ""
+        raise RuntimeError(f"{stem} build failed: {e}\n{detail}") from e
+    lib = ctypes.CDLL(path)
+    log = path + ".log"
+    info = dict(path=path, seconds=time.perf_counter() - t0,
+                ptxas=open(log).read() if os.path.exists(log) else "")
+    return lib, info
 
 
 def load_strip_kernel():
@@ -64,24 +83,12 @@ def load_strip_kernel():
     with _lock:
         if _lib is not None:
             return _lib
-        t0 = time.perf_counter()
-        nvcc = _nvcc()
-        try:
-            path = build_shared_library([nvcc], KERNEL_SRC,
-                                        "libstrip_numeric", NVCC_FLAGS,
-                                        timeout=900)
-        except (subprocess.SubprocessError, OSError) as e:
-            detail = getattr(e, "stderr", "") or ""
-            raise RuntimeError(f"strip kernel build failed: {e}\n{detail}") \
-                from e
-        lib = ctypes.CDLL(path)
+        lib, info = build_cuda_library(KERNEL_SRC, "libstrip_numeric",
+                                       NVCC_FLAGS)
         lib.strip_numeric_f32.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 8 + [ctypes.c_void_p])
         lib.strip_numeric_f32.restype = ctypes.c_int
-        log = path + ".log"
-        build_info.update(
-            path=path, seconds=time.perf_counter() - t0,
-            ptxas=open(log).read() if os.path.exists(log) else "")
+        build_info.update(info)
         _lib = lib
         return _lib
 

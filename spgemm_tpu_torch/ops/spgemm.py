@@ -1,7 +1,8 @@
-"""SpGEMM orchestrator (port of the strip route of
-`spgemm_tpu/ops/spgemm.py`): tile, plan, run the strip numeric phase on
-the device, compact back to the tiled format and to CSR, with per-phase
-timings.
+"""SpGEMM orchestrator (port of `spgemm_tpu/ops/spgemm.py`): the strip
+route (tile, plan, run the strip numeric phase on the device, compact back
+to the tiled format and to CSR) and the ESC scan route for unstructured
+patterns (CSR in, CSR out), with per-phase timings and the JAX package's
+auto router, f64 routing included.
 
 Routes the port does not have yet raise NotImplementedError naming their
 ROADMAP.md item; nothing falls back to another route.
@@ -18,13 +19,13 @@ import torch
 from spgemm_tpu_torch.models.csr import CSR, INDEX_DTYPE, flop_count_spgemm
 from spgemm_tpu_torch.models.tile import (TileMat, _build_tilemat, cdiv,
                                           csr_to_tiles)
-from spgemm_tpu_torch.ops import kernels
+from spgemm_tpu_torch.ops import esc, kernels
 from spgemm_tpu_torch.ops.gustavson import build_strip_args, strip_numeric
 from spgemm_tpu_torch.utils.timing import resolve_device
 
 # ROADMAP.md "Queue 1" items that port the routes this module refuses
 _ROADMAP_ITEM = {
-    "esc": "ESC unstructured route",
+    "digit": "ESC unstructured route: digit mode",
     "f64": "f64",
     "pallas": "backend=\"pallas\"",
     "gustavson": "Orchestrator fallbacks",
@@ -42,8 +43,8 @@ def _not_ported(what: str, key: str) -> NotImplementedError:
 
 @dataclasses.dataclass
 class SpGEMMResult:
-    c: TileMat
-    schedule: object  # the StripArgs plan
+    c: TileMat | None  # None on the ESC route, which builds no tiles
+    schedule: object  # the plan: StripArgs (strip) or ScanPlan (esc)
     timings_ms: dict[str, float]
     stats: dict[str, float]
 
@@ -81,6 +82,8 @@ def _resolve_backend(a: TileMat, b: TileMat, backend: str,
             f"takes (tm, tn) in {kernels.SUPPORTED_TILES})", "gustavson")
     if backend in _ROADMAP_ITEM:
         raise _not_ported(f"backend={backend!r}", backend)
+    if backend == "esc":
+        raise ValueError("backend='esc' runs on CSR input: use spgemm_csr")
     raise ValueError(f"unknown backend {backend!r}")
 
 
@@ -159,31 +162,101 @@ def spgemm_csr(a: CSR, b: CSR | None = None, *, tm: int = 16, tn: int = 128,
                aat: bool = False, backend: str = "auto",
                compute_dtype=torch.float32,
                device=None) -> tuple[CSR, SpGEMMResult]:
-    """CSR-level API: tile A, derive B as A (A^2), A^T (aat) or an
-    explicit matrix, multiply on `device` (None means CUDA) and return
-    CSR C with the result record.
+    """CSR-level API: C = A @ B with B as A (A^2), A^T (aat) or an
+    explicit matrix, on `device` (None means CUDA). Returns CSR C with the
+    result record.
 
-    backend "auto" keeps the JAX package's router: patterns it would send
-    to the ESC engine raise NotImplementedError (pass backend="strip" to
-    run them through the strip route)."""
-    if compute_dtype != torch.float32:
-        raise _not_ported(f"compute_dtype={compute_dtype}", "f64")
+    backend "auto" keeps the JAX package's router: unstructured patterns
+    go to the ESC scan route (no tiling), the rest to the strip route.
+    backend "esc" and "strip" pick a route. compute_dtype float64 follows
+    the JAX package's f64 routing: integer data whose f32 sums are exact
+    takes the f32 route; otherwise unstructured patterns (and backend
+    "esc") run the double-double scan, and structured ones raise
+    NotImplementedError (their Ozaki engine is not ported)."""
+    f64 = esc.is_f64(compute_dtype)
+    if backend == "esc":
+        return _spgemm_csr_esc(a, b, aat=aat, f64=f64, device=device)
     if backend == "auto":
+        if f64:
+            if _f32_exact_for(a, b, aat):
+                c, res = spgemm_csr(a, b, tm=tm, tn=tn, aat=aat,
+                                    compute_dtype=torch.float32,
+                                    device=device)
+                res.stats["backend"] = f"{res.stats['backend']}(f64-exact-int)"
+                return c, res
+            occ = tile_occupancy_estimate(a, tm, tn)
+            if occ >= ESC_OCCUPANCY_TH:
+                raise _not_ported(
+                    f"f64 on a structured pattern ({occ:.1f} nnz per tile: "
+                    f"the Ozaki strip engine)", "f64")
+            return _spgemm_csr_esc(a, b, aat=aat, f64=True, device=device)
         occ = tile_occupancy_estimate(a, tm, tn)
         if occ < ESC_OCCUPANCY_TH or (
                 occ < ESC_STRUCTURED_OCC_TH
                 and _mxu_reuse(a, b, aat) < ESC_REUSE_TH):
-            raise _not_ported(
-                f"the ESC route (auto routing picks it for this pattern: "
-                f"{occ:.1f} nnz per tile)", "esc")
-    elif backend == "esc":
-        raise _not_ported("backend='esc'", "esc")
+            return _spgemm_csr_esc(a, b, aat=aat, f64=False, device=device)
+    elif f64:
+        raise _not_ported(f"compute_dtype=float64 with backend={backend!r}",
+                          "f64")
     at = csr_to_tiles(a, tm, tn)
     # inner blocking must agree: A tiles (tm, tn) -> B tiles (tn, tn)
     bt = _tile_b_role(a, b, at, aat, tm, tn)
-    res = spgemm(at, bt, backend=backend, compute_dtype=compute_dtype,
-                 device=device)
+    res = spgemm(at, bt, backend=backend, device=device)
     return _csr_result_tail(res, a, b, aat)
+
+
+def _f32_exact_for(a: CSR, b: CSR | None, aat: bool) -> bool:
+    """True when the f32 route is provably exact for this f64 data: all
+    values are integers and every partial sum of C stays below 2^24. Each
+    C element accumulates at most max-row-nnz(A) products of magnitude
+    <= Vmax_A * Vmax_B."""
+    av = a.data
+    if av.size == 0:
+        return True
+    if not np.array_equal(np.trunc(av), av):
+        return False
+    vmax_a = float(np.abs(av).max())
+    if b is None:
+        vmax_b = vmax_a          # A^2 or AAT: same values
+    else:
+        bd = b.data
+        if bd.size and not np.array_equal(np.trunc(bd), bd):
+            return False
+        vmax_b = float(np.abs(bd).max()) if bd.size else 0.0
+    kmax = int(np.diff(a.indptr).max()) if a.nnz else 0
+    return vmax_a * vmax_b * max(kmax, 1) < 2 ** 24
+
+
+def _spgemm_csr_esc(a: CSR, b: CSR | None, *, aat: bool, f64: bool,
+                    device) -> tuple[CSR, SpGEMMResult]:
+    """The ESC route of spgemm_csr: no tiling, CSR in and CSR out. The
+    result's `c` is None (there is no tile grid on this route); its
+    schedule is the ScanPlan."""
+    if aat:
+        if b is not None:
+            raise ValueError("pass either b or aat=True, not both")
+        b = a.transpose()
+    elif b is None:
+        if a.m != a.n:
+            raise ValueError("C = A^2 requires square A")
+        b = a
+    c, timings, plan = esc.spgemm_esc(
+        a, b, dtype=torch.float64 if f64 else torch.float32, device=device)
+    nnz_cub = flop_count_spgemm(a, b)
+    stats = {
+        "num_pairs": float(plan.num_products),
+        "numblkC_candidate": 0.0,
+        "numblkC": 0.0,
+        "nnzC": float(c.nnz),
+        "nnzCub": float(nnz_cub),
+        "backend": "esc",
+    }
+    if c.nnz:
+        stats["compression"] = nnz_cub / c.nnz
+    if timings["numeric_ms"] > 0:
+        stats["gflops"] = 2.0 * nnz_cub / (timings["numeric_ms"] * 1e6)
+    return c, SpGEMMResult(c=None, schedule=plan, timings_ms=timings,
+                           stats=stats)
 
 
 def _tile_b_role(a: CSR, b: CSR | None, at: TileMat, aat: bool,

@@ -1,6 +1,7 @@
 """Synthetic matrix generators (port of `spgemm_tpu/utils/generators.py`)
 spanning the reference's structural regimes, plus `cantlike`, the
-benchmark's cant-like matrix."""
+benchmark's cant-like matrix, and `suite`, the JAX package's suite of
+`tools/run_suite.py`."""
 
 from __future__ import annotations
 
@@ -90,3 +91,18 @@ def cantlike(rows: int, band: int):
     r, c = r[keep], c[keep]
     vals = ((r * 7 + c * 13) % 9 + 1).astype(np.float64)
     return CSR.from_coo(r, c, vals, (rows, rows))
+
+
+def suite(n: int) -> dict:
+    """The five named matrices of `tools/run_suite.py:suite` at dimension
+    n, bit for bit: banded, block-diagonal, random, power-law and R-MAT,
+    drawn in that order from one default_rng(7). (That script imports
+    the JAX package, so the port reproduces it here.)"""
+    rng = np.random.default_rng(7)
+    return {
+        f"banded{n}": banded(rng, n, 64),
+        f"blockdiag{n}": block_diag(rng, n),
+        f"random{n}": random_uniform(rng, n),
+        f"powerlaw{n}": power_law(rng, n),
+        f"rmat{n}": rmat(rng, n),
+    }

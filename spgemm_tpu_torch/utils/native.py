@@ -1,5 +1,5 @@
 """Native (C++) host-format fast path, loaded via ctypes (port of
-`spgemm_tpu/utils/native.py:21-218,801-947`).
+`spgemm_tpu/utils/native.py:21-218,639-947`).
 
 Builds the shared source `native/csr2tile.cpp` with g++ into this
 package's own build directory (`spgemm_tpu_torch/_build/`, gitignored),
@@ -96,6 +96,10 @@ def get_lib():
             return None
         lib.csr2tile_count.restype = ctypes.c_int64
         lib.gustavson_symbolic_count.restype = ctypes.c_int64
+        lib.esc_scan_build.restype = ctypes.c_int64
+        for fn in (lib.esc_refresh_qv, lib.esc_refresh_dd,
+                   lib.esc_gather_planes):
+            fn.restype = None
         _lib = lib
         return _lib
 
@@ -266,3 +270,143 @@ def pack_strip_operands_native(a, b, max_ablock: int, max_b: int):
         _ptr(b_val, F32), _ptr(b_occ, U16),
     )
     return a_val, a_occ, b_val, b_occ
+
+
+def esc_scan_symbolic_native(a, b, keep_sources: bool = True,
+                             group_rows: int = 1):
+    """Native symbolic of the ESC scan plan (ops/esc.py:ScanPlan): C's
+    pattern, the destination-sorted (R, 128) product rows, the int32 meta
+    plane and the window row pointer, in one call to esc_scan_build.
+    keep_sources=False skips the a_src/b_src maps. Returns the
+    _esc_scan_symbolic_numpy tuple, or None without the library.
+
+    The planes are np.empty at a loose row bound r_ub: esc_scan_build
+    writes every row below r_total exactly once, so only the block-padding
+    tail [r_total, r_pad) is cleared afterwards. Zero-filling at r_ub
+    would touch gigabytes at rmat scale; untouched pages cost nothing."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    from spgemm_tpu_torch.ops.esc import SCAN_BLK, SCAN_WIN
+
+    m, n = a.m, b.n
+    ai = np.ascontiguousarray(a.indptr, np.int32)
+    aj = np.ascontiguousarray(a.indices, np.int32)
+    bi = np.ascontiguousarray(b.indptr, np.int32)
+    bj = np.ascontiguousarray(b.indices, np.int32)
+
+    # per-row product counts -> F and the nnzC upper bound
+    blen = np.diff(bi.astype(np.int64))
+    cs0 = np.zeros(aj.size + 1, np.int64)
+    np.cumsum(blen[aj], out=cs0[1:])
+    flops = int(cs0[-1])
+    if flops == 0:
+        # empty product stream: SCAN_BLK-row zero planes, one empty window
+        zf = np.zeros((SCAN_BLK, SCAN_WIN), np.float32)
+        zi = np.zeros((SCAN_BLK, SCAN_WIN), np.int32)
+        asrc = bsrc = (zi if keep_sources else None)
+        return (np.zeros(m + 1, np.int64), np.zeros(0, np.int32), 0,
+                zf, zi, np.zeros(2, np.int64), asrc, bsrc, 1)
+
+    row_f = cs0[ai[1:].astype(np.int64)] - cs0[ai[:-1].astype(np.int64)]
+    ub_total = max(1, int(np.minimum(row_f, n).sum()))
+    n_win_ub = ub_total // SCAN_WIN + 1
+    # every window may pad up to group_rows-1 extra rows
+    r_ub = (flops + SCAN_WIN - 1) // SCAN_WIN + n_win_ub * group_rows \
+        + SCAN_BLK
+
+    c_indptr = np.zeros(m + 1, np.int32)
+    c_indices = np.empty(ub_total, np.int32)
+    qv = np.empty((r_ub, SCAN_WIN), np.float32)
+    meta = np.empty((r_ub, SCAN_WIN), np.int32)
+    if keep_sources:
+        asrc = np.empty((r_ub, SCAN_WIN), np.int32)
+        bsrc = np.empty((r_ub, SCAN_WIN), np.int32)
+    else:
+        asrc = bsrc = np.zeros(1, np.int32)  # not written
+    win_rowptr_buf = np.empty(n_win_ub + 1, np.int64)
+    stats = np.zeros(8, np.int64)  # [0] max run, [1] r_total
+    ad = np.ascontiguousarray(a.data, np.float64)
+    bd = np.ascontiguousarray(b.data, np.float64)
+    nnz_c = int(lib.esc_scan_build(
+        _ptr(ai, I32), _ptr(aj, I32), _ptr(bi, I32), _ptr(bj, I32),
+        _ptr(ad, F64), _ptr(bd, F64),
+        ctypes.c_int64(m), ctypes.c_int64(n),
+        _ptr(c_indptr, I32), _ptr(c_indices, I32),
+        _ptr(qv, F32), _ptr(meta, I32),
+        _ptr(asrc, I32), _ptr(bsrc, I32),
+        ctypes.c_int64(1 if keep_sources else 0),
+        ctypes.c_int64(group_rows),
+        ctypes.c_int64(r_ub),
+        _ptr(win_rowptr_buf, I64), _ptr(stats, I64)))
+
+    n_win = max(1, -(-nnz_c // SCAN_WIN))
+    win_rowptr = win_rowptr_buf[: n_win + 1]
+    # pad R to the SCAN_BLK multiple and clear the tail the build never
+    # wrote (no window reaches it, but the kernels stream it)
+    r_total = int(stats[1])
+    r_pad = -(-r_total // SCAN_BLK) * SCAN_BLK
+    qv, meta = qv[:r_pad], meta[:r_pad]
+    qv[r_total:] = 0.0
+    meta[r_total:] = 0
+    if keep_sources:
+        asrc, bsrc = asrc[:r_pad], bsrc[:r_pad]
+        asrc[r_total:] = -1
+        bsrc[r_total:] = 0
+    else:
+        asrc = bsrc = None
+    return (c_indptr.astype(np.int64), c_indices[:nnz_c], flops, qv, meta,
+            win_rowptr, asrc, bsrc, max(1, int(stats[0])))
+
+
+def _value_sources(asrc, bsrc, a_data, b_data):
+    return (np.ascontiguousarray(asrc, np.int32),
+            np.ascontiguousarray(bsrc, np.int32),
+            np.ascontiguousarray(a_data, np.float64),
+            np.ascontiguousarray(b_data, np.float64))
+
+
+def esc_refresh_qv_native(asrc, bsrc, a_data, b_data, out=None):
+    """Fused gather-multiply-round refresh of a ScanPlan's qv plane (f64
+    product rounded once to f32; padding lanes 0). Writes into `out` when
+    given. Returns the f32 plane, or None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    asrc, bsrc, ad, bd = _value_sources(asrc, bsrc, a_data, b_data)
+    if out is None:
+        out = np.empty(asrc.shape, np.float32)
+    lib.esc_refresh_qv(
+        _ptr(asrc, I32), _ptr(bsrc, I32), _ptr(ad, F64), _ptr(bd, F64),
+        ctypes.c_int64(asrc.size), _ptr(out, F32))
+    return out
+
+
+def esc_refresh_dd_native(asrc, bsrc, a_data, b_data):
+    """Double-double planes: the exact f64 product split into (hi, lo) f32.
+    Returns (hi, lo), or None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    asrc, bsrc, ad, bd = _value_sources(asrc, bsrc, a_data, b_data)
+    hi = np.empty(asrc.shape, np.float32)
+    lo = np.empty(asrc.shape, np.float32)
+    lib.esc_refresh_dd(
+        _ptr(asrc, I32), _ptr(bsrc, I32), _ptr(ad, F64), _ptr(bd, F64),
+        ctypes.c_int64(asrc.size), _ptr(hi, F32), _ptr(lo, F32))
+    return hi, lo
+
+
+def esc_gather_planes_native(asrc, bsrc, a_data, b_data):
+    """Separate (av, bv) f32 operand planes for the in-kernel-multiply
+    scan variant (padding lanes 0). Returns (av, bv), or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    asrc, bsrc, ad, bd = _value_sources(asrc, bsrc, a_data, b_data)
+    av = np.empty(asrc.shape, np.float32)
+    bv = np.empty(asrc.shape, np.float32)
+    lib.esc_gather_planes(
+        _ptr(asrc, I32), _ptr(bsrc, I32), _ptr(ad, F64), _ptr(bd, F64),
+        ctypes.c_int64(asrc.size), _ptr(av, F32), _ptr(bv, F32))
+    return av, bv

@@ -1,5 +1,6 @@
-"""Card-only checks of the PyTorch port: the CUDA strip kernel against its
-plain PyTorch version, and the public entry points on a CUDA device.
+"""Card-only checks of the PyTorch port: the CUDA strip kernel and the
+three ESC scan kernels against their plain PyTorch versions, and the public
+entry points on a CUDA device.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it also runs on a machine that has only torch:
@@ -9,7 +10,9 @@ no JAX, so it also runs on a machine that has only torch:
 Tolerances: integer values are exact in f32 and must agree exactly;
 Gaussian values are summed in another order (rtol 1e-5, atol
 1e-6*max|C|; TF32 would miss by ~1e-3). Counts are exact f32 sums of 0/1
-products in both versions and must be equal.
+products in both versions and must be equal. The scan kernels add in
+their plain versions' order, with no contraction, so they must be
+bit-equal to them on any values.
 """
 
 import numpy as np
@@ -17,9 +20,10 @@ import pytest
 import torch
 
 import spgemm_tpu_torch as pt
-from spgemm_tpu_torch.ops import kernels
+from spgemm_tpu_torch.ops import golden, kernels, scan_kernels
+from spgemm_tpu_torch.ops.esc import gather_planes, scan_dd_planes
 from spgemm_tpu_torch.ops.gustavson import build_strip_args
-from spgemm_tpu_torch.utils.generators import banded, cantlike
+from spgemm_tpu_torch.utils.generators import banded, cantlike, random_uniform
 
 pytestmark = pytest.mark.cuda
 
@@ -104,4 +108,93 @@ def test_cli_on_card(card, tmp_path, capsys):
             f.write(f"{r} {c} {v:.17g}\n")
     assert main(["-d", "cuda:0", str(p), "64", "128"]) == 0
     out = capsys.readouterr().out
+    assert "check (values vs scipy oracle): [PASSED]" in out
+
+
+def _scan_matrix(kind: str, values: str):
+    rng = np.random.default_rng(9)
+    a = (random_uniform(rng, 4000, 8) if kind == "random"
+         else banded(rng, 1024, 40, fill=1.0))  # windows > COMBINE_K rows
+    if values == "gaussian":
+        a = a.with_data(rng.standard_normal(a.nnz))
+    return a
+
+
+@pytest.mark.parametrize("kind", ["random", "band"])
+@pytest.mark.parametrize("group_rows", [1, 4])
+@pytest.mark.parametrize("values", ["integer", "gaussian"])
+def test_scan_kernels_match_plain(card, kind, group_rows, values):
+    a = _scan_matrix(kind, values)
+    plan = pt.build_esc_scan_plan(a, a, group_rows=group_rows)
+    meta = torch.from_numpy(plan.meta16()).to(card)
+    up = lambda x: torch.from_numpy(x).to(card)
+    kw = dict(passes=plan.passes, group_rows=group_rows)
+    qv = up(plan.qv)
+    av, bv = map(up, gather_planes(plan, a.data, a.data))
+    qh, ql = map(up, scan_dd_planes(plan, a.data, a.data))
+    cases = ((scan_kernels.esc_scan, scan_kernels.esc_scan_plain, (qv,)),
+             (scan_kernels.esc_scan_mul, scan_kernels.esc_scan_mul_plain,
+              (av, bv)),
+             (scan_kernels.esc_scan_dd, scan_kernels.esc_scan_dd_plain,
+              (qh, ql)))
+    for wrapper, plain, planes in cases:
+        before = (wrapper.kernel_launches, wrapper.plain_launches)
+        got = wrapper(*planes, meta, **kw)
+        exp = plain(*planes, meta, **kw)
+        torch.cuda.synchronize()
+        assert (wrapper.kernel_launches, wrapper.plain_launches) == (
+            before[0] + 1, before[1])
+        for g, e in zip(got if isinstance(got, tuple) else (got,),
+                        exp if isinstance(exp, tuple) else (exp,)):
+            assert torch.equal(g, e), wrapper.__name__
+
+
+def test_esc_entry_points_on_card_match_cpu(card):
+    a = _scan_matrix("random", "integer")
+    before = scan_kernels.esc_scan.kernel_launches
+    gc, res = pt.spgemm_csr(a, device=card)
+    hc, _ = pt.spgemm_csr(a, device="cpu")
+    assert res.stats["backend"] == "esc" and res.c is None
+    assert gc.pattern_equal(hc) and np.array_equal(gc.data, hc.data)
+    ref = golden.spgemm_scipy(a, a)
+    got = golden.drop_explicit_zeros(gc)
+    assert got.pattern_equal(ref) and np.array_equal(got.data, ref.data)
+    assert scan_kernels.esc_scan.kernel_launches == before + 1
+    for mode in ("premul", "mul"):
+        ex = pt.EscExecutor(res.schedule, mode=mode, device=card)
+        ec = ex.run_csr()
+        assert ec.pattern_equal(hc) and np.array_equal(ec.data, hc.data)
+        assert ex.time_numeric(warmup=1, iters=3) > 0
+
+    ag = a.with_data(np.random.default_rng(2).standard_normal(a.nnz))
+    before = scan_kernels.esc_scan_dd.kernel_launches
+    gc, res = pt.spgemm_csr(ag, compute_dtype=torch.float64, device=card)
+    hc, _ = pt.spgemm_csr(ag, compute_dtype=torch.float64, device="cpu")
+    assert scan_kernels.esc_scan_dd.kernel_launches == before + 1
+    assert gc.pattern_equal(hc) and np.array_equal(gc.data, hc.data)
+
+
+def test_esc_plan_used_on_cpu_then_card(card):
+    a = _scan_matrix("band", "integer")
+    plan = pt.build_esc_scan_plan(a, a)
+    hc = pt.EscExecutor(plan, device="cpu").run_csr()
+    gc = pt.EscExecutor(plan, device=card).run_csr()
+    assert sorted(plan._combine_dev) == ["cpu", "cuda:0"]
+    assert gc.pattern_equal(hc) and np.array_equal(gc.data, hc.data)
+
+
+def test_cli_esc_f64_on_card(card, tmp_path, capsys):
+    from spgemm_tpu_torch.cli import main
+
+    a = _scan_matrix("random", "gaussian")
+    p = tmp_path / "u.mtx"
+    rows = a.rows_expanded() + 1
+    with open(p, "w") as f:
+        f.write("%%MatrixMarket matrix coordinate real general\n")
+        f.write(f"{a.m} {a.n} {a.nnz}\n")
+        for r, c, v in zip(rows, a.indices + 1, a.data):
+            f.write(f"{r} {c} {v:.17g}\n")
+    assert main(["-d", "cuda:0", str(p), "--dtype", "f64"]) == 0
+    out = capsys.readouterr().out
+    assert "numtile(C): 0" in out
     assert "check (values vs scipy oracle): [PASSED]" in out

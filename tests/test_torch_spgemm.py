@@ -74,10 +74,11 @@ def test_spgemm_tiles_64x128_matches_jax():
 @pytest.mark.parametrize("call,match", [
     (lambda a: pt.spgemm_csr(a, backend="gustavson", device="cpu"),
      "Orchestrator fallbacks"),
-    (lambda a: pt.spgemm_csr(a, backend="esc", device="cpu"),
+    (lambda a: pt.spgemm_esc(a, a, mode="digit", device="cpu"),
      "ESC unstructured route"),
-    (lambda a: pt.spgemm_csr(a, compute_dtype=torch.float64, device="cpu"),
-     "f64"),
+    (lambda a: pt.spgemm_csr(a.with_data(a.data + 0.5),
+                             compute_dtype=torch.float64, backend="strip",
+                             device="cpu"), "f64"),
     (lambda a: pt.spgemm(pt.csr_to_tiles(a, 8, 16), pt.csr_to_tiles(a, 16, 16),
                          backend="ozaki", device="cpu"), "f64"),
     (lambda a: pt.spgemm(pt.csr_to_tiles(a, 8, 16), pt.csr_to_tiles(a, 16, 16),
@@ -91,10 +92,14 @@ def test_unported_routes_raise(make_random_csr, call, match):
 
 def test_auto_route_to_esc_raises_instead_of_running_strip(make_random_csr):
     a = to_port(make_random_csr(256, 256, 0.01))  # unstructured: ESC route
-    with pytest.raises(NotImplementedError, match="ESC unstructured route"):
-        pt.spgemm_csr(a, device="cpu")
-    c, res = pt.spgemm_csr(a, backend="strip", device="cpu")
+    before = kernels.strip_numeric.plain_launches
+    c, res = pt.spgemm_csr(a, device="cpu")
+    # the ESC route runs now: the strip route is not taken in its place
+    assert res.stats["backend"] == "esc" and res.c is None
+    assert kernels.strip_numeric.plain_launches == before
+    c2, res = pt.spgemm_csr(a, backend="strip", device="cpu")
     assert res.stats["backend"] == "strip"
+    assert c2.pattern_equal(c) and np.array_equal(c2.data, c.data)
 
 
 def test_unknown_backend_and_device(make_random_csr):
