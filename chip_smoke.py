@@ -4,9 +4,10 @@
 
 Phases (each prints a line; any failure exits non-zero, with no result):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the strip kernel and the ESC scan kernels from
-     spgemm_tpu_torch/csrc with nvcc (one nvcc per source, started
-     together) and print the build seconds and the ptxas register report;
+  2. build the strip kernel, the ESC scan kernels and the Ozaki strip
+     kernel from spgemm_tpu_torch/csrc with nvcc (one nvcc per source,
+     all started together) and print the build seconds and the ptxas
+     register report;
   3. compare the strip kernel with its plain PyTorch version on the card,
      on random banded plans: 64x128 and 16x128 A tiles (B 128x128),
      integer values (equal exactly) and Gaussian values (rtol 1e-5, atol
@@ -37,7 +38,25 @@ Phases (each prints a line; any failure exits non-zero, with no result):
   9. time the ESC path at rmat65536 (host plan, upload, kernels and their
      plain versions with CUDA events, combine, download) and print device
      GFLOPS = 2*F / mul-kernel ms;
- 10. print the kernels JSON line, then the contract line
+ 10. compare the Ozaki strip kernel with its plain version on random
+     banded plans: 16x128 and 32x128 A tiles, integer values (S = 1),
+     Gaussian values (S = 8x8) at the plan's pmax 7 and at pmax 14 (all
+     groups), and Gaussian A times wide-integer B (sa != sb) at pmax
+     below, at and past sa+sb-2: h, m, l and counts bit-equal
+     (torch.equal) in every case;
+ 11. drive the structured f64 path: C = A^2 on the cant-like matrix with
+     default_rng(0) standard-normal values through
+     spgemm_csr(tm=32, compute_dtype=float64, device="cuda"), counters
+     zeroed just before: auto routing must pick ozaki-strip(S=8x8), the
+     kernel must launch and its plain version must not run, C's pattern
+     must equal scipy's and its error be at most 1e-12*max|C|; then the
+     integer model through spgemm(backend="ozaki") at S = 1, equal to
+     scipy exactly;
+ 12. time it: symbolic_ms (host, best of 5), the kernel's ms (CUDA
+     events, median of 30) and the plain version's on the same plan (bit
+     equal there too), f64 GFLOPS = 2*nnzCub / (symbolic_ms + kernel ms),
+     spgemm_csr's phase split and the peak device memory;
+ 13. print the kernels JSON line, then the contract line
      {"ok": true, "device": {...}} as the last line.
 """
 
@@ -53,6 +72,8 @@ TM, TN = 64, 128                # bench.py's tiles: A 64x128, B 128x128
 GAUSS_RTOL = 1e-5               # f32, summation order differs
 SUITE_N = 65536                 # tools/run_suite.py's full-size suite
 F64_RTOL, F64_ATOL = 1e-10, 1e-11  # tests/test_esc.py:334 (atol x max|C|)
+OZ_TM = 32                      # the tile height the JAX route was tuned at
+OZ_RTOL = 1e-12                 # tests/test_ozaki.py:306 (x max|C|)
 
 
 class SmokeFailure(Exception):
@@ -110,16 +131,18 @@ def build_kernels() -> None:
     """Phase 2: one nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from spgemm_tpu_torch.ops import kernels, scan_kernels
+    from spgemm_tpu_torch.ops import kernels, ozaki_kernels, scan_kernels
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         futs = [pool.submit(kernels.load_strip_kernel),
-                pool.submit(scan_kernels.load_scan_kernel)]
+                pool.submit(scan_kernels.load_scan_kernel),
+                pool.submit(ozaki_kernels.load_ozaki_kernel)]
         for f in futs:
             f.result()
-    print(f"phase build: both kernels in {time.perf_counter() - t0!r} s")
-    for info in (kernels.build_info, scan_kernels.build_info):
+    print(f"phase build: three sources in {time.perf_counter() - t0!r} s")
+    for info in (kernels.build_info, scan_kernels.build_info,
+                 ozaki_kernels.build_info):
         print(f"phase build: {info['seconds']!r} s -> {info['path']}")
         for ln in info["ptxas"].splitlines():
             if "registers" in ln:
@@ -353,6 +376,165 @@ def run_f64_path(suite: dict) -> dict:
                 max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
+def compare_ozaki_plans() -> None:
+    """Phase 10: the Ozaki strip kernel against its plain version."""
+    import torch
+
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import ozaki_kernels as ok
+    from spgemm_tpu_torch.ops.ozaki import build_ozaki_strip
+    from spgemm_tpu_torch.utils.generators import banded
+
+    rng = np.random.default_rng(13)
+    for tm in (16, 32):
+        a = banded(rng, 3000, 64)
+        ag = a.with_data(rng.standard_normal(a.nnz))
+        aw = a.with_data(rng.integers(-2 ** 20, 2 ** 20, a.nnz)
+                         .astype(np.float64))
+        # (label, A, B, expected (sa, sb), pmax values; None = the plan's)
+        cases = (("integer", a, a, (1, 1), (None,)),
+                 ("gaussian", ag, ag, (8, 8), (None, 14)),
+                 ("gaussian x wide-int", ag, aw, (8, 3), (2, None, 9, 14)))
+        for label, x, y, sizes, pmaxes in cases:
+            plan = build_ozaki_strip(csr_to_tiles(x, tm, TN),
+                                     csr_to_tiles(y, TN, TN))
+            check((plan.sa, plan.sb) == sizes,
+                  f"{label}: S={plan.sa}x{plan.sb}, expected {sizes}")
+            ops = plan.to_device("cuda")
+            for pm in pmaxes:
+                kw = plan.kernel_kwargs()
+                if pm is not None:
+                    kw["pmax"] = pm
+                got = ok.ozaki_strip_numeric(*ops, **kw)
+                exp = ok.ozaki_strip_numeric_plain(*ops, **kw)
+                torch.cuda.synchronize()
+                equal = [torch.equal(g, e) for g, e in zip(got, exp)]
+                err = max((g - e).abs().max().item()
+                          for g, e in zip(got, exp))
+                print(f"phase ozaki-compare: tiles {tm}x{TN} {label} "
+                      f"S={plan.sa}x{plan.sb} pmax={kw['pmax']} "
+                      f"slots={got[0].shape[0]} max_abs_err={err!r} "
+                      f"bit_equal(h, m, l, cnt)={equal}")
+                check(all(equal), f"the Ozaki kernel differs from its plain "
+                                  f"version ({tm}x{TN}, {label}, pmax "
+                                  f"{kw['pmax']}): {err}")
+
+
+def run_ozaki_path(a_int, ref_int) -> dict:
+    """Phases 11 and 12: the structured f64 path on the cant-like matrix
+    with Gaussian values, the integer model through backend="ozaki",
+    then the timings. Returns the kernels JSON entry of the Ozaki kernel."""
+    import torch
+
+    from spgemm_tpu_torch.models.csr import flop_count_spgemm
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import golden, kernels
+    from spgemm_tpu_torch.ops import ozaki_kernels as ok
+    from spgemm_tpu_torch.ops import scan_kernels as sk
+    from spgemm_tpu_torch.ops.gustavson import run_strip_symbolic
+    from spgemm_tpu_torch.ops.spgemm import spgemm, spgemm_csr
+    from spgemm_tpu_torch.utils.timing import cuda_event_ms
+
+    oz = ok.ozaki_strip_numeric
+    others = (kernels.strip_numeric, sk.esc_scan, sk.esc_scan_mul,
+              sk.esc_scan_dd)
+    a = a_int.with_data(np.random.default_rng(0).standard_normal(a_int.nnz))
+    nnz_cub = flop_count_spgemm(a, a)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters(oz, *others)
+    t0 = time.perf_counter()
+    c, res = spgemm_csr(a, tm=OZ_TM, tn=TN, compute_dtype=torch.float64,
+                        device="cuda")
+    torch.cuda.synchronize()
+    csr_s = time.perf_counter() - t0
+    csr_peak = torch.cuda.max_memory_allocated()
+    launches = (oz.kernel_launches, oz.plain_launches)
+    other = {w.__name__: w.kernel_launches + w.plain_launches for w in others}
+    plan = res.schedule
+    s = plan.sargs
+    print(f"phase f64-strip: cant-like {ROWS}x{ROWS} Gaussian nnz={a.nnz} "
+          f"nnzCub={nnz_cub} backend={res.stats['backend']} spgemm_csr "
+          f"{csr_s!r} s; plan S={plan.sa}x{plan.sb} pmax={plan.pmax} "
+          f"stack_rows={plan.stack_rows} av8={plan.av8.shape} "
+          f"bv8={plan.bv8.shape} kwin={s.kwin} max_b={s.max_b} "
+          f"max_ablock={s.max_ablock} max_cblock={s.max_cblock} "
+          f"block_rows={s.block_rows} nt_c={s.nt_c} pairs={s.num_pairs} "
+          f"padded_slots={-(-s.gm // s.block_rows) * s.max_cblock}")
+    print(f"phase f64-strip: launches (kernel, plain)={launches} "
+          f"other wrappers={other}")
+    check(res.stats["backend"] == "ozaki-strip(S=8x8)",
+          f"auto routing picked {res.stats['backend']} for the f64 cant-like")
+    check(launches[0] >= 1 and launches[1] == 0,
+          f"the f64 path did not run through the Ozaki kernel: {launches}")
+    t0 = time.perf_counter()
+    ref = golden.spgemm_scipy(a, a)
+    print(f"phase f64-strip: scipy oracle {time.perf_counter() - t0!r} s")
+    got = golden.drop_explicit_zeros(c)
+    pat = got.pattern_equal(ref)
+    scale = float(np.abs(ref.data).max())
+    c_err = float(np.abs(got.data - ref.data).max()) if pat else float("inf")
+    print(f"phase check: f64 cant-like nnzC={got.nnz} oracle nnzC={ref.nnz} "
+          f"pattern_equal={pat} max_abs_err={c_err!r} max|C|={scale!r} "
+          f"err/max|C|={c_err / scale!r} (limit {OZ_RTOL})")
+    check(pat and c_err <= OZ_RTOL * scale,
+          "f64 cant-like result differs from the scipy oracle")
+    del c, got, ref
+
+    at_int = csr_to_tiles(a_int, OZ_TM, TN)
+    bt_int = csr_to_tiles(a_int, TN, TN)
+    _zero_counters(oz)
+    ires = spgemm(at_int, bt_int, backend="ozaki", device="cuda")
+    torch.cuda.synchronize()
+    ilaunch = (oz.kernel_launches, oz.plain_launches)
+    print(f"phase f64-strip: integer model backend={ires.stats['backend']} "
+          f"launches (kernel, plain)={ilaunch}")
+    check(ires.stats["backend"] == "ozaki-strip(S=1x1)"
+          and ilaunch[0] >= 1 and ilaunch[1] == 0,
+          "the integer model did not run the Ozaki kernel at S=1")
+    _check_exact("spgemm(backend=ozaki) integer", ires.c.to_csr(), ref_int)
+    del ires, at_int, bt_int
+
+    # --- phase 12: timings at the main plan ---------------------------
+    at = csr_to_tiles(a, OZ_TM, TN)
+    bt = csr_to_tiles(a, TN, TN)
+    sym_ms = float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run_strip_symbolic(at, bt, s.block_rows, s.max_b, s.max_ablock)
+        sym_ms = min(sym_ms, (time.perf_counter() - t0) * 1e3)
+    ops = plan.to_device("cuda")
+    kw = plan.kernel_kwargs()
+    got = oz(*ops, **kw)
+    exp = ok.ozaki_strip_numeric_plain(*ops, **kw)
+    torch.cuda.synchronize()
+    err = max((g - e).abs().max().item() for g, e in zip(got, exp))
+    check(all(torch.equal(g, e) for g, e in zip(got, exp)),
+          f"the Ozaki kernel differs from its plain version on the main "
+          f"plan: {err}")
+    del got, exp
+    ms = cuda_event_ms(lambda: oz(*ops, **kw), warmup=3, iters=30)
+    plain_ms = cuda_event_ms(lambda: ok.ozaki_strip_numeric_plain(*ops, **kw),
+                             warmup=1, iters=5)
+    gflops = 2.0 * nnz_cub / ((sym_ms + ms) * 1e6)
+    tms = res.timings_ms
+    print(f"phase f64-strip-time: symbolic_ms={sym_ms!r} kernel_ms={ms!r} "
+          f"plain_ms={plain_ms!r} max_abs_err={err!r} f64 gflops={gflops!r} "
+          f"(2*nnzCub/(symbolic+kernel); reference GPU bar 52.63)")
+    print(f"phase f64-strip-time: spgemm_csr wall_s={csr_s!r} "
+          f"symbolic_ms={tms['symbolic_ms']!r} prep_ms={tms['prep_ms']!r} "
+          f"upload_ms={tms['upload_ms']!r} numeric_ms={tms['numeric_ms']!r} "
+          f"(kernel + gather) compact_ms={tms['compact_ms']!r} (download + "
+          f"host epilogue); peak device memory {csr_peak!r} bytes in "
+          f"spgemm_csr, {torch.cuda.max_memory_allocated()!r} with the plain "
+          f"version")
+    return dict(name="ozaki_strip", route="cuda",
+                source="spgemm_tpu_torch/csrc/ozaki_strip.cu",
+                replaces="spgemm_tpu/ops/pallas_kernels.py:971",
+                launches=launches[0], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms)
+
+
 def run() -> dict:
     import torch
 
@@ -452,6 +634,11 @@ def run() -> dict:
     esc_entries = run_esc_path(suite)
     torch.cuda.empty_cache()
     dd_entry = run_f64_path(suite)
+    del suite
+    torch.cuda.empty_cache()
+
+    compare_ozaki_plans()
+    oz_entry = run_ozaki_path(a, ref)
 
     return {
         "kernels": [{
@@ -464,7 +651,7 @@ def run() -> dict:
             "max_abs_err": max_abs_err,
             "ms": numeric_ms,
             "plain_ms": plain_ms,
-        }] + esc_entries + [dd_entry],
+        }] + esc_entries + [dd_entry, oz_entry],
         # the number of cards this run uses
         "device": {"platform": "gpu", "kind": dev_name, "count": 1},
     }

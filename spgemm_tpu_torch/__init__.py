@@ -11,6 +11,9 @@ Layout mirrors the JAX package:
               csrc/strip_numeric.cu), the ESC scan route for unstructured
               patterns (esc.py) with its three CUDA scan kernels and their
               plain versions (scan_kernels.py, source in csrc/esc_scan.cu),
+              the Ozaki route for f64 on structured patterns (ozaki.py)
+              with its CUDA kernel and plain version (ozaki_kernels.py,
+              source in csrc/ozaki_strip.cu),
               orchestrator (spgemm.py), resident executors (executor.py),
               scipy oracle (golden.py).
   * io/     — Matrix Market reader.
@@ -24,6 +27,7 @@ card; "cpu" runs the plain PyTorch versions (the tests use it).
 from spgemm_tpu_torch.models.csr import CSR
 from spgemm_tpu_torch.models.tile import TileMat, csr_to_tiles, tiles_to_csr
 from spgemm_tpu_torch.ops.esc import ScanPlan, build_esc_scan_plan, spgemm_esc
+from spgemm_tpu_torch.ops.ozaki import spgemm_ozaki
 from spgemm_tpu_torch.ops.spgemm import SpGEMMResult, spgemm, spgemm_csr
 from spgemm_tpu_torch.ops.executor import EscExecutor, StripExecutor
 from spgemm_tpu_torch.io.mmio import read_mtx
@@ -38,6 +42,7 @@ __all__ = [
     "SpGEMMResult",
     "StripExecutor",
     "spgemm_esc",
+    "spgemm_ozaki",
     "build_esc_scan_plan",
     "ScanPlan",
     "EscExecutor",

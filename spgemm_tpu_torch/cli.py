@@ -6,9 +6,10 @@ reference's `./test` binary:
 Prints the same lines as the JAX package's CLI (matrix info, load time,
 tile size, flops, conversion ms, format space, step times, tile/nnz
 counts, runtime + GFLOPS, check verdict) and appends the four CSV sinks.
-`--backend` takes auto|strip|esc: auto sends unstructured inputs to the
-ESC scan route. `--dtype f64` follows spgemm_csr's f64 routing and exits 2
-naming the ROADMAP.md item where that routing has no ported engine.
+`--backend` takes auto|strip|esc|ozaki: auto sends unstructured inputs to
+the ESC scan route, ozaki runs the f64 Ozaki route. `--dtype f64` follows
+spgemm_csr's f64 routing (structured inputs run the Ozaki route) and exits
+2 naming the ROADMAP.md item where that routing has no ported engine.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("tile_m", nargs="?", type=int, default=16)
     p.add_argument("tile_n", nargs="?", type=int, default=128)
     p.add_argument("--backend", default="auto",
-                   choices=["auto", "strip", "esc"])
+                   choices=["auto", "strip", "esc", "ozaki"])
     p.add_argument("--dtype", default="f32", choices=["f32", "f64"])
     p.add_argument("--check", default="values",
                    choices=["none", "pattern", "values"],

@@ -1,8 +1,9 @@
 """SpGEMM orchestrator (port of `spgemm_tpu/ops/spgemm.py`): the strip
 route (tile, plan, run the strip numeric phase on the device, compact back
-to the tiled format and to CSR) and the ESC scan route for unstructured
-patterns (CSR in, CSR out), with per-phase timings and the JAX package's
-auto router, f64 routing included.
+to the tiled format and to CSR), the ESC scan route for unstructured
+patterns (CSR in, CSR out) and the Ozaki route for f64 on structured
+patterns, with per-phase timings and the JAX package's auto router, f64
+routing included.
 
 Routes the port does not have yet raise NotImplementedError naming their
 ROADMAP.md item; nothing falls back to another route.
@@ -21,6 +22,7 @@ from spgemm_tpu_torch.models.tile import (TileMat, _build_tilemat, cdiv,
                                           csr_to_tiles)
 from spgemm_tpu_torch.ops import esc, kernels
 from spgemm_tpu_torch.ops.gustavson import build_strip_args, strip_numeric
+from spgemm_tpu_torch.ops.ozaki import OzakiOverflow, spgemm_ozaki
 from spgemm_tpu_torch.utils.timing import resolve_device
 
 # ROADMAP.md "Queue 1" items that port the routes this module refuses
@@ -31,7 +33,6 @@ _ROADMAP_ITEM = {
     "gustavson": "Orchestrator fallbacks",
     "dense": "Orchestrator fallbacks",
     "xla": "Orchestrator fallbacks",
-    "ozaki": "f64",
 }
 
 
@@ -44,7 +45,7 @@ def _not_ported(what: str, key: str) -> NotImplementedError:
 @dataclasses.dataclass
 class SpGEMMResult:
     c: TileMat | None  # None on the ESC route, which builds no tiles
-    schedule: object  # the plan: StripArgs (strip) or ScanPlan (esc)
+    schedule: object  # the plan: StripArgs, ScanPlan or OzakiStripPlan
     timings_ms: dict[str, float]
     stats: dict[str, float]
 
@@ -90,7 +91,10 @@ def _resolve_backend(a: TileMat, b: TileMat, backend: str,
 def spgemm(a: TileMat, b: TileMat, *, compute_dtype=torch.float32,
            backend: str = "auto", device=None) -> SpGEMMResult:
     """Sparse C = A @ B on the tiled format through the strip route
-    (backend "auto" or "strip"). `device` None means CUDA."""
+    (backend "auto" or "strip"), or in f64 through the Ozaki route
+    (backend "ozaki", whatever compute_dtype). `device` None means CUDA."""
+    if backend == "ozaki":
+        return spgemm_ozaki(a, b, device=device)
     if compute_dtype != torch.float32:
         raise _not_ported(f"compute_dtype={compute_dtype}", "f64")
     dev = resolve_device(device)
@@ -168,11 +172,11 @@ def spgemm_csr(a: CSR, b: CSR | None = None, *, tm: int = 16, tn: int = 128,
 
     backend "auto" keeps the JAX package's router: unstructured patterns
     go to the ESC scan route (no tiling), the rest to the strip route.
-    backend "esc" and "strip" pick a route. compute_dtype float64 follows
-    the JAX package's f64 routing: integer data whose f32 sums are exact
-    takes the f32 route; otherwise unstructured patterns (and backend
-    "esc") run the double-double scan, and structured ones raise
-    NotImplementedError (their Ozaki engine is not ported)."""
+    backend "esc", "strip" and "ozaki" pick a route. compute_dtype
+    float64 follows the JAX package's f64 routing: integer data whose f32
+    sums are exact takes the f32 route; otherwise structured patterns run
+    the Ozaki route (strict: OzakiOverflow sends them on), and the rest,
+    like backend "esc", the double-double scan."""
     f64 = esc.is_f64(compute_dtype)
     if backend == "esc":
         return _spgemm_csr_esc(a, b, aat=aat, f64=f64, device=device)
@@ -184,18 +188,19 @@ def spgemm_csr(a: CSR, b: CSR | None = None, *, tm: int = 16, tn: int = 128,
                                     device=device)
                 res.stats["backend"] = f"{res.stats['backend']}(f64-exact-int)"
                 return c, res
-            occ = tile_occupancy_estimate(a, tm, tn)
-            if occ >= ESC_OCCUPANCY_TH:
-                raise _not_ported(
-                    f"f64 on a structured pattern ({occ:.1f} nnz per tile: "
-                    f"the Ozaki strip engine)", "f64")
+            if tile_occupancy_estimate(a, tm, tn) >= ESC_OCCUPANCY_TH:
+                try:
+                    return _spgemm_csr_tiled_f64(a, b, aat=aat, tm=tm, tn=tn,
+                                                 device=device)
+                except OzakiOverflow:
+                    pass
             return _spgemm_csr_esc(a, b, aat=aat, f64=True, device=device)
         occ = tile_occupancy_estimate(a, tm, tn)
         if occ < ESC_OCCUPANCY_TH or (
                 occ < ESC_STRUCTURED_OCC_TH
                 and _mxu_reuse(a, b, aat) < ESC_REUSE_TH):
             return _spgemm_csr_esc(a, b, aat=aat, f64=False, device=device)
-    elif f64:
+    elif f64 and backend != "ozaki":
         raise _not_ported(f"compute_dtype=float64 with backend={backend!r}",
                           "f64")
     at = csr_to_tiles(a, tm, tn)
@@ -225,6 +230,19 @@ def _f32_exact_for(a: CSR, b: CSR | None, aat: bool) -> bool:
         vmax_b = float(np.abs(bd).max()) if bd.size else 0.0
     kmax = int(np.diff(a.indptr).max()) if a.nnz else 0
     return vmax_a * vmax_b * max(kmax, 1) < 2 ** 24
+
+
+def _spgemm_csr_tiled_f64(a: CSR, b: CSR | None, *, aat: bool, tm: int,
+                          tn: int, device) -> tuple[CSR, SpGEMMResult]:
+    """Structured-f64 branch of spgemm_csr: tile, then the Ozaki route
+    with strict=True, so data whose per-row significand span is far
+    beyond the slice window raises OzakiOverflow and the caller runs the
+    double-double scan. Raises OzakiOverflow when the int32 accumulation
+    bound fails too."""
+    at = csr_to_tiles(a, tm, tn)
+    bt = _tile_b_role(a, b, at, aat, tm, tn)
+    res = spgemm_ozaki(at, bt, device=device, strict=True)
+    return _csr_result_tail(res, a, b, aat)
 
 
 def _spgemm_csr_esc(a: CSR, b: CSR | None, *, aat: bool, f64: bool,

@@ -35,6 +35,7 @@ _lock = threading.Lock()
 _lib = None
 _tried = False
 
+I8 = ctypes.POINTER(ctypes.c_int8)
 I32 = ctypes.POINTER(ctypes.c_int32)
 I64 = ctypes.POINTER(ctypes.c_int64)
 U16 = ctypes.POINTER(ctypes.c_uint16)
@@ -98,7 +99,8 @@ def get_lib():
         lib.gustavson_symbolic_count.restype = ctypes.c_int64
         lib.esc_scan_build.restype = ctypes.c_int64
         for fn in (lib.esc_refresh_qv, lib.esc_refresh_dd,
-                   lib.esc_gather_planes):
+                   lib.esc_gather_planes, lib.ozaki_absmax, lib.ozaki_span,
+                   lib.ozaki_slice_a, lib.ozaki_slice_b):
             fn.restype = None
         _lib = lib
         return _lib
@@ -410,3 +412,106 @@ def esc_gather_planes_native(asrc, bsrc, a_data, b_data):
         _ptr(asrc, I32), _ptr(bsrc, I32), _ptr(ad, F64), _ptr(bd, F64),
         ctypes.c_int64(asrc.size), _ptr(av, F32), _ptr(bv, F32))
     return av, bv
+
+
+def _tile_csr(t):
+    return (np.ascontiguousarray(t.tnnz_ptr, np.int32),
+            np.ascontiguousarray(t.rc, np.int32),
+            np.ascontiguousarray(t.val, np.float64))
+
+
+def ozaki_scales_native(t, axis: int):
+    """Per-row (axis=0) or per-column (axis=1) |v| maxima of a TileMat,
+    shape (gdim*span,) f64: the scale pass of ops/ozaki.py's
+    _scales_and_slices_prep, from tile CSR (no dense cube). None if the
+    native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    span = t.tm if axis == 0 else t.tn
+    gdim = t.gm if axis == 0 else t.gn
+    owner = np.ascontiguousarray(t.trow if axis == 0 else t.tcol, np.int32)
+    tnnz, rc, val = _tile_csr(t)
+    out = np.zeros(gdim * span, np.float64)
+    lib.ozaki_absmax(
+        _ptr(tnnz, I32), _ptr(rc, I32), _ptr(val, F64), _ptr(owner, I32),
+        ctypes.c_int64(t.nt), ctypes.c_int64(t.tn),
+        ctypes.c_int64(span), ctypes.c_int64(axis), _ptr(out, F64))
+    return out
+
+
+def ozaki_span_native(t, axis: int, exps: np.ndarray):
+    """(bit span, |v| max, nonzero |v| min) of a TileMat against its
+    scale exponents: ops/ozaki.py:_span_slices plus the extreme-span
+    routing stats, from tile CSR. None if unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    span = t.tm if axis == 0 else t.tn
+    gdim = t.gm if axis == 0 else t.gn
+    owner = np.ascontiguousarray(t.trow if axis == 0 else t.tcol, np.int32)
+    tnnz, rc, val = _tile_csr(t)
+    e = np.ascontiguousarray(exps, np.int64)
+    if e.size != gdim * span:
+        raise ValueError(f"exps: need {gdim * span} exponents, got {e.size}")
+    out3 = np.zeros(3, np.float64)
+    lib.ozaki_span(
+        _ptr(tnnz, I32), _ptr(rc, I32), _ptr(val, F64), _ptr(owner, I32),
+        ctypes.c_int64(t.nt), ctypes.c_int64(t.tn),
+        ctypes.c_int64(span), ctypes.c_int64(axis), _ptr(e, I64),
+        _ptr(out3, F64))
+    return int(out3[0]), float(out3[1]), float(out3[2])
+
+
+def _check_int8_out(name: str, arr: np.ndarray, shape_tail: tuple,
+                    min_rows: int) -> None:
+    # the C passes trust the layout: validate it at the ctypes boundary
+    if (arr.dtype != np.int8 or not arr.flags.c_contiguous
+            or arr.ndim != 3 or arr.shape[1:] != shape_tail
+            or arr.shape[0] < min_rows):
+        raise ValueError(f"{name}: need a C-contiguous int8 array of shape "
+                         f"(>={min_rows}, {shape_tail[0]}, {shape_tail[1]}), "
+                         f"got {arr.dtype} {arr.shape}")
+
+
+def ozaki_slice_a_native(t, sa: int, stack_rows: int, ea: np.ndarray,
+                         av8: np.ndarray) -> bool:
+    """Write A's int8 digit stacks av8[t, s*tm + r, c] straight from
+    tile CSR into av8 (zeroed, (nt_pad, stack_rows, tk)). False if the
+    native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return False
+    if stack_rows < sa * t.tm:
+        raise ValueError(f"stack_rows {stack_rows} < sa*tm = {sa * t.tm}")
+    _check_int8_out("av8", av8, (stack_rows, t.tn), t.nt)
+    tnnz, rc, val = _tile_csr(t)
+    trow = np.ascontiguousarray(t.trow, np.int32)
+    e = np.ascontiguousarray(ea, np.int64)
+    lib.ozaki_slice_a(
+        _ptr(tnnz, I32), _ptr(rc, I32), _ptr(val, F64), _ptr(trow, I32),
+        ctypes.c_int64(t.nt), ctypes.c_int64(t.tm), ctypes.c_int64(t.tn),
+        ctypes.c_int64(sa), ctypes.c_int64(stack_rows), _ptr(e, I64),
+        _ptr(av8, I8))
+    return True
+
+
+def ozaki_slice_b_native(t, max_b: int, sb: int, eb: np.ndarray,
+                         bv8: np.ndarray) -> bool:
+    """Write B's int8 digit stacks bv8[k, r, (s*max_b + y)*tn + c]
+    straight from tile CSR into bv8 (zeroed, (gk_pad, tk, sb*max_b*tn)).
+    False if the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return False
+    _check_int8_out("bv8", bv8, (t.tm, sb * max_b * t.tn), t.gm)
+    tptr = np.ascontiguousarray(t.tptr, np.int32)
+    tnnz, rc, val = _tile_csr(t)
+    tcol = np.ascontiguousarray(t.tcol, np.int32)
+    e = np.ascontiguousarray(eb, np.int64)
+    lib.ozaki_slice_b(
+        _ptr(tptr, I32), _ptr(tnnz, I32), _ptr(rc, I32), _ptr(val, F64),
+        _ptr(tcol, I32), ctypes.c_int64(t.gm), ctypes.c_int64(t.tm),
+        ctypes.c_int64(t.tn), ctypes.c_int64(max_b), ctypes.c_int64(sb),
+        _ptr(e, I64), _ptr(bv8, I8))
+    return True

@@ -48,13 +48,23 @@ def test_cli_matches_jax_contract(mtx_file, capsys, aat):
 
 def test_cli_refuses_f64_and_nonsquare(mtx_file, tmp_path, make_random_csr,
                                        capsys):
-    # f64 on a structured pattern with non-integer values needs the Ozaki
-    # engine, which is not ported
+    # f64 on a structured pattern with non-integer values runs the Ozaki
+    # route, through auto routing and through --backend ozaki, and gives
+    # the JAX CLI's C
     band = banded(np.random.default_rng(3), 300, 20)
     pb = tmp_path / "band.mtx"
     write_mtx(pb, band.with_data(band.data + 0.5))
-    assert p_main(["-d", "cpu", str(pb), "--dtype", "f64"]) == 2
-    assert "ROADMAP.md, Queue 1: f64" in capsys.readouterr().err
+    pick = lambda out: [ln for ln in out.splitlines()
+                        if ln.startswith(("nnz(C)", "numtile(C)", "nnzCub"))]
+    for extra in (["--dtype", "f64"],
+                  ["--backend", "ozaki", "--dtype", "f64"]):
+        assert j_main([str(pb)] + extra) == 0
+        j_out = capsys.readouterr().out
+        assert p_main(["-d", "cpu", str(pb)] + extra) == 0
+        p_out = capsys.readouterr().out
+        assert "[PASSED]" in p_out and "numtile(C): 0" not in p_out
+        assert _line_heads(p_out) == _line_heads(j_out)
+        assert pick(p_out) == pick(j_out)
     p = tmp_path / "r.mtx"
     write_mtx(p, make_random_csr(60, 40, 0.08))
     assert p_main(["-d", "cpu", str(p)]) == 2
@@ -95,7 +105,8 @@ def test_cli_csv_sinks(mtx_file, tmp_path, capsys):
 def test_import_loads_no_jax():
     code = ("import sys, spgemm_tpu_torch, spgemm_tpu_torch.cli, "
             "spgemm_tpu_torch.ops.executor, spgemm_tpu_torch.utils.generators, "
-            "spgemm_tpu_torch.ops.esc, spgemm_tpu_torch.ops.scan_kernels;"
+            "spgemm_tpu_torch.ops.esc, spgemm_tpu_torch.ops.scan_kernels, "
+            "spgemm_tpu_torch.ops.ozaki, spgemm_tpu_torch.ops.ozaki_kernels;"
             " bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'spgemm_tpu', 'ml_dtypes')];"
             " assert not bad, bad")

@@ -1,6 +1,6 @@
-"""Card-only checks of the PyTorch port: the CUDA strip kernel and the
-three ESC scan kernels against their plain PyTorch versions, and the public
-entry points on a CUDA device.
+"""Card-only checks of the PyTorch port: the CUDA strip kernel, the three
+ESC scan kernels and the Ozaki strip kernel against their plain PyTorch
+versions, and the public entry points on a CUDA device.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it also runs on a machine that has only torch:
@@ -12,7 +12,9 @@ Gaussian values are summed in another order (rtol 1e-5, atol
 1e-6*max|C|; TF32 would miss by ~1e-3). Counts are exact f32 sums of 0/1
 products in both versions and must be equal. The scan kernels add in
 their plain versions' order, with no contraction, so they must be
-bit-equal to them on any values.
+bit-equal to them on any values. So must the Ozaki kernel: its int32
+group sums are exact and its TwoSum reduce follows the plain version's
+order.
 """
 
 import numpy as np
@@ -20,9 +22,10 @@ import pytest
 import torch
 
 import spgemm_tpu_torch as pt
-from spgemm_tpu_torch.ops import golden, kernels, scan_kernels
+from spgemm_tpu_torch.ops import golden, kernels, ozaki_kernels, scan_kernels
 from spgemm_tpu_torch.ops.esc import gather_planes, scan_dd_planes
 from spgemm_tpu_torch.ops.gustavson import build_strip_args
+from spgemm_tpu_torch.ops.ozaki import build_ozaki_strip
 from spgemm_tpu_torch.utils.generators import banded, cantlike, random_uniform
 
 pytestmark = pytest.mark.cuda
@@ -198,3 +201,123 @@ def test_cli_esc_f64_on_card(card, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "numtile(C): 0" in out
     assert "check (values vs scipy oracle): [PASSED]" in out
+
+
+def _ozaki_plan(tm: int, case: str):
+    rng = np.random.default_rng(21)
+    a = banded(rng, 2000, 64)
+    if case == "integer":
+        x = y = a
+    else:
+        x = a.with_data(rng.standard_normal(a.nnz))
+        y = x if case == "gaussian" else a.with_data(
+            rng.integers(-2 ** 20, 2 ** 20, a.nnz).astype(np.float64))
+    return build_ozaki_strip(pt.csr_to_tiles(x, tm, 128),
+                             pt.csr_to_tiles(y, 128, 128))
+
+
+@pytest.mark.parametrize("tm", [16, 32])
+@pytest.mark.parametrize("case,sizes,pmax", [
+    ("integer", (1, 1), None), ("gaussian", (8, 8), None),
+    ("gaussian", (8, 8), 14), ("gaussian-x-wide-int", (8, 3), None),
+    ("gaussian-x-wide-int", (8, 3), 2)])
+def test_ozaki_kernel_matches_plain(card, tm, case, sizes, pmax):
+    plan = _ozaki_plan(tm, case)
+    assert (plan.sa, plan.sb) == sizes
+    ops = plan.to_device(card)
+    kw = plan.kernel_kwargs()
+    if pmax is not None:
+        kw["pmax"] = pmax
+    w = ozaki_kernels.ozaki_strip_numeric
+    before = (w.kernel_launches, w.plain_launches)
+    got = w(*ops, **kw)
+    exp = ozaki_kernels.ozaki_strip_numeric_plain(*ops, **kw)
+    torch.cuda.synchronize()
+    assert (w.kernel_launches, w.plain_launches) == (before[0] + 1,
+                                                     before[1])
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("tk", [48, 256])
+def test_ozaki_kernel_other_inner_tiles(card, tk):
+    # A tiles 32 x tk, B tiles tk x 128: k staged in 128-deep chunks with a
+    # zero-filled tail
+    rng = np.random.default_rng(22)
+    a = banded(rng, 1500, 64)
+    a = a.with_data(rng.standard_normal(a.nnz))
+    plan = build_ozaki_strip(pt.csr_to_tiles(a, 32, tk),
+                             pt.csr_to_tiles(a, tk, 128))
+    ops = plan.to_device(card)
+    got = ozaki_kernels.ozaki_strip_numeric(*ops, **plan.kernel_kwargs())
+    exp = ozaki_kernels.ozaki_strip_numeric_plain(*ops,
+                                                  **plan.kernel_kwargs())
+    torch.cuda.synchronize()
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+
+
+def test_ozaki_entry_points_on_card_match_cpu(card):
+    a0 = cantlike(3000, 64)
+    a = a0.with_data(np.random.default_rng(0).standard_normal(a0.nnz))
+    w = ozaki_kernels.ozaki_strip_numeric
+    before = (w.kernel_launches, w.plain_launches)
+    gc, res = pt.spgemm_csr(a, tm=32, compute_dtype=torch.float64,
+                            device=card)
+    assert (w.kernel_launches, w.plain_launches) == (before[0] + 1,
+                                                     before[1])
+    assert res.stats["backend"] == "ozaki-strip(S=8x8)"
+    hc, _ = pt.spgemm_csr(a, tm=32, compute_dtype=torch.float64,
+                          device="cpu")
+    assert gc.pattern_equal(hc) and np.array_equal(gc.data, hc.data)
+    ref = golden.spgemm_scipy(a, a)
+    got = golden.drop_explicit_zeros(gc)
+    assert got.pattern_equal(ref)
+    scale = np.abs(ref.data).max()
+    assert np.abs(got.data - ref.data).max() <= 1e-12 * scale
+
+    before = w.kernel_launches
+    res = pt.spgemm(pt.csr_to_tiles(a0, 16, 128),
+                    pt.csr_to_tiles(a0, 128, 128), backend="ozaki",
+                    device=card)
+    assert w.kernel_launches == before + 1
+    assert res.stats["backend"] == "ozaki-strip(S=1x1)"
+    got = golden.drop_explicit_zeros(res.c.to_csr())
+    ref = golden.spgemm_scipy(a0, a0)
+    assert got.pattern_equal(ref) and np.array_equal(got.data, ref.data)
+
+    empty = pt.CSR.from_coo([], [], np.zeros(0), (300, 300))
+    res = pt.spgemm(pt.csr_to_tiles(empty, 32, 128),
+                    pt.csr_to_tiles(empty, 128, 128), backend="ozaki",
+                    device=card)
+    assert res.c.nnz == 0 and res.stats["numblkC"] == 0
+
+
+def test_ozaki_rejects_unsupported_tiles(card):
+    a = cantlike(600, 16).with_data(
+        np.random.default_rng(1).standard_normal(cantlike(600, 16).nnz))
+    with pytest.raises(NotImplementedError, match="Ozaki kernel tiles"):
+        pt.spgemm_csr(a, tm=64, compute_dtype=torch.float64, device=card)
+    plan = build_ozaki_strip(pt.csr_to_tiles(a, 8, 128),
+                             pt.csr_to_tiles(a, 128, 128))
+    with pytest.raises(ValueError, match="Ozaki strip kernel takes"):
+        ozaki_kernels.ozaki_strip_numeric(*plan.to_device(card),
+                                          **plan.kernel_kwargs())
+
+
+def test_cli_ozaki_on_card(card, tmp_path, capsys):
+    from spgemm_tpu_torch.cli import main
+
+    a0 = cantlike(2000, 64)
+    a = a0.with_data(np.random.default_rng(3).standard_normal(a0.nnz))
+    p = tmp_path / "g.mtx"
+    rows = a.rows_expanded() + 1
+    with open(p, "w") as f:
+        f.write("%%MatrixMarket matrix coordinate real general\n")
+        f.write(f"{a.m} {a.n} {a.nnz}\n")
+        for r, c, v in zip(rows, a.indices + 1, a.data):
+            f.write(f"{r} {c} {v:.17g}\n")
+    for extra in (["--dtype", "f64"], ["--backend", "ozaki"]):
+        assert main(["-d", "cuda:0", str(p), "32", "128"] + extra) == 0
+        out = capsys.readouterr().out
+        assert "check (values vs scipy oracle): [PASSED]" in out

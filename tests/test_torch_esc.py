@@ -414,10 +414,12 @@ def test_auto_router_agrees_with_jax():
 
 
 def test_structured_non_integer_f64_raises():
+    # auto f64 routing now runs the Ozaki route on this structured input;
+    # f64 through backend="strip" is still not ported
     a = to_port(band_matrix("gaussian", n=300, half=20))
     assert pt.spgemm_csr(a, device="cpu")[1].stats["backend"] == "strip"
-    with pytest.raises(NotImplementedError, match="Queue 1: f64"):
-        pt.spgemm_csr(a, compute_dtype=torch.float64, device="cpu")
+    _, res = pt.spgemm_csr(a, compute_dtype=torch.float64, device="cpu")
+    assert res.stats["backend"] == "ozaki-strip(S=8x8)"
     with pytest.raises(NotImplementedError, match="Queue 1: f64"):
         pt.spgemm_csr(a, compute_dtype=torch.float64, backend="strip",
                       device="cpu")
