@@ -4,9 +4,10 @@
 
 Phases (each prints a line; any failure exits non-zero, with no result):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
-  2. build the strip kernel, the ESC scan kernels and the Ozaki strip
-     kernel from spgemm_tpu_torch/csrc with nvcc (one nvcc per source,
-     all started together) and print the build seconds and the ptxas
+  2. build the strip kernel, the ESC scan kernels, the Ozaki strip
+     kernel, the SpMM strip kernel and the pair kernel from
+     spgemm_tpu_torch/csrc with nvcc (one nvcc per source, all five
+     started together) and print the build seconds and the ptxas
      register report;
   3. compare the strip kernel with its plain PyTorch version on the card,
      on random banded plans: 64x128 and 16x128 A tiles (B 128x128),
@@ -56,7 +57,30 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      events, median of 30) and the plain version's on the same plan (bit
      equal there too), f64 GFLOPS = 2*nnzCub / (symbolic_ms + kernel ms),
      spgemm_csr's phase split and the peak device memory;
- 13. print the kernels JSON line, then the contract line
+ 13. compare the SpMM strip kernel with its plain version on random banded
+     plans: 16x128 and 64x128 A tiles, k_pad 256, resident and window
+     form, integer values (equal exactly) and Gaussian values (rtol 1e-5,
+     atol 1e-6*max|Y|);
+ 14. drive the SpMM path at full size on the suite's banded65536 (16x128
+     tiles), counters zeroed just before each route: spmm with k = 128
+     and spmv must take the kernel's resident form, spmm with k = 256 its
+     window form (X over the L2 budget), and spmm on rmat65536 with
+     k = 128 the gather route; each Y within rtol 1e-5, atol 1e-6*max|Y|
+     of scipy's A @ X, the kernel launched where its route runs and the
+     plain version never;
+ 15. time the SpMM kernel and its plain version (CUDA events, median of
+     20) on the banded65536 operands in both forms, with GFLOPS =
+     2*nnz*k / kernel ms and the bytes moved, and the gather route's
+     device time at rmat65536;
+ 16. compare the pair kernel with its plain version on random banded
+     plans: 16x128 and 64x128 A tiles (B 128x128), integer values (equal
+     exactly), Gaussian values (rtol 1e-5), counts > 0 equal;
+ 17. drive the pair backends: C = A^2 on the cant-like matrix at 64x128
+     through spgemm_csr(backend="pallas") and ("xla"), counters zeroed
+     just before each: C equal to the scipy oracle (pattern and values
+     exactly), the pair kernel launched on "pallas" and its plain version
+     never; then time the kernel and its plain version on that schedule;
+ 18. print the kernels JSON line, then the contract line
      {"ok": true, "device": {...}} as the last line.
 """
 
@@ -74,6 +98,8 @@ SUITE_N = 65536                 # tools/run_suite.py's full-size suite
 F64_RTOL, F64_ATOL = 1e-10, 1e-11  # tests/test_esc.py:334 (atol x max|C|)
 OZ_TM = 32                      # the tile height the JAX route was tuned at
 OZ_RTOL = 1e-12                 # tests/test_ozaki.py:306 (x max|C|)
+SPMM_TM = 16                    # tools/run_suite.py's SpMM128 tiles: 16x128
+SPMM_K = 128                    # the suite's SpMM128 width
 
 
 class SmokeFailure(Exception):
@@ -131,21 +157,25 @@ def build_kernels() -> None:
     """Phase 2: one nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from spgemm_tpu_torch.ops import kernels, ozaki_kernels, scan_kernels
+    from spgemm_tpu_torch.ops import (kernels, ozaki_kernels, pair_kernels,
+                                      scan_kernels, spmm_kernels)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(5) as pool:
         futs = [pool.submit(kernels.load_strip_kernel),
                 pool.submit(scan_kernels.load_scan_kernel),
-                pool.submit(ozaki_kernels.load_ozaki_kernel)]
+                pool.submit(ozaki_kernels.load_ozaki_kernel),
+                pool.submit(spmm_kernels.load_spmm_kernel),
+                pool.submit(pair_kernels.load_pair_kernel)]
         for f in futs:
             f.result()
-    print(f"phase build: three sources in {time.perf_counter() - t0!r} s")
+    print(f"phase build: five sources in {time.perf_counter() - t0!r} s")
     for info in (kernels.build_info, scan_kernels.build_info,
-                 ozaki_kernels.build_info):
+                 ozaki_kernels.build_info, spmm_kernels.build_info,
+                 pair_kernels.build_info):
         print(f"phase build: {info['seconds']!r} s -> {info['path']}")
         for ln in info["ptxas"].splitlines():
-            if "registers" in ln:
+            if "registers" in ln or "spill" in ln:
                 print(f"phase build: ptxas {ln.strip()}")
 
 
@@ -535,6 +565,315 @@ def run_ozaki_path(a_int, ref_int) -> dict:
                 plain_ms=plain_ms)
 
 
+def _close(got, exp, *, rtol=GAUSS_RTOL, atol_rel=1e-6):
+    """(ok, max_abs_err, max|exp|) for f32 results summed in another
+    order than their reference."""
+    import torch
+
+    got = torch.as_tensor(got).double().cpu()
+    exp = torch.as_tensor(exp).double().cpu()
+    scale = exp.abs().max().item() if exp.numel() else 0.0
+    err = (got - exp).abs().max().item() if exp.numel() else 0.0
+    ok = got.shape == exp.shape and torch.allclose(
+        got, exp, rtol=rtol, atol=atol_rel * scale)
+    return ok, err, scale
+
+
+def compare_spmm_plans() -> None:
+    """Phase 13: the SpMM kernel against its plain version."""
+    import torch
+
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import spmm as pspmm
+    from spgemm_tpu_torch.ops import spmm_kernels as smk
+    from spgemm_tpu_torch.utils.generators import banded
+
+    rng = np.random.default_rng(17)
+    block_rows = 64
+    for tm in (16, 64):
+        for values in ("integer", "gaussian"):
+            a = banded(rng, 6000, 64)
+            if values == "gaussian":
+                a = a.with_data(rng.standard_normal(a.nnz))
+                x = rng.standard_normal((a.n, 200))
+            else:
+                x = rng.integers(-4, 5, (a.n, 200)).astype(np.float64)
+            t = csr_to_tiles(a, tm, TN)
+            stats = pspmm._spmm_block_stats(t, block_rows)
+            ops = pspmm._pack_spmm_operands(t, x, 256, torch.float32,
+                                            block_rows).to_device("cuda")
+            kmin = torch.from_numpy(pspmm._window_kmin(t, stats)).to("cuda")
+            for form, km in (("resident", None), ("window", kmin)):
+                got = smk.spmm_strip(*ops, km, gm=t.gm, block_rows=block_rows)
+                exp = smk.spmm_strip_plain(*ops, km, gm=t.gm,
+                                           block_rows=block_rows)
+                torch.cuda.synchronize()
+                if values == "integer":
+                    ok, err, scale = torch.equal(got, exp), 0.0, 0.0
+                    if not ok:
+                        err = (got - exp).abs().max().item()
+                else:
+                    ok, err, scale = _close(got, exp)
+                print(f"phase spmm-compare: tiles {tm}x{TN} {form} {values} "
+                      f"rows={got.shape[0]} k_pad=256 max_abs_err={err!r} "
+                      f"max_abs={scale!r} ok={ok}")
+                check(ok, f"SpMM kernel differs from its plain version "
+                          f"({tm}x{TN}, {form}, {values}): {err}")
+
+
+class _RouteSpy:
+    """Records which of spmm's three routes each call takes."""
+
+    NAMES = ("spmm_gather", "_spmm_strip", "_spmm_tiles")
+
+    def __enter__(self):
+        from spgemm_tpu_torch.ops import spmm as pspmm
+
+        self.mod, self.saved, self.log = pspmm, {}, []
+        for name in self.NAMES:
+            fn = self.saved[name] = getattr(pspmm, name)
+
+            def spy(*args, _fn=fn, _name=name, **kw):
+                self.log.append(_name)
+                return _fn(*args, **kw)
+
+            setattr(pspmm, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+
+def _sp(a):
+    import scipy.sparse as sp
+
+    return sp.csr_matrix((a.data, a.indices, a.indptr), shape=a.shape)
+
+
+def run_spmm_path(suite: dict) -> list:
+    """Phases 14 and 15: the SpMM path at banded65536 (resident and
+    window form) and rmat65536 (gather), then the timings. Returns the
+    kernels JSON entries of the two kernel forms."""
+    import torch
+
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import spmm as pspmm
+    from spgemm_tpu_torch.ops import spmm_kernels as smk
+    from spgemm_tpu_torch.ops.spmm import spmm, spmv
+    from spgemm_tpu_torch.utils.timing import cuda_event_ms
+
+    w = smk.spmm_strip
+    name = f"banded{SUITE_N}"
+    a = suite[name]
+    t = csr_to_tiles(a, SPMM_TM, TN)
+    sa = _sp(a)
+    rng = np.random.default_rng(41)
+    print(f"phase spmm: {name} {a.m}x{a.n} nnz={a.nnz} tiles {SPMM_TM}x{TN} "
+          f"nt={t.nt} gm={t.gm} gn={t.gn} L2 budget {pspmm.L2_BYTES} B")
+    xs = {}
+    launches = {}
+    # (label, k, the kernel form _spmm_mode must pick, vector form)
+    for label, k, form, vec in (("resident", SPMM_K, "resident", False),
+                                ("spmv", 1, "resident", True),
+                                ("window", 2 * SPMM_K, "window", False)):
+        x = rng.standard_normal(a.n if vec else (a.n, k)).astype(np.float32)
+        xs[label] = x
+        k_pad = max(128, -(-k // 128) * 128)
+        mode = pspmm._spmm_mode(t, k_pad, device=torch.device("cuda"))[0]
+        check(mode == form, f"{label}: the gate picked {mode}, not {form}")
+        _zero_counters(w)
+        t0 = time.perf_counter()
+        with _RouteSpy() as spy:
+            y = (spmv if vec else spmm)(t, x, device="cuda")
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[label] = (w.kernel_launches, w.plain_launches)
+        ok, err, scale = _close(y, sa @ x.astype(np.float64))
+        print(f"phase spmm: {label} k={k} mode={mode} route={spy.log} "
+              f"wall_s={wall!r} launches (kernel, plain)={launches[label]} "
+              f"max_abs_err={err!r} max|Y|={scale!r} ok={ok}")
+        check(spy.log == ["_spmm_strip"], f"{label} took route {spy.log}")
+        check(launches[label][0] >= 1 and launches[label][1] == 0,
+              f"the {label} SpMM did not run through the kernel: "
+              f"{launches[label]}")
+        check(ok, f"{label} SpMM differs from scipy: {err}")
+        del y
+
+    gname = f"rmat{SUITE_N}"
+    g = suite[gname]
+    tg = csr_to_tiles(g, SPMM_TM, TN)
+    xg = rng.standard_normal((g.n, SPMM_K)).astype(np.float32)
+    _zero_counters(w)
+    t0 = time.perf_counter()
+    with _RouteSpy() as spy:
+        y = spmm(tg, xg, device="cuda")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ok, err, scale = _close(y, _sp(g) @ xg.astype(np.float64))
+    print(f"phase spmm: {gname} nnz={g.nnz} nt={tg.nt} k={SPMM_K} "
+          f"route={spy.log} wall_s={wall!r} strip kernel launches "
+          f"(kernel, plain)={(w.kernel_launches, w.plain_launches)} "
+          f"max_abs_err={err!r} max|Y|={scale!r} ok={ok}")
+    check(spy.log == ["spmm_gather"], f"{gname} took route {spy.log}")
+    check(ok, f"{gname} gather SpMM differs from scipy: {err}")
+    del y, tg
+
+    # --- phase 15: timings ---------------------------------------------
+    entries = []
+    block_rows = 64
+    stats = pspmm._spmm_block_stats(t, block_rows)
+    for label, entry_name, replaces in (
+            ("resident", "spmm_strip", "spgemm_tpu/ops/pallas_kernels.py:679"),
+            ("window", "spmm_strip_window",
+             "spgemm_tpu/ops/pallas_kernels.py:805")):
+        x = xs[label]
+        k = x.shape[1]
+        k_pad = max(128, -(-k // 128) * 128)
+        ops = pspmm._pack_spmm_operands(t, x, k_pad, torch.float32,
+                                        block_rows).to_device("cuda")
+        km = (None if label == "resident" else
+              torch.from_numpy(pspmm._window_kmin(t, stats)).to("cuda"))
+        kw = dict(gm=t.gm, block_rows=block_rows)
+        got = w(*ops, km, **kw)
+        exp = smk.spmm_strip_plain(*ops, km, **kw)
+        torch.cuda.synchronize()
+        ok, err, _ = _close(got, exp)
+        check(ok, f"SpMM kernel differs from its plain version ({label}, "
+                  f"{name}): {err}")
+        del got, exp
+        ms = cuda_event_ms(lambda: w(*ops, km, **kw), warmup=3, iters=20)
+        plain_ms = cuda_event_ms(lambda: smk.spmm_strip_plain(*ops, km, **kw),
+                                 warmup=1, iters=20)
+        n_rows = -(-t.gm // block_rows) * block_rows
+        moved = 4 * (t.nt * t.tm * t.tn + t.gn * t.tn * k_pad
+                     + n_rows * t.tm * k_pad)
+        print(f"phase spmm-time: {label} k={k} kernel_ms={ms!r} "
+              f"plain_ms={plain_ms!r} max_abs_err={err!r} GFLOPS="
+              f"{2.0 * a.nnz * k / (ms * 1e6)!r} (2*nnz*k / kernel ms) "
+              f"dense-tile GFLOPS={2.0 * t.nt * t.tm * t.tn * k_pad / (ms * 1e6)!r} "
+              f"bytes A+X+Y={moved} ({moved / (ms * 1e6)!r} GB/s)")
+        entries.append(dict(
+            name=entry_name, route="cuda",
+            source="spgemm_tpu_torch/csrc/spmm_strip.cu", replaces=replaces,
+            launches=launches[label][0], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms))
+        del ops
+    gms = pspmm.time_spmm_gather(g, xg, warmup=2, iters=20, device="cuda")
+    print(f"phase spmm-time: gather {gname} k={SPMM_K} device_ms={gms!r} "
+          f"GFLOPS={2.0 * g.nnz * SPMM_K / (gms * 1e6)!r} (2*nnz*k / ms)")
+    torch.cuda.empty_cache()
+    return entries
+
+
+def _pair_operands(at, bt, sched, device):
+    import torch
+
+    up = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    return (up(at.dense(np.float32)), up(at.occ()).float(),
+            up(bt.dense(np.float32)), up(bt.occ()).float(), up(sched.pa),
+            up(sched.pb), up(sched.pair_ptr))
+
+
+def compare_pair_plans() -> None:
+    """Phase 16: the pair kernel against its plain version."""
+    import torch
+
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import pair_kernels as pk
+    from spgemm_tpu_torch.ops.symbolic import build_pair_schedule
+    from spgemm_tpu_torch.utils.generators import banded
+
+    rng = np.random.default_rng(19)
+    for tm in (16, 64):
+        for values in ("integer", "gaussian"):
+            a = banded(rng, 6000, 64)
+            if values == "gaussian":
+                a = a.with_data(rng.standard_normal(a.nnz))
+            at, bt = csr_to_tiles(a, tm, TN), csr_to_tiles(a, TN, TN)
+            sched = build_pair_schedule(at, bt)
+            ops = _pair_operands(at, bt, sched, "cuda")
+            gv, gc = pk.pair_accumulate_cuda(*ops, num_segments=sched.nt_c)
+            pv, pc = pk.pair_accumulate_plain(*ops, num_segments=sched.nt_c)
+            torch.cuda.synchronize()
+            if values == "integer":
+                ok, err = torch.equal(gv, pv), (gv - pv).abs().max().item()
+            else:
+                ok, err, _ = _close(gv, pv)
+            counts = torch.equal(gc > 0, pc > 0)
+            print(f"phase pair-compare: tiles {tm}x{TN} {values} "
+                  f"C tiles={sched.nt_c} pairs={sched.num_pairs} "
+                  f"max_abs_err={err!r} values_ok={ok} counts_equal={counts}")
+            check(ok and counts, f"pair kernel differs from its plain "
+                                 f"version ({tm}x{TN}, {values}): {err}")
+
+
+def run_pair_path(a, ref) -> dict:
+    """Phase 17: the pair backends on the cant-like A^2, then the pair
+    kernel's timing. Returns its kernels JSON entry."""
+    import torch
+
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import pair_kernels as pk
+    from spgemm_tpu_torch.ops.spgemm import spgemm_csr
+    from spgemm_tpu_torch.utils.timing import cuda_event_ms
+
+    w = pk.pair_accumulate_cuda
+    torch.cuda.empty_cache()
+    pallas_launches = None
+    for backend in ("pallas", "xla"):
+        _zero_counters(w)
+        t0 = time.perf_counter()
+        c, res = spgemm_csr(a, tm=TM, tn=TN, backend=backend, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (w.kernel_launches, w.plain_launches)
+        tms = res.timings_ms
+        print(f"phase pair: cant-like {ROWS}x{ROWS} backend="
+              f"{res.stats['backend']} C tiles={res.stats['numblkC_candidate']:.0f} "
+              f"pairs={res.stats['num_pairs']:.0f} wall_s={wall!r} "
+              f"symbolic_ms={tms['symbolic_ms']!r} upload_ms={tms['upload_ms']!r} "
+              f"numeric_ms={tms['numeric_ms']!r} compact_ms={tms['compact_ms']!r} "
+              f"pair kernel launches (kernel, plain)={launches}")
+        check(res.stats["backend"] == backend, "pair backend not taken")
+        if backend == "pallas":
+            pallas_launches = launches[0]
+            sched = res.schedule
+            check(launches[0] >= 1 and launches[1] == 0,
+                  f"backend=pallas did not run the pair kernel: {launches}")
+        else:
+            check(launches == (0, 0), f"backend=xla ran the pair kernel: "
+                                      f"{launches}")
+        _check_exact(f"spgemm_csr(backend={backend})", c, ref)
+        del c, res
+
+    ops = _pair_operands(csr_to_tiles(a, TM, TN), csr_to_tiles(a, TN, TN),
+                         sched, "cuda")
+    kw = dict(num_segments=sched.nt_c)
+    gv, gc = w(*ops, **kw)
+    pv, pc = pk.pair_accumulate_plain(*ops, **kw)
+    torch.cuda.synchronize()
+    err = (gv - pv).abs().max().item()
+    check(torch.equal(gv, pv) and torch.equal(gc > 0, pc > 0),
+          f"the pair kernel differs from its plain version on the cant-like "
+          f"schedule: {err}")
+    del gv, gc, pv, pc
+    ms = cuda_event_ms(lambda: w(*ops, **kw), warmup=3, iters=20)
+    plain_ms = cuda_event_ms(lambda: pk.pair_accumulate_plain(*ops, **kw),
+                             warmup=1, iters=10)
+    tm, tk = ops[0].shape[1:]
+    flop = 2.0 * 2 * sched.num_pairs * tm * tk * TN  # values and counts
+    print(f"phase pair-time: kernel_ms={ms!r} plain_ms={plain_ms!r} "
+          f"max_abs_err={err!r} dense-tile TFLOP/s={flop / (ms * 1e9)!r} "
+          f"(values and counts, {flop!r} FLOP); peak device memory "
+          f"{torch.cuda.max_memory_allocated()!r} bytes")
+    return dict(name="pair_accumulate", route="cuda",
+                source="spgemm_tpu_torch/csrc/pair_accumulate.cu",
+                replaces="spgemm_tpu/ops/pallas_kernels.py:32",
+                launches=pallas_launches, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms)
+
+
 def run() -> dict:
     import torch
 
@@ -634,11 +973,18 @@ def run() -> dict:
     esc_entries = run_esc_path(suite)
     torch.cuda.empty_cache()
     dd_entry = run_f64_path(suite)
+    torch.cuda.empty_cache()
+    compare_spmm_plans()
+    spmm_entries = run_spmm_path(suite)
     del suite
     torch.cuda.empty_cache()
 
     compare_ozaki_plans()
     oz_entry = run_ozaki_path(a, ref)
+    torch.cuda.empty_cache()
+
+    compare_pair_plans()
+    pair_entry = run_pair_path(a, ref)
 
     return {
         "kernels": [{
@@ -651,7 +997,7 @@ def run() -> dict:
             "max_abs_err": max_abs_err,
             "ms": numeric_ms,
             "plain_ms": plain_ms,
-        }] + esc_entries + [dd_entry, oz_entry],
+        }] + esc_entries + [dd_entry, oz_entry] + spmm_entries + [pair_entry],
         # the number of cards this run uses
         "device": {"platform": "gpu", "kind": dev_name, "count": 1},
     }

@@ -13,9 +13,13 @@ Layout mirrors the JAX package:
               plain versions (scan_kernels.py, source in csrc/esc_scan.cu),
               the Ozaki route for f64 on structured patterns (ozaki.py)
               with its CUDA kernel and plain version (ozaki_kernels.py,
-              source in csrc/ozaki_strip.cu),
-              orchestrator (spgemm.py), resident executors (executor.py),
-              scipy oracle (golden.py).
+              source in csrc/ozaki_strip.cu), SpMM/SpMV (spmm.py) with its
+              CUDA strip kernel and plain version (spmm_kernels.py, source
+              in csrc/spmm_strip.cu), the pair backends' schedule
+              (symbolic.py), torch ops (numeric.py) and CUDA pair kernel
+              with its plain version (pair_kernels.py, source in
+              csrc/pair_accumulate.cu), orchestrator (spgemm.py), resident
+              executors (executor.py), scipy oracle (golden.py).
   * io/     — Matrix Market reader.
   * utils/  — native C++ host layer (g++-built `native/csr2tile.cpp`),
               generators, CUDA-event timing, CSV sinks.
@@ -28,6 +32,7 @@ from spgemm_tpu_torch.models.csr import CSR
 from spgemm_tpu_torch.models.tile import TileMat, csr_to_tiles, tiles_to_csr
 from spgemm_tpu_torch.ops.esc import ScanPlan, build_esc_scan_plan, spgemm_esc
 from spgemm_tpu_torch.ops.ozaki import spgemm_ozaki
+from spgemm_tpu_torch.ops.spmm import spmm, spmm_gather, spmv
 from spgemm_tpu_torch.ops.spgemm import SpGEMMResult, spgemm, spgemm_csr
 from spgemm_tpu_torch.ops.executor import EscExecutor, StripExecutor
 from spgemm_tpu_torch.io.mmio import read_mtx
@@ -43,6 +48,9 @@ __all__ = [
     "StripExecutor",
     "spgemm_esc",
     "spgemm_ozaki",
+    "spmm",
+    "spmv",
+    "spmm_gather",
     "build_esc_scan_plan",
     "ScanPlan",
     "EscExecutor",

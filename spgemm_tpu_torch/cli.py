@@ -6,10 +6,13 @@ reference's `./test` binary:
 Prints the same lines as the JAX package's CLI (matrix info, load time,
 tile size, flops, conversion ms, format space, step times, tile/nnz
 counts, runtime + GFLOPS, check verdict) and appends the four CSV sinks.
-`--backend` takes auto|strip|esc|ozaki: auto sends unstructured inputs to
-the ESC scan route, ozaki runs the f64 Ozaki route. `--dtype f64` follows
-spgemm_csr's f64 routing (structured inputs run the Ozaki route) and exits
-2 naming the ROADMAP.md item where that routing has no ported engine.
+`--backend` takes auto|strip|esc|ozaki|pallas|xla: auto sends unstructured
+inputs to the ESC scan route, ozaki runs the f64 Ozaki route, pallas the
+per-C-tile pair kernel and xla the same pairs as torch ops. `--dtype f64`
+follows spgemm_csr's f64 routing (structured inputs run the Ozaki route;
+with --backend xla the pairs run in float64) and exits 2 naming the
+ROADMAP.md item where that routing has no ported engine, and where the
+backend refuses the dtype (pallas is float32).
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("tile_m", nargs="?", type=int, default=16)
     p.add_argument("tile_n", nargs="?", type=int, default=128)
     p.add_argument("--backend", default="auto",
-                   choices=["auto", "strip", "esc", "ozaki"])
+                   choices=["auto", "strip", "esc", "ozaki", "pallas",
+                            "xla"])
     p.add_argument("--dtype", default="f32", choices=["f32", "f64"])
     p.add_argument("--check", default="values",
                    choices=["none", "pattern", "values"],
@@ -117,7 +121,7 @@ def main(argv=None) -> int:
             c, res = spgemm_csr(a, aat=bool(args.aat), tm=tm, tn=tn,
                                 backend=args.backend,
                                 compute_dtype=compute_dtype, device=dev)
-        except NotImplementedError as e:
+        except (NotImplementedError, ValueError) as e:
             print(f"error: {e}", file=sys.stderr)
             return 2
         rt = res.timings_ms["symbolic_ms"] + res.timings_ms["numeric_ms"]

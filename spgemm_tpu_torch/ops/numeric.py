@@ -1,0 +1,67 @@
+"""Numeric phase of the pair backends (port of `spgemm_tpu/ops/numeric.py`):
+batched tile-pair products as torch ops, the backend="xla" route.
+
+Every matched tile pair is one small dense product. The pipeline gathers
+dense A/B tiles by pair index, multiplies them by `bmm` and
+`index_add_`s the products into per-C-tile accumulators, values and
+structural counts in the same pass:
+
+    Cval[seg]  += Aden[pa] @ Bden[pb]          (numeric)
+    Ccnt[seg]  += Aocc[pa] @ Bocc[pb]          (structural)
+
+The counts are read only as > 0, so C's pattern is exact even where sums
+cancel. Values accumulate in the operands' dtype (float32 or float64);
+counts in float32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _pair_matmuls(a_val, a_occ, b_val, b_occ):
+    """Batched per-pair products: values and structural counts."""
+    return torch.bmm(a_val, b_val), torch.bmm(a_occ, b_occ)
+
+
+def pair_accumulate(a_val, a_occ, b_val, b_occ, pa, pb, seg, *,
+                    num_segments: int, chunk: int = 32768):
+    """Returns (c_val, c_cnt), each (num_segments, tm, tn): c_val in
+    a_val's dtype, c_cnt float32.
+
+    a_val (ntA, tm, tk) and b_val (ntB, tk, tn) are dense tiles, a_occ and
+    b_occ their float32 0/1 occupancy; pa, pb, seg (P,) the pair list
+    sorted by segment (padding pairs may point at segment num_segments,
+    which is dropped). Pairs are taken `chunk` at a time, so gathered
+    tiles never exceed chunk * tile bytes."""
+    tm = a_val.shape[1]
+    tn = b_val.shape[2]
+    dev = a_val.device
+    c_val = torch.zeros(num_segments + 1, tm, tn, dtype=a_val.dtype,
+                        device=dev)
+    c_cnt = torch.zeros(num_segments + 1, tm, tn, dtype=torch.float32,
+                        device=dev)
+    for lo in range(0, pa.shape[0], chunk):
+        pac = pa[lo : lo + chunk].long()
+        pbc = pb[lo : lo + chunk].long()
+        segc = seg[lo : lo + chunk].long()
+        prod, cnt = _pair_matmuls(a_val[pac], a_occ[pac], b_val[pbc],
+                                  b_occ[pbc])
+        c_val.index_add_(0, segc, prod)
+        c_cnt.index_add_(0, segc, cnt)
+    return c_val[:-1], c_cnt[:-1]
+
+
+def pad_pairs(
+    pa: np.ndarray, pb: np.ndarray, seg: np.ndarray, num_segments: int,
+    chunk: int,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pad pair arrays to a chunk multiple; padding pairs point at tile 0
+    and the dummy segment `num_segments` (dropped by pair_accumulate)."""
+    p = pa.size
+    if p <= chunk or p % chunk == 0:
+        return pa, pb, seg  # single-shot path / already aligned
+    padn = -(-p // chunk) * chunk - p
+    pad32 = lambda x, v: np.concatenate([x, np.full(padn, v, dtype=np.int32)])
+    return pad32(pa, 0), pad32(pb, 0), pad32(seg, num_segments)

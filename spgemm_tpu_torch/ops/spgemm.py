@@ -1,9 +1,10 @@
 """SpGEMM orchestrator (port of `spgemm_tpu/ops/spgemm.py`): the strip
 route (tile, plan, run the strip numeric phase on the device, compact back
 to the tiled format and to CSR), the ESC scan route for unstructured
-patterns (CSR in, CSR out) and the Ozaki route for f64 on structured
-patterns, with per-phase timings and the JAX package's auto router, f64
-routing included.
+patterns (CSR in, CSR out), the Ozaki route for f64 on structured
+patterns and the two pair backends (backend "pallas": the per-C-tile pair
+kernel; "xla": the same pairs as torch ops, f32 or f64), with per-phase
+timings and the JAX package's auto router, f64 routing included.
 
 Routes the port does not have yet raise NotImplementedError naming their
 ROADMAP.md item; nothing falls back to another route.
@@ -20,20 +21,21 @@ import torch
 from spgemm_tpu_torch.models.csr import CSR, INDEX_DTYPE, flop_count_spgemm
 from spgemm_tpu_torch.models.tile import (TileMat, _build_tilemat, cdiv,
                                           csr_to_tiles)
-from spgemm_tpu_torch.ops import esc, kernels
+from spgemm_tpu_torch.ops import esc, kernels, numeric, pair_kernels
 from spgemm_tpu_torch.ops.gustavson import build_strip_args, strip_numeric
 from spgemm_tpu_torch.ops.ozaki import OzakiOverflow, spgemm_ozaki
+from spgemm_tpu_torch.ops.symbolic import build_pair_schedule
 from spgemm_tpu_torch.utils.timing import resolve_device
 
 # ROADMAP.md "Queue 1" items that port the routes this module refuses
 _ROADMAP_ITEM = {
     "digit": "ESC unstructured route: digit mode",
     "f64": "f64",
-    "pallas": "backend=\"pallas\"",
     "gustavson": "Orchestrator fallbacks",
     "dense": "Orchestrator fallbacks",
-    "xla": "Orchestrator fallbacks",
 }
+# pairs the XLA pair backend multiplies at once (bounds its gathered tiles)
+DEFAULT_CHUNK = 32768
 
 
 def _not_ported(what: str, key: str) -> NotImplementedError:
@@ -45,7 +47,7 @@ def _not_ported(what: str, key: str) -> NotImplementedError:
 @dataclasses.dataclass
 class SpGEMMResult:
     c: TileMat | None  # None on the ESC route, which builds no tiles
-    schedule: object  # the plan: StripArgs, ScanPlan or OzakiStripPlan
+    schedule: object  # StripArgs, ScanPlan, OzakiStripPlan or PairSchedule
     timings_ms: dict[str, float]
     stats: dict[str, float]
 
@@ -91,15 +93,74 @@ def _resolve_backend(a: TileMat, b: TileMat, backend: str,
 def spgemm(a: TileMat, b: TileMat, *, compute_dtype=torch.float32,
            backend: str = "auto", device=None) -> SpGEMMResult:
     """Sparse C = A @ B on the tiled format through the strip route
-    (backend "auto" or "strip"), or in f64 through the Ozaki route
-    (backend "ozaki", whatever compute_dtype). `device` None means CUDA."""
+    (backend "auto" or "strip"), in f64 through the Ozaki route (backend
+    "ozaki", whatever compute_dtype), or through a pair backend: "pallas"
+    (the per-C-tile pair kernel, float32) or "xla" (torch ops, float32 or
+    float64). `device` None means CUDA."""
     if backend == "ozaki":
         return spgemm_ozaki(a, b, device=device)
-    if compute_dtype != torch.float32:
-        raise _not_ported(f"compute_dtype={compute_dtype}", "f64")
+    f64 = esc.is_f64(compute_dtype)
     dev = resolve_device(device)
+    if backend in ("pallas", "xla"):
+        return _spgemm_pairs(a, b, backend=backend, f64=f64, device=dev)
+    if f64:
+        raise _not_ported(f"compute_dtype={compute_dtype}", "f64")
     _resolve_backend(a, b, backend, dev)
     return _spgemm_strip(a, b, device=dev)
+
+
+def _spgemm_pairs(a: TileMat, b: TileMat, *, backend: str, f64: bool,
+                  device, chunk: int = DEFAULT_CHUNK) -> SpGEMMResult:
+    """The pair backends (`spgemm_tpu/ops/spgemm.py:292-355`): schedule,
+    upload of the dense and occupancy planes, numeric, compaction."""
+    if backend == "pallas":
+        pair_kernels.check_pair_dtype(torch.float64 if f64 else torch.float32)
+        if device.type == "cuda" and (a.tm, b.tn) not in \
+                pair_kernels.PAIR_TILES:
+            raise NotImplementedError(
+                f"the pair kernel takes (tm, tn) in {pair_kernels.PAIR_TILES} "
+                f"on CUDA, got {a.tm}x{b.tn}; use backend='xla' or 'strip'")
+    timings: dict[str, float] = {}
+    t0 = time.perf_counter()
+    sched = build_pair_schedule(a, b)
+    timings["symbolic_ms"] = (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    np_dt = np.float64 if f64 else np.float32
+    up = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    a_val, b_val = up(a.dense(np_dt)), up(b.dense(np_dt))
+    # occupancy travels as uint8 and widens to f32 on the device
+    a_occ, b_occ = up(a.occ()).float(), up(b.occ()).float()
+    timings["upload_ms"] = (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    if backend == "pallas":
+        c_val_d, c_cnt_d = pair_kernels.pair_accumulate_cuda(
+            a_val, a_occ, b_val, b_occ, up(sched.pa), up(sched.pb),
+            up(sched.pair_ptr), num_segments=sched.nt_c)
+    else:
+        pa, pb, seg = numeric.pad_pairs(sched.pa, sched.pb, sched.seg,
+                                        sched.nt_c, chunk)
+        c_val_d, c_cnt_d = numeric.pair_accumulate(
+            a_val, a_occ, b_val, b_occ, up(pa), up(pb), up(seg),
+            num_segments=sched.nt_c, chunk=chunk)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    timings["numeric_ms"] = (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    c = _compact_to_tilemat(sched.ctrow, sched.ctcol,
+                            c_val_d.cpu().numpy().astype(np.float64),
+                            c_cnt_d.cpu().numpy(), (a.m, b.n), a.tm, b.tn)
+    timings["compact_ms"] = (time.perf_counter() - t0) * 1e3
+    stats = {
+        "num_pairs": float(sched.num_pairs),
+        "numblkC_candidate": float(sched.nt_c),
+        "numblkC": float(c.nt),
+        "nnzC": float(c.nnz),
+        "backend": backend,
+    }
+    return SpGEMMResult(c=c, schedule=sched, timings_ms=timings, stats=stats)
 
 
 def _spgemm_strip(a: TileMat, b: TileMat, *, device) -> SpGEMMResult:
@@ -172,7 +233,8 @@ def spgemm_csr(a: CSR, b: CSR | None = None, *, tm: int = 16, tn: int = 128,
 
     backend "auto" keeps the JAX package's router: unstructured patterns
     go to the ESC scan route (no tiling), the rest to the strip route.
-    backend "esc", "strip" and "ozaki" pick a route. compute_dtype
+    backend "esc", "strip", "ozaki", "pallas" and "xla" pick a route
+    ("xla" also runs float64 on the tiles). compute_dtype
     float64 follows the JAX package's f64 routing: integer data whose f32
     sums are exact takes the f32 route; otherwise structured patterns run
     the Ozaki route (strict: OzakiOverflow sends them on), and the rest,
@@ -200,13 +262,15 @@ def spgemm_csr(a: CSR, b: CSR | None = None, *, tm: int = 16, tn: int = 128,
                 occ < ESC_STRUCTURED_OCC_TH
                 and _mxu_reuse(a, b, aat) < ESC_REUSE_TH):
             return _spgemm_csr_esc(a, b, aat=aat, f64=False, device=device)
-    elif f64 and backend != "ozaki":
+    elif f64 and backend not in ("ozaki", "pallas", "xla"):
         raise _not_ported(f"compute_dtype=float64 with backend={backend!r}",
                           "f64")
     at = csr_to_tiles(a, tm, tn)
     # inner blocking must agree: A tiles (tm, tn) -> B tiles (tn, tn)
     bt = _tile_b_role(a, b, at, aat, tm, tn)
-    res = spgemm(at, bt, backend=backend, device=device)
+    res = spgemm(at, bt, backend=backend,
+                 compute_dtype=torch.float64 if f64 else torch.float32,
+                 device=device)
     return _csr_result_tail(res, a, b, aat)
 
 

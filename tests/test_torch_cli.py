@@ -68,8 +68,11 @@ def test_cli_refuses_f64_and_nonsquare(mtx_file, tmp_path, make_random_csr,
     p = tmp_path / "r.mtx"
     write_mtx(p, make_random_csr(60, 40, 0.08))
     assert p_main(["-d", "cpu", str(p)]) == 2
+    # the pair kernel is float32 only, as the JAX package's is
+    assert p_main(["-d", "cpu", str(pb), "--backend", "pallas", "--dtype",
+                   "f64"]) == 2
     with pytest.raises(SystemExit):
-        p_main(["-d", "cpu", mtx_file, "--backend", "xla"])
+        p_main(["-d", "cpu", mtx_file, "--backend", "gustavson"])
 
 
 @pytest.mark.parametrize("extra", [["--backend", "esc"], ["--dtype", "f64"],
@@ -91,6 +94,22 @@ def test_cli_esc_and_f64_match_jax(tmp_path, capsys, extra):
     assert pick(p_out) == pick(j_out)
 
 
+@pytest.mark.parametrize("extra", [["--backend", "pallas"],
+                                   ["--backend", "xla"],
+                                   ["--backend", "xla", "--dtype", "f64"]])
+def test_cli_pair_backends_match_jax(mtx_file, capsys, extra):
+    args = [mtx_file, "16", "128"] + extra
+    assert j_main(args) == 0
+    j_out = capsys.readouterr().out
+    assert p_main(["-d", "cpu"] + args) == 0
+    p_out = capsys.readouterr().out
+    assert "[PASSED]" in p_out
+    assert _line_heads(p_out) == _line_heads(j_out)
+    pick = lambda out: [ln for ln in out.splitlines()
+                        if ln.startswith(("nnz(C)", "numtile(C)", "nnzCub"))]
+    assert pick(p_out) == pick(j_out)
+
+
 def test_cli_csv_sinks(mtx_file, tmp_path, capsys):
     d = str(tmp_path / "csv")
     for rows in (2, 3):  # a second run appends without a second header
@@ -106,7 +125,10 @@ def test_import_loads_no_jax():
     code = ("import sys, spgemm_tpu_torch, spgemm_tpu_torch.cli, "
             "spgemm_tpu_torch.ops.executor, spgemm_tpu_torch.utils.generators, "
             "spgemm_tpu_torch.ops.esc, spgemm_tpu_torch.ops.scan_kernels, "
-            "spgemm_tpu_torch.ops.ozaki, spgemm_tpu_torch.ops.ozaki_kernels;"
+            "spgemm_tpu_torch.ops.ozaki, spgemm_tpu_torch.ops.ozaki_kernels, "
+            "spgemm_tpu_torch.ops.spmm, spgemm_tpu_torch.ops.spmm_kernels, "
+            "spgemm_tpu_torch.ops.symbolic, spgemm_tpu_torch.ops.numeric, "
+            "spgemm_tpu_torch.ops.pair_kernels;"
             " bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'spgemm_tpu', 'ml_dtypes')];"
             " assert not bad, bad")

@@ -1,6 +1,7 @@
 """Card-only checks of the PyTorch port: the CUDA strip kernel, the three
-ESC scan kernels and the Ozaki strip kernel against their plain PyTorch
-versions, and the public entry points on a CUDA device.
+ESC scan kernels, the Ozaki strip kernel, the SpMM strip kernel and the
+pair kernel against their plain PyTorch versions, and the public entry
+points on a CUDA device.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it also runs on a machine that has only torch:
@@ -22,10 +23,13 @@ import pytest
 import torch
 
 import spgemm_tpu_torch as pt
-from spgemm_tpu_torch.ops import golden, kernels, ozaki_kernels, scan_kernels
+from spgemm_tpu_torch.ops import (golden, kernels, ozaki_kernels, pair_kernels,
+                                  scan_kernels, spmm_kernels)
+from spgemm_tpu_torch.ops import spmm as pspmm
 from spgemm_tpu_torch.ops.esc import gather_planes, scan_dd_planes
 from spgemm_tpu_torch.ops.gustavson import build_strip_args
 from spgemm_tpu_torch.ops.ozaki import build_ozaki_strip
+from spgemm_tpu_torch.ops.symbolic import build_pair_schedule
 from spgemm_tpu_torch.utils.generators import banded, cantlike, random_uniform
 
 pytestmark = pytest.mark.cuda
@@ -319,5 +323,173 @@ def test_cli_ozaki_on_card(card, tmp_path, capsys):
             f.write(f"{r} {c} {v:.17g}\n")
     for extra in (["--dtype", "f64"], ["--backend", "ozaki"]):
         assert main(["-d", "cuda:0", str(p), "32", "128"] + extra) == 0
+        out = capsys.readouterr().out
+        assert "check (values vs scipy oracle): [PASSED]" in out
+
+
+def _write_mtx(path, a):
+    rows = a.rows_expanded() + 1
+    with open(path, "w") as f:
+        f.write("%%MatrixMarket matrix coordinate real general\n")
+        f.write(f"{a.m} {a.n} {a.nnz}\n")
+        for r, c, v in zip(rows, a.indices + 1, a.data):
+            f.write(f"{r} {c} {v:.17g}\n")
+
+
+@pytest.mark.parametrize("tm", [8, 16, 32, 64])
+@pytest.mark.parametrize("tk", [16, 128])
+@pytest.mark.parametrize("k_pad", [128, 256])
+def test_spmm_kernel_matches_plain(card, tm, tk, k_pad):
+    rng = np.random.default_rng(31)
+    for values in ("integer", "gaussian"):
+        a = _matrix(values, 2500, 64)
+        t = pt.csr_to_tiles(a, tm, tk)
+        x = (rng.integers(-4, 5, (a.n, k_pad - 3)).astype(np.float64)
+             if values == "integer" else rng.standard_normal((a.n, k_pad - 3)))
+        block_rows = 8
+        stats = pspmm._spmm_block_stats(t, block_rows)
+        ops = pspmm._pack_spmm_operands(t, x, k_pad, torch.float32,
+                                        block_rows).to_device(card)
+        kmin = torch.from_numpy(pspmm._window_kmin(t, stats)).to(card)
+        w = spmm_kernels.spmm_strip
+        for form in (None, kmin):
+            before = (w.kernel_launches, w.plain_launches)
+            got = w(*ops, form, gm=t.gm, block_rows=block_rows)
+            exp = spmm_kernels.spmm_strip_plain(*ops, form, gm=t.gm,
+                                                block_rows=block_rows)
+            torch.cuda.synchronize()
+            assert (w.kernel_launches, w.plain_launches) == (before[0] + 1,
+                                                             before[1])
+            _assert_close(got, exp, values)
+
+
+@pytest.mark.parametrize("tm", [8, 16, 32, 64])
+@pytest.mark.parametrize("tk", [16, 128])
+def test_pair_kernel_matches_plain(card, tm, tk):
+    for values in ("integer", "gaussian"):
+        a = _matrix(values, 1500, 64)
+        at, bt = pt.csr_to_tiles(a, tm, tk), pt.csr_to_tiles(a, tk, 128)
+        sched = build_pair_schedule(at, bt)
+        up = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(card)
+        ops = (up(at.dense(np.float32)), up(at.occ()).float(),
+               up(bt.dense(np.float32)), up(bt.occ()).float(),
+               up(sched.pa), up(sched.pb), up(sched.pair_ptr))
+        w = pair_kernels.pair_accumulate_cuda
+        before = (w.kernel_launches, w.plain_launches)
+        gv, gc = w(*ops, num_segments=sched.nt_c)
+        pv, pc = pair_kernels.pair_accumulate_plain(*ops,
+                                                    num_segments=sched.nt_c)
+        torch.cuda.synchronize()
+        assert (w.kernel_launches, w.plain_launches) == (before[0] + 1,
+                                                         before[1])
+        _assert_close(gv, pv, values)
+        assert torch.equal(gc > 0, pc > 0)
+
+
+def test_spmm_and_pair_kernels_reject(card):
+    a = _matrix("integer", 400, 8)
+    t = pt.csr_to_tiles(a, 12, 16)
+    ops = pspmm._pack_spmm_operands(t, np.ones((a.n, 4)), 128, torch.float32,
+                                    4).to_device(card)
+    with pytest.raises(ValueError, match="SpMM kernel takes tm"):
+        spmm_kernels.spmm_strip(*ops, gm=t.gm, block_rows=4)
+    t16 = pt.csr_to_tiles(a, 16, 16)
+    ops64 = pspmm._pack_spmm_operands(t16, np.ones((a.n, 4)), 128,
+                                      torch.float64, 4).to_device(card)
+    with pytest.raises(ValueError, match="float32"):
+        spmm_kernels.spmm_strip(*ops64, gm=t16.gm, block_rows=4)
+    with pytest.raises(ValueError, match="infeasible"):
+        pt.spmm(t, np.ones((a.n, 4)), backend="strip", device=card)
+
+    at, bt = pt.csr_to_tiles(a, 8, 16), pt.csr_to_tiles(a, 16, 16)
+    sched = build_pair_schedule(at, bt)
+    up = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(card)
+    pops = [up(at.dense(np.float32)), up(at.occ()).float(),
+            up(bt.dense(np.float32)), up(bt.occ()).float(), up(sched.pa),
+            up(sched.pb), up(sched.pair_ptr)]
+    with pytest.raises(ValueError, match="pair kernel takes"):
+        pair_kernels.pair_accumulate_cuda(*pops, num_segments=sched.nt_c)
+    pops[0] = pops[0].double()
+    with pytest.raises(ValueError, match="float64"):
+        pair_kernels.pair_accumulate_cuda(*pops, num_segments=sched.nt_c)
+    with pytest.raises(NotImplementedError, match="pair kernel takes"):
+        pt.spgemm(at, bt, backend="pallas", device=card)
+    with pytest.raises(ValueError, match="float64"):
+        pt.spgemm_csr(a, tm=16, backend="pallas",
+                      compute_dtype=torch.float64, device=card)
+
+
+def test_spmm_entry_points_on_card_match_cpu(card, monkeypatch):
+    rng = np.random.default_rng(32)
+    a = _matrix("integer", 3000, 64)
+    t = pt.csr_to_tiles(a, 16, 128)
+    x = rng.integers(-4, 5, (a.n, 100)).astype(np.float64)
+    host = pt.spmm(t, x, device="cpu").numpy()
+    import scipy.sparse as sp
+
+    ref = sp.csr_matrix((a.data, a.indices, a.indptr), shape=a.shape) @ x
+    assert np.array_equal(host, ref)
+    w = spmm_kernels.spmm_strip
+    assert pspmm._spmm_mode(t, 128, device=card)[0] == "resident"
+    for l2 in (pspmm.L2_BYTES, 0):  # 0: X never fits, the window form runs
+        monkeypatch.setattr(pspmm, "L2_BYTES", l2)
+        before = w.kernel_launches
+        y = pt.spmm(t, x, device=card)
+        assert w.kernel_launches == before + 1
+        assert y.device.type == "cuda" and torch.equal(y.cpu(),
+                                                       torch.from_numpy(host))
+    monkeypatch.undo()
+    v = pt.spmv(t, x[:, 0], device=card)
+    assert v.shape == (a.m,) and np.array_equal(v.cpu().numpy(), host[:, 0])
+    for backend in ("xla", "gather"):
+        y = pt.spmm(t, x, backend=backend, device=card)
+        assert np.array_equal(y.cpu().numpy(), host)
+    y64 = pt.spmm(t, x + 0.25, dtype=torch.float64, device=card)
+    h64 = pt.spmm(t, x + 0.25, dtype=torch.float64, device="cpu")
+    assert y64.dtype == torch.float64
+    torch.testing.assert_close(y64.cpu(), h64, rtol=1e-12, atol=1e-12)
+    assert pspmm.time_spmm(t, x, warmup=1, iters=3, device=card) > 0
+    assert pspmm.time_spmm_gather(a, x, warmup=1, iters=3, device=card) > 0
+
+
+def test_pair_entry_points_on_card_match_cpu(card):
+    a = cantlike(3000, 64)
+    ref = golden.spgemm_scipy(a, a)
+    w = pair_kernels.pair_accumulate_cuda
+    for backend in ("pallas", "xla"):
+        before = (w.kernel_launches, w.plain_launches)
+        gc, res = pt.spgemm_csr(a, tm=64, tn=128, backend=backend,
+                                device=card)
+        assert res.stats["backend"] == backend
+        assert (w.kernel_launches, w.plain_launches) == (
+            before[0] + (backend == "pallas"), before[1])
+        hc, _ = pt.spgemm_csr(a, tm=64, tn=128, backend=backend,
+                              device="cpu")
+        assert gc.pattern_equal(hc) and np.array_equal(gc.data, hc.data)
+        got = golden.drop_explicit_zeros(gc)
+        assert got.pattern_equal(ref) and np.array_equal(got.data, ref.data)
+    ag = a.with_data(np.random.default_rng(4).standard_normal(a.nnz))
+    gc, _ = pt.spgemm_csr(ag, backend="xla", compute_dtype=torch.float64,
+                          device=card)
+    refg = golden.spgemm_scipy(ag, ag)
+    got = golden.drop_explicit_zeros(gc)
+    assert got.pattern_equal(refg)
+    np.testing.assert_allclose(got.data, refg.data, rtol=1e-12,
+                               atol=1e-12 * np.abs(refg.data).max())
+    empty = pt.CSR.from_coo([], [], np.zeros(0), (300, 300))
+    res = pt.spgemm(pt.csr_to_tiles(empty, 16, 128),
+                    pt.csr_to_tiles(empty, 128, 128), backend="pallas",
+                    device=card)
+    assert res.c.nnz == 0 and res.stats["numblkC"] == 0
+
+
+def test_cli_pair_backends_on_card(card, tmp_path, capsys):
+    from spgemm_tpu_torch.cli import main
+
+    p = tmp_path / "p.mtx"
+    _write_mtx(p, cantlike(2000, 64))
+    for backend in ("pallas", "xla"):
+        assert main(["-d", "cuda:0", str(p), "64", "128", "--backend",
+                     backend]) == 0
         out = capsys.readouterr().out
         assert "check (values vs scipy oracle): [PASSED]" in out

@@ -92,7 +92,8 @@ def _arrow_tiles(n: int = 4096):
     (lambda a: pt.spgemm(*_arrow_tiles(), backend="ozaki", device="cpu"),
      "f64"),
     (lambda a: pt.spgemm(pt.csr_to_tiles(a, 8, 16), pt.csr_to_tiles(a, 16, 16),
-                         backend="pallas", device="cpu"), "pallas"),
+                         backend="dense", device="cpu"),
+     "Orchestrator fallbacks"),
 ])
 def test_unported_routes_raise(make_random_csr, call, match):
     a = to_port(make_random_csr(64, 64, 0.1))
