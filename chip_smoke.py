@@ -23,6 +23,14 @@ Phases (each prints a line; any failure exits non-zero, with no result):
   5. time it: symbolic_ms (host, best of 5), the kernel's numeric_ms and
      the plain version's on the same plan (CUDA events, median), and
      GFLOPS = 2*nnzCub / (symbolic_ms + numeric_ms) as bench.py counts it;
+     print ptxas's registers and spills per tile height (the 64x128
+     instantiation must stay within 128 registers with no spills, so two
+     CTAs share an SM) and time torch.sparse.mm(A, A) on the same matrix;
+     then time the kernel on the window=False plan and on the main plan
+     with standard-normal values (the integer model's operands are TF32
+     values and take one tensor-core product per k step; Gaussian values
+     take the 3xTF32 split), each checked against the plain version
+     (Gaussian: rtol 1e-5, atol 1e-6*max|C|, counts equal);
   6. compare the three scan kernels (premul, mul, double-double) with
      their plain versions on a random 8192^2 and a full banded 2048^2
      (band 40: 7 passes, windows taller than COMBINE_K) plan, G = 1 and 4,
@@ -58,20 +66,21 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      equal there too), f64 GFLOPS = 2*nnzCub / (symbolic_ms + kernel ms),
      spgemm_csr's phase split and the peak device memory;
  13. compare the SpMM strip kernel with its plain version on random banded
-     plans: 16x128 and 64x128 A tiles, k_pad 256, resident and window
-     form, integer values (equal exactly) and Gaussian values (rtol 1e-5,
-     atol 1e-6*max|Y|);
+     plans: 16x128 and 64x128 A tiles, packed widths 256 (k 200), 8 (k 1)
+     and 32 (k 20), resident and window form, integer values (equal
+     exactly) and Gaussian values (rtol 1e-5, atol 1e-6*max|Y|);
  14. drive the SpMM path at full size on the suite's banded65536 (16x128
      tiles), counters zeroed just before each route: spmm with k = 128
      and spmv must take the kernel's resident form, spmm with k = 256 its
      window form (X over the L2 budget), and spmm on rmat65536 with
      k = 128 the gather route; each Y within rtol 1e-5, atol 1e-6*max|Y|
      of scipy's A @ X, the kernel launched where its route runs and the
-     plain version never;
+     plain version never; spmv through the narrow form (packed at 8
+     columns) and k = 128 and 256 through the 128-column form;
  15. time the SpMM kernel and its plain version (CUDA events, median of
-     20) on the banded65536 operands in both forms, with GFLOPS =
-     2*nnz*k / kernel ms and the bytes moved, and the gather route's
-     device time at rmat65536;
+     20) on the banded65536 operands at k = 128, SpMV and k = 256, beside
+     torch.sparse.mm(A, X) and torch.mv(A, x), with GFLOPS = 2*nnz*k /
+     kernel ms, and the gather route's device time at rmat65536;
  16. compare the pair kernel with its plain version on random banded
      plans: 16x128 and 64x128 A tiles (B 128x128), integer values (equal
      exactly), Gaussian values (rtol 1e-5), counts > 0 equal;
@@ -82,6 +91,15 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      never; then time the kernel and its plain version on that schedule;
  18. print the kernels JSON line, then the contract line
      {"ok": true, "device": {...}} as the last line.
+
+Beside every kernel's time the script prints (phase bound) its bound_ms:
+the larger of the bytes its operands and results take, each read or
+written once, over 3.35 TB/s, and its operations over the H100's peak for
+their type (f32 products counted as three TF32 products, the card's
+fastest f32-accurate rate); and (phase library) library_ms, the median
+time of the one PyTorch call that computes the same function
+(torch.sparse.mm, torch.mv), or the error where that call cannot run.
+The port never calls those; they are yardsticks.
 """
 
 import json
@@ -100,6 +118,10 @@ OZ_TM = 32                      # the tile height the JAX route was tuned at
 OZ_RTOL = 1e-12                 # tests/test_ozaki.py:306 (x max|C|)
 SPMM_TM = 16                    # tools/run_suite.py's SpMM128 tiles: 16x128
 SPMM_K = 128                    # the suite's SpMM128 width
+# H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
+# dense operations/s by type, for each kernel's bound_ms
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"tf32": 495e12, "bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 class SmokeFailure(Exception):
@@ -234,6 +256,8 @@ def _zero_counters(*wrappers) -> None:
     for w in wrappers:
         w.kernel_launches = 0
         w.plain_launches = 0
+        if hasattr(w, "narrow_launches"):
+            w.narrow_launches = 0
 
 
 def _check_exact(label, got, ref) -> None:
@@ -245,6 +269,84 @@ def _check_exact(label, got, ref) -> None:
     print(f"phase check: {label} nnzC={got.nnz} oracle nnzC={ref.nnz} "
           f"pattern_equal={pat} values_exact={exact}")
     check(pat and exact, f"{label} result differs from the scipy oracle")
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _f32_mma_ops(products: float) -> list:
+    """Operations of `products` f32 multiply-adds at the card's fastest
+    f32-accurate rate: three TF32 tensor-core products each (3xTF32)."""
+    return [(3 * 2.0 * products, "tf32")]
+
+
+def bound(label: str, inputs, outputs, ops=()) -> tuple:
+    """(bound_ms, bound_by): the larger of the bytes of `inputs` and
+    `outputs` (each read or written once) over the H100's HBM rate and the
+    operations `ops` [(count, type)] over the card's peak rate for their
+    type. Prints the numbers behind it."""
+    moved = _nbytes(inputs) + _nbytes(outputs)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = sum(n / PEAK_OPS[kind] for n, kind in ops) * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    what = ", ".join(f"{n!r} {kind}" for n, kind in ops) or "none counted"
+    print(f"phase bound: {label} bytes={moved} ({bytes_ms!r} ms at "
+          f"{HBM_BYTES_PER_S:.3g} B/s) ops=[{what}] ({ops_ms!r} ms at peak) "
+          f"bound_ms={max(bytes_ms, ops_ms)!r} bound_by={by}")
+    return max(bytes_ms, ops_ms), by
+
+
+def _torch_csr(a, dtype):
+    """`a` as a torch sparse CSR tensor on the card (int32 indices)."""
+    import torch
+
+    up = lambda v, dt: torch.from_numpy(np.ascontiguousarray(v, dt)).to("cuda")
+    return torch.sparse_csr_tensor(up(a.indptr, np.int32),
+                                   up(a.indices, np.int32),
+                                   up(a.data, np.float64).to(dtype),
+                                   size=a.shape)
+
+
+def profiled_device_ms(fn, *, iters: int = 20) -> float:
+    """Device time of one call of `fn`: the sum of the durations of every
+    kernel, memset and copy it runs on the card (torch.profiler), over
+    `iters` calls, divided by `iters`. Unlike CUDA events around each
+    call, this leaves out the gaps where the card waits for the host, which
+    dominate calls shorter than the host's launch overhead."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / iters / 1e3
+
+
+def library_ms(label: str, fn, *, iters: int):
+    """Median ms of one PyTorch library call `fn` (the yardstick beside a
+    kernel; the port never calls it), or None with the error printed when
+    the call cannot run at this shape."""
+    import torch
+
+    from spgemm_tpu_torch.utils.timing import cuda_event_ms
+
+    try:
+        ms = cuda_event_ms(fn, warmup=1, iters=iters)
+    except (RuntimeError, NotImplementedError) as e:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"phase library: {label} could not run: {type(e).__name__}: "
+              f"{str(e).splitlines()[0][:300]}")
+        return None
+    print(f"phase library: {label} library_ms={ms!r}")
+    return ms
 
 
 def run_esc_path(suite: dict) -> list:
@@ -301,6 +403,11 @@ def run_esc_path(suite: dict) -> list:
           f"(kernel + combine) compact_ms={tms['compact_ms']!r} "
           f"(download + tail + host) wall_s={csr_s!r}")
     kw = dict(passes=plan.passes, group_rows=plan.group_rows)
+    a_t = _torch_csr(a, torch.float32)
+    lib_ms = library_ms(f"torch.sparse.mm(A_csr, A_csr) f32 at {name}",
+                        lambda: torch.sparse.mm(a_t, a_t), iters=3)
+    del a_t
+    torch.cuda.empty_cache()
     entries = []
     for label, ex, plain in (("esc_scan", ex_p, sk.esc_scan_plain),
                              ("esc_scan_mul", ex_m, sk.esc_scan_mul_plain)):
@@ -310,6 +417,8 @@ def run_esc_path(suite: dict) -> list:
         err = (got - exp).abs().max().item()
         check(torch.equal(got, exp), f"{label} differs from its plain "
                                      f"version at {name}: {err}")
+        b_ms, b_by = bound(f"{label} at {name}", (*ex._vals, ex._meta),
+                           (got,))
         del got, exp
         ms = ex.time_numeric(warmup=3, iters=20)
         plain_ms = cuda_event_ms(lambda: plain(*ex._vals, ex._meta, **kw),
@@ -322,7 +431,8 @@ def run_esc_path(suite: dict) -> list:
             replaces={"esc_scan": "spgemm_tpu/ops/esc.py:662",
                       "esc_scan_mul": "spgemm_tpu/ops/esc.py:713"}[label],
             launches=launches[label][0], max_abs_err=err, ms=ms,
-            plain_ms=plain_ms))
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms))
     out = ex_p.run()
     combine_ms = cuda_event_ms(lambda: esc._combine_apply(plan, out),
                                warmup=1, iters=5)
@@ -392,6 +502,12 @@ def run_f64_path(suite: dict) -> dict:
     err = max((x - y).abs().max().item() for x, y in zip(got, exp))
     check(all(torch.equal(x, y) for x, y in zip(got, exp)),
           f"esc_scan_dd differs from its plain version at {name}: {err}")
+    b_ms, b_by = bound(f"esc_scan_dd at {name}", (*planes, meta), got)
+    del got, exp
+    a_t = _torch_csr(a, torch.float64)
+    lib_ms = library_ms(f"torch.sparse.mm(A_csr, A_csr) f64 at {name}",
+                        lambda: torch.sparse.mm(a_t, a_t), iters=3)
+    del a_t
     ms = cuda_event_ms(lambda: sk.esc_scan_dd(*planes, meta, **kw),
                        warmup=3, iters=20)
     plain_ms = cuda_event_ms(lambda: sk.esc_scan_dd_plain(*planes, meta,
@@ -403,7 +519,8 @@ def run_f64_path(suite: dict) -> dict:
     return dict(name="esc_scan_dd", route="cuda",
                 source="spgemm_tpu_torch/csrc/esc_scan.cu",
                 replaces="spgemm_tpu/ops/esc.py:760", launches=dd[0],
-                max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
 
 
 def compare_ozaki_plans() -> None:
@@ -542,7 +659,16 @@ def run_ozaki_path(a_int, ref_int) -> dict:
     check(all(torch.equal(g, e) for g, e in zip(got, exp)),
           f"the Ozaki kernel differs from its plain version on the main "
           f"plan: {err}")
+    kept = sum(1 for i in range(plan.sa) for j in range(plan.sb)
+               if i + j <= plan.pmax)
+    macs = float(s.num_pairs) * kept * OZ_TM * s.tk * s.tn
+    b_ms, b_by = bound(f"ozaki_strip (pairs {s.num_pairs} x {kept} kept "
+                       f"slice products)", ops, got, [(2 * macs, "int8")])
     del got, exp
+    a_t = _torch_csr(a, torch.float64)
+    lib_ms = library_ms("torch.sparse.mm(A_csr, A_csr) f64 at the cant-like",
+                        lambda: torch.sparse.mm(a_t, a_t), iters=3)
+    del a_t
     ms = cuda_event_ms(lambda: oz(*ops, **kw), warmup=3, iters=30)
     plain_ms = cuda_event_ms(lambda: ok.ozaki_strip_numeric_plain(*ops, **kw),
                              warmup=1, iters=5)
@@ -562,7 +688,8 @@ def run_ozaki_path(a_int, ref_int) -> dict:
                 source="spgemm_tpu_torch/csrc/ozaki_strip.cu",
                 replaces="spgemm_tpu/ops/pallas_kernels.py:971",
                 launches=launches[0], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
 
 def _close(got, exp, *, rtol=GAUSS_RTOL, atol_rel=1e-6):
@@ -600,25 +727,30 @@ def compare_spmm_plans() -> None:
                 x = rng.integers(-4, 5, (a.n, 200)).astype(np.float64)
             t = csr_to_tiles(a, tm, TN)
             stats = pspmm._spmm_block_stats(t, block_rows)
-            ops = pspmm._pack_spmm_operands(t, x, 256, torch.float32,
-                                            block_rows).to_device("cuda")
             kmin = torch.from_numpy(pspmm._window_kmin(t, stats)).to("cuda")
-            for form, km in (("resident", None), ("window", kmin)):
-                got = smk.spmm_strip(*ops, km, gm=t.gm, block_rows=block_rows)
-                exp = smk.spmm_strip_plain(*ops, km, gm=t.gm,
-                                           block_rows=block_rows)
-                torch.cuda.synchronize()
-                if values == "integer":
-                    ok, err, scale = torch.equal(got, exp), 0.0, 0.0
-                    if not ok:
-                        err = (got - exp).abs().max().item()
-                else:
-                    ok, err, scale = _close(got, exp)
-                print(f"phase spmm-compare: tiles {tm}x{TN} {form} {values} "
-                      f"rows={got.shape[0]} k_pad=256 max_abs_err={err!r} "
-                      f"max_abs={scale!r} ok={ok}")
-                check(ok, f"SpMM kernel differs from its plain version "
-                          f"({tm}x{TN}, {form}, {values}): {err}")
+            # (k, packed width): the 128-column form and the narrow one
+            for k, width in ((200, 256), (1, 8), (20, 32)):
+                ops = pspmm._pack_spmm_operands(
+                    t, x[:, :k], width, torch.float32,
+                    block_rows).to_device("cuda")
+                for form, km in (("resident", None), ("window", kmin)):
+                    got = smk.spmm_strip(*ops, km, gm=t.gm,
+                                         block_rows=block_rows)
+                    exp = smk.spmm_strip_plain(*ops, km, gm=t.gm,
+                                               block_rows=block_rows)
+                    torch.cuda.synchronize()
+                    if values == "integer":
+                        ok, err, scale = torch.equal(got, exp), 0.0, 0.0
+                        if not ok:
+                            err = (got - exp).abs().max().item()
+                    else:
+                        ok, err, scale = _close(got, exp)
+                    print(f"phase spmm-compare: tiles {tm}x{TN} {form} "
+                          f"{values} rows={got.shape[0]} k={k} width={width} "
+                          f"max_abs_err={err!r} max_abs={scale!r} ok={ok}")
+                    check(ok, f"SpMM kernel differs from its plain version "
+                              f"({tm}x{TN}, {form}, {values}, width "
+                              f"{width}): {err}")
 
 
 class _RouteSpy:
@@ -689,14 +821,21 @@ def run_spmm_path(suite: dict) -> list:
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[label] = (w.kernel_launches, w.plain_launches)
+        narrow = w.narrow_launches
         ok, err, scale = _close(y, sa @ x.astype(np.float64))
         print(f"phase spmm: {label} k={k} mode={mode} route={spy.log} "
               f"wall_s={wall!r} launches (kernel, plain)={launches[label]} "
-              f"max_abs_err={err!r} max|Y|={scale!r} ok={ok}")
+              f"of them narrow form={narrow} (packed width "
+              f"{smk.pack_width(k)}) max_abs_err={err!r} max|Y|={scale!r} "
+              f"ok={ok}")
         check(spy.log == ["_spmm_strip"], f"{label} took route {spy.log}")
         check(launches[label][0] >= 1 and launches[label][1] == 0,
               f"the {label} SpMM did not run through the kernel: "
               f"{launches[label]}")
+        check((narrow == launches[label][0]) == (k <= 32) and
+              (narrow == 0) == (k > 32),
+              f"the {label} SpMM ran the wrong kernel form: {narrow} narrow "
+              f"launches of {launches[label][0]}")
         check(ok, f"{label} SpMM differs from scipy: {err}")
         del y
 
@@ -723,16 +862,19 @@ def run_spmm_path(suite: dict) -> list:
     entries = []
     block_rows = 64
     stats = pspmm._spmm_block_stats(t, block_rows)
+    a_t = _torch_csr(a, torch.float32)
     for label, entry_name, replaces in (
             ("resident", "spmm_strip", "spgemm_tpu/ops/pallas_kernels.py:679"),
+            ("spmv", "spmm_strip_spmv", "spgemm_tpu/ops/pallas_kernels.py:679"),
             ("window", "spmm_strip_window",
              "spgemm_tpu/ops/pallas_kernels.py:805")):
         x = xs[label]
-        k = x.shape[1]
-        k_pad = max(128, -(-k // 128) * 128)
-        ops = pspmm._pack_spmm_operands(t, x, k_pad, torch.float32,
+        x2 = x[:, None] if x.ndim == 1 else x
+        k = x2.shape[1]
+        ops = pspmm._pack_spmm_operands(t, x2, smk.pack_width(k),
+                                        torch.float32,
                                         block_rows).to_device("cuda")
-        km = (None if label == "resident" else
+        km = (None if label != "window" else
               torch.from_numpy(pspmm._window_kmin(t, stats)).to("cuda"))
         kw = dict(gm=t.gm, block_rows=block_rows)
         got = w(*ops, km, **kw)
@@ -741,24 +883,46 @@ def run_spmm_path(suite: dict) -> list:
         ok, err, _ = _close(got, exp)
         check(ok, f"SpMM kernel differs from its plain version ({label}, "
                   f"{name}): {err}")
+        width = got.shape[2]
+        b_ms, b_by = bound(
+            f"spmm {label} k={k} width={width}", (*ops, km), (got,),
+            _f32_mma_ops(float(t.nt) * t.tm * t.tn * width))
         del got, exp
         ms = cuda_event_ms(lambda: w(*ops, km, **kw), warmup=3, iters=20)
         plain_ms = cuda_event_ms(lambda: smk.spmm_strip_plain(*ops, km, **kw),
                                  warmup=1, iters=20)
-        n_rows = -(-t.gm // block_rows) * block_rows
-        moved = 4 * (t.nt * t.tm * t.tn + t.gn * t.tn * k_pad
-                     + n_rows * t.tm * k_pad)
-        print(f"phase spmm-time: {label} k={k} kernel_ms={ms!r} "
-              f"plain_ms={plain_ms!r} max_abs_err={err!r} GFLOPS="
+        xd = torch.from_numpy(x).to("cuda")
+        if x.ndim == 1:
+            lib_ms = library_ms(f"torch.mv(A_csr, x) f32 at {name}",
+                                lambda: torch.mv(a_t, xd), iters=20)
+        else:
+            lib_ms = library_ms(f"torch.sparse.mm(A_csr, X) f32 k={k} at "
+                                f"{name}", lambda: torch.sparse.mm(a_t, xd),
+                                iters=20)
+        dev_ms = profiled_device_ms(lambda: w(*ops, km, **kw))
+        lib_dev_ms = None
+        if lib_ms is not None:
+            lib_dev_ms = profiled_device_ms(
+                (lambda: torch.mv(a_t, xd)) if x.ndim == 1
+                else (lambda: torch.sparse.mm(a_t, xd)))
+        del xd
+        print(f"phase spmm-time: {label} k={k} width={width} kernel_ms={ms!r} "
+              f"plain_ms={plain_ms!r} library_ms={lib_ms!r} (CUDA events "
+              f"around each call); profiled device time: kernel "
+              f"{dev_ms!r} ms, library call {lib_dev_ms!r} ms")
+        print(f"phase spmm-time: {label} "
+              f"max_abs_err={err!r} GFLOPS="
               f"{2.0 * a.nnz * k / (ms * 1e6)!r} (2*nnz*k / kernel ms) "
-              f"dense-tile GFLOPS={2.0 * t.nt * t.tm * t.tn * k_pad / (ms * 1e6)!r} "
-              f"bytes A+X+Y={moved} ({moved / (ms * 1e6)!r} GB/s)")
+              f"dense-tile GFLOPS={2.0 * t.nt * t.tm * t.tn * width / (ms * 1e6)!r}")
         entries.append(dict(
             name=entry_name, route="cuda",
             source="spgemm_tpu_torch/csrc/spmm_strip.cu", replaces=replaces,
             launches=launches[label][0], max_abs_err=err, ms=ms,
-            plain_ms=plain_ms))
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, device_ms=dev_ms,
+            library_device_ms=lib_dev_ms))
         del ops
+    del a_t
     gms = pspmm.time_spmm_gather(g, xg, warmup=2, iters=20, device="cuda")
     print(f"phase spmm-time: gather {gname} k={SPMM_K} device_ms={gms!r} "
           f"GFLOPS={2.0 * g.nnz * SPMM_K / (gms * 1e6)!r} (2*nnz*k / ms)")
@@ -808,9 +972,11 @@ def compare_pair_plans() -> None:
                                  f"version ({tm}x{TN}, {values}): {err}")
 
 
-def run_pair_path(a, ref) -> dict:
+def run_pair_path(a, ref, lib_ms) -> dict:
     """Phase 17: the pair backends on the cant-like A^2, then the pair
-    kernel's timing. Returns its kernels JSON entry."""
+    kernel's timing. `lib_ms` is torch.sparse.mm's time for the same
+    product (the strip kernel's yardstick). Returns its kernels JSON
+    entry."""
     import torch
 
     from spgemm_tpu_torch.models.tile import csr_to_tiles
@@ -857,11 +1023,14 @@ def run_pair_path(a, ref) -> dict:
     check(torch.equal(gv, pv) and torch.equal(gc > 0, pc > 0),
           f"the pair kernel differs from its plain version on the cant-like "
           f"schedule: {err}")
+    tm, tk = ops[0].shape[1:]
+    products = float(sched.num_pairs) * tm * tk * TN
+    b_ms, b_by = bound("pair_accumulate (values and counts)", ops, (gv, gc),
+                       _f32_mma_ops(products) + [(2 * products, "bf16")])
     del gv, gc, pv, pc
     ms = cuda_event_ms(lambda: w(*ops, **kw), warmup=3, iters=20)
     plain_ms = cuda_event_ms(lambda: pk.pair_accumulate_plain(*ops, **kw),
                              warmup=1, iters=10)
-    tm, tk = ops[0].shape[1:]
     flop = 2.0 * 2 * sched.num_pairs * tm * tk * TN  # values and counts
     print(f"phase pair-time: kernel_ms={ms!r} plain_ms={plain_ms!r} "
           f"max_abs_err={err!r} dense-tile TFLOP/s={flop / (ms * 1e9)!r} "
@@ -871,7 +1040,8 @@ def run_pair_path(a, ref) -> dict:
                 source="spgemm_tpu_torch/csrc/pair_accumulate.cu",
                 replaces="spgemm_tpu/ops/pallas_kernels.py:32",
                 launches=pallas_launches, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms)
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms)
 
 
 def run() -> dict:
@@ -954,6 +1124,9 @@ def run() -> dict:
     max_abs_err = (cv - pv).abs().max().item()
     check(max_abs_err == 0.0 and torch.equal(cc, pc),
           f"kernel and plain differ on the main plan: {max_abs_err}")
+    products = float(sa.num_pairs) * sa.tm * sa.tk * sa.tn
+    strip_bound = bound("strip_numeric (values and counts)", ops, (cv, cc),
+                        _f32_mma_ops(products) + [(2 * products, "bf16")])
     del cv, cc, pv, pc
     numeric_ms = ex.time_numeric(warmup=5, iters=50)
     plain_ms = cuda_event_ms(
@@ -962,6 +1135,62 @@ def run() -> dict:
     print(f"phase time: symbolic_ms={sym_ms!r} numeric_ms={numeric_ms!r} "
           f"plain_numeric_ms={plain_ms!r} gflops={gflops!r} "
           f"(2*nnzCub/(symbolic+numeric); reference GPU bar 52.63)")
+    usage = kernels.ptxas_usage(kernels.build_info["ptxas"])
+    for fn, (regs, spill_st, spill_ld) in sorted(usage.items()):
+        print(f"phase time: ptxas {fn}: {regs} registers, {spill_st} bytes "
+              f"spill stores, {spill_ld} bytes spill loads")
+    tm64 = [u for fn, u in usage.items() if "strip_numeric_kernelILi64E" in fn]
+    check(len(tm64) == 1 and tm64[0][0] <= 128 and tm64[0][1:] == (0, 0),
+          f"the 64x128 strip kernel needs <= 128 registers and no spills "
+          f"for two CTAs per SM: {tm64}")
+    a_t = _torch_csr(a, torch.float32)
+    strip_lib_ms = library_ms("torch.sparse.mm(A_csr, A_csr) f32 at the "
+                              "cant-like", lambda: torch.sparse.mm(a_t, a_t),
+                              iters=3)
+    del a_t
+    # the same kernel on the cached-B plan shape (window=False), which
+    # stands in for the TPU's _strip_kernel_factory
+    from spgemm_tpu_torch.ops.gustavson import build_strip_args
+    nw = build_strip_args(at, bt, window=False)
+    nw_ops = nw.to_device("cuda")
+    nw_kw = nw.kernel_kwargs()
+    cv, cc = kernels.strip_numeric(*nw_ops, **nw_kw)
+    pv, pc = kernels.strip_numeric_plain(*nw_ops, **nw_kw)
+    torch.cuda.synchronize()
+    check(torch.equal(cv, pv) and torch.equal(cc, pc),
+          "kernel and plain differ on the window=False plan")
+    del cv, cc, pv, pc
+    nw_ms = cuda_event_ms(lambda: kernels.strip_numeric(*nw_ops, **nw_kw),
+                          warmup=3, iters=20)
+    nw_plain_ms = cuda_event_ms(
+        lambda: kernels.strip_numeric_plain(*nw_ops, **nw_kw), warmup=1,
+        iters=5)
+    print(f"phase time: window=False plan (kwin={nw.kwin} max_b={nw.max_b} "
+          f"max_cblock={nw.max_cblock}) kernel_ms={nw_ms!r} "
+          f"plain_ms={nw_plain_ms!r}, equal to the plain version")
+    del nw_ops
+    # the same plan with Gaussian values: no operand is a TF32 value, so
+    # every k step takes the 3xTF32 split (three products, not one)
+    ag = a.with_data(np.random.default_rng(0).standard_normal(a.nnz))
+    gs = build_strip_args(csr_to_tiles(ag, TM, TN), csr_to_tiles(ag, TN, TN))
+    g_ops = gs.to_device("cuda")
+    g_kw = gs.kernel_kwargs()
+    cv, cc = kernels.strip_numeric(*g_ops, **g_kw)
+    pv, pc = kernels.strip_numeric_plain(*g_ops, **g_kw)
+    torch.cuda.synchronize()
+    g_err = (cv - pv).abs().max().item()
+    g_scale = pv.abs().max().item()
+    g_ok = torch.allclose(cv, pv, rtol=GAUSS_RTOL, atol=1e-6 * g_scale)
+    g_cnt = torch.equal(cc, pc)
+    del cv, cc, pv, pc
+    check(g_ok and g_cnt, f"kernel and plain differ on the Gaussian main "
+                          f"plan: max_abs_err {g_err}, counts equal {g_cnt}")
+    g_ms = cuda_event_ms(lambda: kernels.strip_numeric(*g_ops, **g_kw),
+                         warmup=5, iters=50)
+    print(f"phase time: Gaussian values on the main plan (kwin={gs.kwin} "
+          f"pairs={gs.num_pairs}) kernel_ms={g_ms!r} (3xTF32 on every k "
+          f"step) max_abs_err={g_err!r} max_abs={g_scale!r}, counts equal")
+    del g_ops
     print(f"phase time: peak device memory "
           f"{torch.cuda.max_memory_allocated()!r} bytes")
 
@@ -984,7 +1213,7 @@ def run() -> dict:
     torch.cuda.empty_cache()
 
     compare_pair_plans()
-    pair_entry = run_pair_path(a, ref)
+    pair_entry = run_pair_path(a, ref, strip_lib_ms)
 
     return {
         "kernels": [{
@@ -997,6 +1226,11 @@ def run() -> dict:
             "max_abs_err": max_abs_err,
             "ms": numeric_ms,
             "plain_ms": plain_ms,
+            "bound_ms": strip_bound[0],
+            "bound_by": strip_bound[1],
+            "library_ms": strip_lib_ms,
+            "gaussian_ms": g_ms,
+            "gaussian_max_abs_err": g_err,
         }] + esc_entries + [dd_entry, oz_entry] + spmm_entries + [pair_entry],
         # the number of cards this run uses
         "device": {"platform": "gpu", "kind": dev_name, "count": 1},

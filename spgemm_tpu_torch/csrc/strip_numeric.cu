@@ -23,32 +23,53 @@
 // block's C tiles in VMEM ((max_cblock+1)*tm*tn values and counts, about
 // 6.3 MB per buffer on the cant-like headline) and carries a B-slab cache
 // from grid step to grid step. An H100 CTA has at most 227 KB of shared
-// memory, and CTAs run in no order. So here one CTA owns one padded C
-// slot (blk, s): it finds its (g, y) pairs by scanning the block's slot
-// words (ordered ballot compaction by warp 0, so the accumulation order
-// is fixed and runs are reproducible), keeps the tm x tn value and count
-// accumulators in registers, stages A and B through shared memory in
-// k-chunks of 16 (26 KB of static shared memory at 64x128), and writes
-// its tile once. No atomics, no host re-bucketing.
+// memory, and CTAs run in no order. So here one 256-thread CTA owns one
+// padded C slot (blk, s). All eight warps scan the block's slot words,
+// 256 per pass, and compact the hits in order (ballot, popc and a prefix
+// over the warps), so the accumulation order is fixed and runs are
+// reproducible. The tm x tn value and count tiles live in registers as
+// mma accumulators, and the slot's tile is written once. No atomics, no
+// host re-bucketing.
 //
-// Arithmetic: f32 FFMA on the CUDA cores, never TF32 tensor cores: the
-// JAX reference multiplies f32 at Precision.HIGHEST. Build without
-// --use_fast_math (IEEE arithmetic is kept for the later compensated
-// kernels that share these flags).
+// Arithmetic on the tensor cores.
+//   Values: 3xTF32. Each f32 operand x splits as hi = cvt.rna.tf32(x),
+//   lo = cvt.rna.tf32(x - hi), and mma.sync.m16n8k8 (tf32 in, f32
+//   accumulate) adds lo_a.hi_b + hi_a.lo_b + hi_a.hi_b. That keeps f32
+//   accuracy (the JAX reference multiplies at Precision.HIGHEST; TF32
+//   alone misses by about 1e-3). Where every operand of a warp's k step is
+//   already a TF32 value (its low 13 mantissa bits zero: integers below
+//   2^11, the bench's value model), lo would be zero: the step runs one
+//   product on the raw bits, with no split. With integer values every
+//   product and partial sum is an integer below 2^24, so C equals the
+//   plain f32 version bit for bit.
+//   Counts: the occupancy planes are already bf16 0/1, so they go
+//   straight into mma.sync.m16n8k16 (bf16 in, f32 accumulate), loaded
+//   with ldmatrix (.trans for the N-major B slab): exact counts, no
+//   conversion pass.
+//   wgmma is not used: tf32 wgmma needs a K-major B in shared memory and
+//   the B slab is N-major, and a C slot's few k-steps leave little for
+//   an asynchronous warpgroup product to hide.
 //
-// What bounds it on the card. Each (g, y) pair is a dense
-// tm x tk x tn product done twice (values and counts): 2*2*64*128*128
-// FLOP per pair at 64x128, 24.5 GFLOP of FFMA for the headline's 5,844
-// pairs, against 67 TFLOP/s of f32 FFMA peak. The operand bytes (A tile
-// plus B slice, 147 KB per pair, mostly L2 hits) and the block-padded C
-// writes (260 MB) sit below that. So it is bound by FFMA throughput and
-// shared-memory operand reads; the register micro-tile (RM rows x
-// 4*NV columns per thread, float4 B reads) is what this design does
-// about it. wgmma with split-precision operands, TMA staging and a
-// persistent grid are later work.
+// Staging. The k range of every matched (g, y) pair is cut into 32-deep
+// chunks, and the chunks of all the slot's pairs form one stream of
+// steps. A ring of STAGES buffers in dynamic shared memory (A values and
+// occupancy TM x 32, B values and occupancy 32 x 128, rows padded against
+// bank conflicts) is filled by cp.async 16-byte copies, one barrier per
+// step, so the next step's copies run under this step's mma. With at most
+// 128 registers a thread (__launch_bounds__(256, 2)) and 81-100 KB of
+// shared memory, two CTAs share an SM, so one slot's epilogue (64 KB of
+// stores at 64x128) overlaps another slot's loads.
+//
+// What bounds it on the card. At the cant-like headline (64x128 A tiles,
+// 5,844 pairs, 3,968 padded slots) the bytes each read or written once
+// are 503 MB: A planes 97 MB, B slab 144 MB, C planes 260 MB, so 0.150 ms
+// at 3.35 TB/s. The operations (3 x 12.3 GFLOP of TF32 at 495 TFLOP/s and
+// 12.3 GFLOP of bf16 at 989) need 0.087 ms. So the bytes bound it, and
+// the C planes' block padding is the largest part of them.
 //
 // Limits (checked by the caller, spgemm_tpu_torch/ops/kernels.py):
-//   (tm, tn) in {(8,128), (16,128), (32,128), (64,128)}; any tk >= 1;
+//   (tm, tn) in {(8,128), (16,128), (32,128), (64,128)} (tm 8 runs
+//   half-empty m16 tiles); tk % 8 == 0 (16-byte copies of bf16 rows);
 //   n_blocks*max_cblock < 2^31 (grid size); one block's A tiles times
 //   max_b < 2^31. All element offsets are int64.
 //
@@ -61,18 +82,98 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 16;          // k depth staged per step
-constexpr int kAStride = kChunk + 1;  // A rows padded: no bank conflicts
-constexpr int kMatchCap = 256;      // (g, y) matches gathered per pass
+constexpr int kWarps = kThreads / 32;
+constexpr int kTN = 128;
+constexpr int kKC = 32;              // k depth of one pipeline step
+constexpr int kStagesTm64 = 2;       // ring depth at tm 64 (others: 3)
+constexpr int kScan = kThreads;      // slot words scanned per pass
+// shared-memory row strides in elements, padded against bank conflicts
+constexpr int kAvStride = kKC + 4;   // f32 A rows: 36 words
+constexpr int kAoStride = kKC + 8;   // bf16 A rows: 80 bytes
+constexpr int kBvStride = kTN + 8;   // f32 B rows: 136 words
+constexpr int kBoStride = kTN + 8;   // bf16 B rows: 272 bytes
 
-__device__ __forceinline__ float bf16_bits_to_float(uint16_t b) {
-  return __uint_as_float(static_cast<uint32_t>(b) << 16);
+template <int TM>
+struct Cfg {
+  // each warp owns one m16 row tile and NT n8 column tiles of C, so one
+  // A fragment per k step and the accumulators (2 x NT x 4) stay within
+  // 128 registers
+  static constexpr int MR = TM < 16 ? 16 : TM;  // rows the m16 tiles cover
+  static constexpr int WM = MR / 16;            // warps along m
+  static constexpr int WN = kWarps / WM;        // warps along n
+  static constexpr int NT = kTN / (8 * WN);     // n8 tiles per warp
+  static constexpr int STAGES = TM == 64 ? kStagesTm64 : 3;
+  static constexpr int AV = MR * kAvStride * 4;  // stage layout, bytes
+  static constexpr int AO = MR * kAoStride * 2;
+  static constexpr int BV = kKC * kBvStride * 4;
+  static constexpr int BO = kKC * kBoStride * 2;
+  static constexpr int STAGE = AV + AO + BV + BO;
+  static constexpr int SMEM = STAGES * STAGE;
+  static_assert(16 * WM == MR && NT * 8 * WN == kTN && NT % 2 == 0,
+                "warp tiling must cover the C tile");
+  static_assert(AV % 16 == 0 && AO % 16 == 0 && BV % 16 == 0,
+                "stage parts must stay 16-byte aligned");
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;  // 0: zero-fill, nothing read
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(n));
 }
 
-// TM x TN output tile per CTA; each thread owns RM rows and NV float4
-// column groups spaced TN/NV apart (conflict-free float4 reads of B).
-template <int TM, int TN, int RM, int NV>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);  // exact in f32
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+template <int TM>
+__global__ void __launch_bounds__(kThreads, 2)
 strip_numeric_kernel(const float* __restrict__ a_val,
                      const uint16_t* __restrict__ a_occ,
                      const float* __restrict__ b_val,
@@ -84,22 +185,19 @@ strip_numeric_kernel(const float* __restrict__ a_val,
                      float* __restrict__ c_cnt,
                      int64_t gm, int64_t block_rows, int64_t max_b,
                      int64_t max_cblock, int64_t tk) {
-  constexpr int TX = TN / (4 * NV);
-  constexpr int TY = TM / RM;
-  constexpr int CW = TN / NV;
-  static_assert(TX * TY == kThreads, "thread layout must cover the tile");
-
-  __shared__ float as_v[TM * kAStride];
-  __shared__ float as_o[TM * kAStride];
-  __shared__ __align__(16) float bs_v[kChunk * TN];
-  __shared__ __align__(16) float bs_o[kChunk * TN];
-  __shared__ int32_t match[kMatchCap];
-  __shared__ int32_t n_match;
-  __shared__ int64_t scan_next;
+  using C = Cfg<TM>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int32_t match_g[kScan];  // A tile of each matched entry
+  __shared__ int32_t match_y[kScan];  // and its B column block
+  __shared__ int32_t warp_hits[kWarps];
 
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gid = lane >> 2;  // mma fragment row / column group
+  const int tig = lane & 3;   // thread in group
+  const int m0 = (warp / C::WN) * 16;          // the warp's C rows
+  const int n0 = (warp % C::WN) * C::NT * 8;   // and columns
   const int64_t slot_id = blockIdx.x;
   const int64_t blk = slot_id / max_cblock;
   const int32_t s = static_cast<int32_t>(slot_id - blk * max_cblock);
@@ -107,136 +205,248 @@ strip_numeric_kernel(const float* __restrict__ a_val,
   const int64_t r1 = r0 + block_rows < gm ? r0 + block_rows : gm;
   const int64_t e_begin = static_cast<int64_t>(aptr[r0]) * max_b;
   const int64_t e_end = static_cast<int64_t>(aptr[r1]) * max_b;
-  const int64_t ldb = max_b * TN;  // B slab row stride, elements
+  const int64_t ldb = max_b * kTN;  // B slab row stride, elements
+  const int nch = static_cast<int>((tk + kKC - 1) / kKC);
 
-  float acc_v[RM][4 * NV];
-  float acc_o[RM][4 * NV];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4 * NV; ++j) {
-      acc_v[i][j] = 0.f;
-      acc_o[i][j] = 0.f;
+  if (TM < 16) {
+    // rows TM..15 of the m16 A tiles are never copied: keep them zero
+    uint4* z = reinterpret_cast<uint4*>(smem);
+    for (int i = tid; i < C::SMEM / 16; i += kThreads) {
+      z[i] = make_uint4(0u, 0u, 0u, 0u);
     }
   }
 
-  int64_t e0 = e_begin;
-  while (e0 < e_end) {
-    // warp 0 gathers the next run of this slot's (g, y) entries in order
-    if (tid < 32) {
-      int cnt = 0;
-      int64_t e = e0;
-      while (e < e_end && cnt + 32 <= kMatchCap) {
-        const int64_t mine = e + tid;
-        const bool hit = mine < e_end && slots[mine] == s;
-        const unsigned ball = __ballot_sync(0xffffffffu, hit);
-        if (hit) {
-          match[cnt + __popc(ball & ((1u << tid) - 1u))] =
-              static_cast<int32_t>(mine - e_begin);
-        }
-        cnt += __popc(ball);
-        e += 32;
-      }
-      if (tid == 0) {
-        n_match = cnt;
-        scan_next = e;
-      }
+  float acc_v[C::NT][4];
+  float acc_c[C::NT][4];
+#pragma unroll
+  for (int j = 0; j < C::NT; ++j) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      acc_v[j][q] = 0.f;
+      acc_c[j][q] = 0.f;
     }
-    __syncthreads();
-    const int nm = n_match;
-    e0 = scan_next;
-
-    for (int mi = 0; mi < nm; ++mi) {
-      const int64_t entry = e_begin + match[mi];
-      const int64_t g = entry / max_b;
-      const int64_t y = entry - g * max_b;
-      const float* av_g = a_val + g * TM * tk;
-      const uint16_t* ao_g = a_occ + g * TM * tk;
-      const int64_t boff = static_cast<int64_t>(ak[g]) * tk * ldb + y * TN;
-      const float* bv_g = b_val + boff;
-      const uint16_t* bo_g = b_occ + boff;
-
-      for (int64_t k0 = 0; k0 < tk; k0 += kChunk) {
-        for (int i = tid; i < TM * kChunk; i += kThreads) {
-          const int r = i / kChunk;
-          const int kk = i % kChunk;
-          const int64_t k = k0 + kk;
-          const bool in = k < tk;
-          as_v[r * kAStride + kk] = in ? av_g[r * tk + k] : 0.f;
-          as_o[r * kAStride + kk] = in ? bf16_bits_to_float(ao_g[r * tk + k])
-                                       : 0.f;
-        }
-        for (int i = tid; i < kChunk * TN; i += kThreads) {
-          const int kk = i / TN;
-          const int c = i % TN;
-          const int64_t k = k0 + kk;
-          const bool in = k < tk;
-          bs_v[i] = in ? bv_g[k * ldb + c] : 0.f;
-          bs_o[i] = in ? bf16_bits_to_float(bo_g[k * ldb + c]) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < kChunk; ++kk) {
-          float av[RM];
-          float ao[RM];
-#pragma unroll
-          for (int i = 0; i < RM; ++i) {
-            av[i] = as_v[(ty * RM + i) * kAStride + kk];
-            ao[i] = as_o[(ty * RM + i) * kAStride + kk];
-          }
-#pragma unroll
-          for (int v = 0; v < NV; ++v) {
-            const float4 bv =
-                *reinterpret_cast<const float4*>(&bs_v[kk * TN + v * CW + tx * 4]);
-            const float4 bo =
-                *reinterpret_cast<const float4*>(&bs_o[kk * TN + v * CW + tx * 4]);
-#pragma unroll
-            for (int i = 0; i < RM; ++i) {
-              acc_v[i][v * 4 + 0] = fmaf(av[i], bv.x, acc_v[i][v * 4 + 0]);
-              acc_v[i][v * 4 + 1] = fmaf(av[i], bv.y, acc_v[i][v * 4 + 1]);
-              acc_v[i][v * 4 + 2] = fmaf(av[i], bv.z, acc_v[i][v * 4 + 2]);
-              acc_v[i][v * 4 + 3] = fmaf(av[i], bv.w, acc_v[i][v * 4 + 3]);
-              acc_o[i][v * 4 + 0] = fmaf(ao[i], bo.x, acc_o[i][v * 4 + 0]);
-              acc_o[i][v * 4 + 1] = fmaf(ao[i], bo.y, acc_o[i][v * 4 + 1]);
-              acc_o[i][v * 4 + 2] = fmaf(ao[i], bo.z, acc_o[i][v * 4 + 2]);
-              acc_o[i][v * 4 + 3] = fmaf(ao[i], bo.w, acc_o[i][v * 4 + 3]);
-            }
-          }
-        }
-        __syncthreads();
-      }
-    }
-    // every thread has read n_match/scan_next before warp 0 rewrites them
-    __syncthreads();
   }
 
-  float* cv = c_val + slot_id * TM * TN;
-  float* co = c_cnt + slot_id * TM * TN;
+  // copies k chunk `step % nch` of match `step / nch` into stage `buf`
+  auto load_step = [&](int buf, int step) {
+    // an opaque copy of the thread index: the copy offsets below are then
+    // recomputed per step instead of held in registers across the loop
+    int tid = threadIdx.x;
+    asm volatile("" : "+r"(tid));
+    const int mi = step / nch;
+    const int64_t k0 = static_cast<int64_t>(step - mi * nch) * kKC;
+    const int64_t g = match_g[mi];
+    unsigned char* st = smem + buf * C::STAGE;
+    float* as_v = reinterpret_cast<float*>(st);
+    uint16_t* as_o = reinterpret_cast<uint16_t*>(st + C::AV);
+    float* bs_v = reinterpret_cast<float*>(st + C::AV + C::AO);
+    uint16_t* bs_o = reinterpret_cast<uint16_t*>(st + C::AV + C::AO + C::BV);
+    const int64_t a_off = g * TM * tk + k0;
+    const float* av_g = a_val + a_off;
+    const uint16_t* ao_g = a_occ + a_off;
+    const int64_t b_off = (static_cast<int64_t>(ak[g]) * tk + k0) * ldb +
+                          static_cast<int64_t>(match_y[mi]) * kTN;
+    const float* bv_g = b_val + b_off;
+    const uint16_t* bo_g = b_occ + b_off;
+    const int kmax = static_cast<int>(tk - k0 < kKC ? tk - k0 : kKC);
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int64_t row = ty * RM + i;
+    for (int j = 0; j < (TM * kKC / 4 + kThreads - 1) / kThreads; ++j) {
+      const int i = tid + j * kThreads;
+      const int r = i / (kKC / 4);
+      const int c = (i % (kKC / 4)) * 4;
+      if (i < TM * kKC / 4) {
+        const bool in = c < kmax;
+        cp_async16(as_v + r * kAvStride + c, in ? av_g + r * tk + c : a_val,
+                   in);
+      }
+    }
 #pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const int64_t off = row * TN + v * CW + tx * 4;
-      *reinterpret_cast<float4*>(cv + off) =
-          make_float4(acc_v[i][v * 4 + 0], acc_v[i][v * 4 + 1],
-                      acc_v[i][v * 4 + 2], acc_v[i][v * 4 + 3]);
-      *reinterpret_cast<float4*>(co + off) =
-          make_float4(acc_o[i][v * 4 + 0], acc_o[i][v * 4 + 1],
-                      acc_o[i][v * 4 + 2], acc_o[i][v * 4 + 3]);
+    for (int j = 0; j < (TM * kKC / 8 + kThreads - 1) / kThreads; ++j) {
+      const int i = tid + j * kThreads;
+      const int r = i / (kKC / 8);
+      const int c = (i % (kKC / 8)) * 8;
+      if (i < TM * kKC / 8) {
+        const bool in = c < kmax;
+        cp_async16(as_o + r * kAoStride + c, in ? ao_g + r * tk + c : a_occ,
+                   in);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kKC * kTN / 4 / kThreads; ++j) {
+      const int i = tid + j * kThreads;
+      const int kr = i / (kTN / 4);
+      const int c = (i % (kTN / 4)) * 4;
+      const bool in = kr < kmax;
+      cp_async16(bs_v + kr * kBvStride + c, in ? bv_g + kr * ldb + c : b_val,
+                 in);
+    }
+#pragma unroll
+    for (int j = 0; j < kKC * kTN / 8 / kThreads; ++j) {
+      const int i = tid + j * kThreads;
+      const int kr = i / (kTN / 8);
+      const int c = (i % (kTN / 8)) * 8;
+      const bool in = kr < kmax;
+      cp_async16(bs_o + kr * kBoStride + c, in ? bo_g + kr * ldb + c : b_occ,
+                 in);
+    }
+  };
+
+  // the warp's mma products over stage buffer `buf`
+  auto compute_step = [&](int buf) {
+    const unsigned char* st = smem + buf * C::STAGE;
+    const float* as_v = reinterpret_cast<const float*>(st);
+    const uint16_t* as_o = reinterpret_cast<const uint16_t*>(st + C::AV);
+    const float* bs_v = reinterpret_cast<const float*>(st + C::AV + C::AO);
+    const uint16_t* bs_o =
+        reinterpret_cast<const uint16_t*>(st + C::AV + C::AO + C::BV);
+    // values, four k8 steps (not unrolled: one step's fragments live at a
+    // time, within the 128-register budget)
+#pragma unroll 1
+    for (int kk = 0; kk < kKC; kk += 8) {
+      const float* ap = as_v + (m0 + gid) * kAvStride + kk + tig;
+      const float* bp = bs_v + (kk + tig) * kBvStride + n0 + gid;
+      const float a[4] = {ap[0], ap[8 * kAvStride], ap[4],
+                          ap[8 * kAvStride + 4]};
+      float b[C::NT][2];
+      uint32_t low = 0u;  // the bits TF32 drops, over all fragments
+#pragma unroll
+      for (int q = 0; q < 4; ++q) low |= __float_as_uint(a[q]);
+#pragma unroll
+      for (int nt = 0; nt < C::NT; ++nt) {
+        b[nt][0] = bp[nt * 8];
+        b[nt][1] = bp[nt * 8 + 4 * kBvStride];
+        low |= __float_as_uint(b[nt][0]) | __float_as_uint(b[nt][1]);
+      }
+      if (!__any_sync(0xffffffffu, (low & 0x1fffu) != 0u)) {
+        // every operand is a TF32 value (integers below 2^11 are): one
+        // product each, exact, on the raw bits
+        const uint32_t ah[4] = {__float_as_uint(a[0]), __float_as_uint(a[1]),
+                                __float_as_uint(a[2]), __float_as_uint(a[3])};
+#pragma unroll
+        for (int nt = 0; nt < C::NT; ++nt) {
+          mma_tf32(acc_v[nt], ah, __float_as_uint(b[nt][0]),
+                   __float_as_uint(b[nt][1]));
+        }
+      } else {
+        // 3xTF32: lo_a.hi_b + hi_a.lo_b + hi_a.hi_b
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) split_tf32(a[q], ah[q], al[q]);
+#pragma unroll
+        for (int nt = 0; nt < C::NT; ++nt) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(b[nt][0], bh0, bl0);
+          split_tf32(b[nt][1], bh1, bl1);
+          mma_tf32(acc_v[nt], al, bh0, bh1);
+          mma_tf32(acc_v[nt], ah, bl0, bl1);
+          mma_tf32(acc_v[nt], ah, bh0, bh1);
+        }
+      }
+    }
+    // counts: bf16 0/1 planes, two k16 steps
+#pragma unroll 1
+    for (int kk = 0; kk < kKC; kk += 16) {
+      uint32_t af[4];
+      ldmatrix_x4(af, as_o + (m0 + (lane & 15)) * kAoStride + kk +
+                          (lane >> 4) * 8);
+#pragma unroll
+      for (int nt = 0; nt < C::NT; nt += 2) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(
+            bf, bs_o + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kBoStride +
+                    n0 + nt * 8 + (lane >> 4) * 8);
+        mma_bf16(acc_c[nt], af, bf[0], bf[1]);
+        mma_bf16(acc_c[nt + 1], af, bf[2], bf[3]);
+      }
+    }
+  };
+
+  // (the zero fill above lands before any copy: the scan's barriers
+  // come first)
+  for (int64_t e0 = e_begin; e0 < e_end; e0 += kScan) {
+    // ordered compaction of this pass's slot words that name slot s
+    const int64_t e = e0 + tid;
+    const bool hit = e < e_end && slots[e] == s;
+    const unsigned ball = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) warp_hits[warp] = __popc(ball);
+    __syncthreads();
+    int base = 0;
+    int nm = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int h = warp_hits[w];
+      base += w < warp ? h : 0;
+      nm += h;
+    }
+    if (hit) {
+      const int idx = base + __popc(ball & ((1u << lane) - 1u));
+      const int64_t g = e / max_b;
+      match_g[idx] = static_cast<int32_t>(g);
+      match_y[idx] = static_cast<int32_t>(e - g * max_b);
+    }
+    __syncthreads();
+    if (nm == 0) continue;
+
+    // the stream of (match, k chunk) steps through the cp.async ring
+    const int steps = nm * nch;
+#pragma unroll
+    for (int p = 0; p < C::STAGES - 1; ++p) {
+      if (p < steps) load_step(p, p);
+      cp_async_commit();
+    }
+    for (int step = 0; step < steps; ++step) {
+      cp_async_wait<C::STAGES - 2>();
+      __syncthreads();  // this step's copies are visible; the buffer the
+                        // next copies overwrite is no longer read
+      const int next = step + C::STAGES - 1;
+      if (next < steps) load_step(next % C::STAGES, next);
+      cp_async_commit();
+      compute_step(step % C::STAGES);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // stages and matches are free for the next pass
+  }
+
+  float* cv = c_val + slot_id * TM * kTN;
+  float* co = c_cnt + slot_id * TM * kTN;
+#pragma unroll
+  for (int nt = 0; nt < C::NT; ++nt) {
+    const int col = n0 + nt * 8 + 2 * tig;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = m0 + gid + 8 * h;
+      if (row < TM) {
+        const int64_t off = static_cast<int64_t>(row) * kTN + col;
+        *reinterpret_cast<float2*>(cv + off) =
+            make_float2(acc_v[nt][2 * h], acc_v[nt][2 * h + 1]);
+        *reinterpret_cast<float2*>(co + off) =
+            make_float2(acc_c[nt][2 * h], acc_c[nt][2 * h + 1]);
+      }
     }
   }
 }
 
-template <int TM, int TN, int RM, int NV>
-void launch(dim3 grid, cudaStream_t stream, const float* a_val,
-            const uint16_t* a_occ, const float* b_val, const uint16_t* b_occ,
-            const int32_t* aptr, const int32_t* ak, const int32_t* slots,
-            float* c_val, float* c_cnt, int64_t gm, int64_t block_rows,
-            int64_t max_b, int64_t max_cblock, int64_t tk) {
-  strip_numeric_kernel<TM, TN, RM, NV><<<grid, kThreads, 0, stream>>>(
+template <int TM>
+int launch(dim3 grid, cudaStream_t stream, const float* a_val,
+           const uint16_t* a_occ, const float* b_val, const uint16_t* b_occ,
+           const int32_t* aptr, const int32_t* ak, const int32_t* slots,
+           float* c_val, float* c_cnt, int64_t gm, int64_t block_rows,
+           int64_t max_b, int64_t max_cblock, int64_t tk) {
+  using C = Cfg<TM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      strip_numeric_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (err == cudaSuccess) {
+    // all of the SM's unified L1/shared memory to shared, so two CTAs fit
+    err = cudaFuncSetAttribute(strip_numeric_kernel<TM>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  strip_numeric_kernel<TM><<<grid, kThreads, C::SMEM, stream>>>(
       a_val, a_occ, b_val, b_occ, aptr, ak, slots, c_val, c_cnt, gm,
       block_rows, max_b, max_cblock, tk);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -253,8 +463,8 @@ int strip_numeric_f32(const void* a_val, const void* a_occ,
                       int64_t n_blocks, int64_t tm, int64_t tk, int64_t tn,
                       void* stream) {
   const int64_t n_slots = n_blocks * max_cblock;
-  if (n_slots <= 0 || n_slots > INT32_MAX || tk < 1 || max_b < 1 ||
-      block_rows < 1 || gm < 1) {
+  if (n_slots <= 0 || n_slots > INT32_MAX || tk < 8 || tk % 8 != 0 ||
+      max_b < 1 || block_rows < 1 || gm < 1 || tn != kTN) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid(static_cast<unsigned>(n_slots));
@@ -268,28 +478,22 @@ int strip_numeric_f32(const void* a_val, const void* a_occ,
   const auto* sl = static_cast<const int32_t*>(slots);
   auto* cv = static_cast<float*>(c_val);
   auto* cc = static_cast<float*>(c_cnt);
-  if (tn != 128) return static_cast<int>(cudaErrorInvalidValue);
   switch (tm) {
     case 64:
-      launch<64, 128, 4, 2>(grid, st, av, ao, bv, bo, ap, kk, sl, cv, cc, gm,
-                            block_rows, max_b, max_cblock, tk);
-      break;
+      return launch<64>(grid, st, av, ao, bv, bo, ap, kk, sl, cv, cc, gm,
+                        block_rows, max_b, max_cblock, tk);
     case 32:
-      launch<32, 128, 2, 2>(grid, st, av, ao, bv, bo, ap, kk, sl, cv, cc, gm,
-                            block_rows, max_b, max_cblock, tk);
-      break;
+      return launch<32>(grid, st, av, ao, bv, bo, ap, kk, sl, cv, cc, gm,
+                        block_rows, max_b, max_cblock, tk);
     case 16:
-      launch<16, 128, 1, 2>(grid, st, av, ao, bv, bo, ap, kk, sl, cv, cc, gm,
-                            block_rows, max_b, max_cblock, tk);
-      break;
+      return launch<16>(grid, st, av, ao, bv, bo, ap, kk, sl, cv, cc, gm,
+                        block_rows, max_b, max_cblock, tk);
     case 8:
-      launch<8, 128, 1, 1>(grid, st, av, ao, bv, bo, ap, kk, sl, cv, cc, gm,
-                           block_rows, max_b, max_cblock, tk);
-      break;
+      return launch<8>(grid, st, av, ao, bv, bo, ap, kk, sl, cv, cc, gm,
+                       block_rows, max_b, max_cblock, tk);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -114,10 +114,12 @@ def check_strip_feasible(args: StripArgs, device: torch.device) -> None:
     whose plain version takes any plan)."""
     if device.type != "cuda":
         return
-    if (args.tm, args.tn) not in kernels.SUPPORTED_TILES:
+    if (args.tm, args.tn) not in kernels.SUPPORTED_TILES \
+            or args.tk % kernels.TK_MULTIPLE:
         raise ValueError(
-            f"strip kernel takes (tm, tn) in {kernels.SUPPORTED_TILES}; got "
-            f"{args.tm}x{args.tn}")
+            f"strip kernel takes (tm, tn) in {kernels.SUPPORTED_TILES} and "
+            f"tk a multiple of {kernels.TK_MULTIPLE}; got {args.tm}x"
+            f"{args.tn}, tk={args.tk}")
     n_blocks = max(1, -(-args.gm // args.block_rows))
     if n_blocks * args.max_cblock >= 2 ** 31 \
             or args.max_ablock * args.max_b >= 2 ** 31:

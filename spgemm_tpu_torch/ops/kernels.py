@@ -5,7 +5,9 @@ gustavson_strip_pallas` (:538), which reaches the two Pallas strip kernels
 `_strip_window_kernel_factory` (:406, windowed B) and
 `_strip_kernel_factory` (:219, cached B). One CUDA kernel,
 `csrc/strip_numeric.cu`, replaces both: they compute the same function
-from the same plan. The source file's header says what bounds the kernel
+from the same plan. It runs on the tensor cores: values as 3xTF32
+(f32-accurate split operands), counts as bf16 products of the 0/1
+occupancy planes. The source file's header says what bounds the kernel
 on an H100 and what its design does about it.
 
 For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,8 +35,10 @@ import torch
 
 from spgemm_tpu_torch.utils.native import build_shared_library
 
-# (tm, tn) tile shapes the CUDA kernel is instantiated for; tk is free.
+# (tm, tn) tile shapes the CUDA kernel is instantiated for; tk is any
+# multiple of TK_MULTIPLE (its staging copies 16-byte runs of bf16).
 SUPPORTED_TILES = ((8, 128), (16, 128), (32, 128), (64, 128))
+TK_MULTIPLE = 8
 # pairs the plain version multiplies at once (bounds its temporaries)
 _PLAIN_CHUNK = 4096
 
@@ -73,6 +78,25 @@ def build_cuda_library(src: str, stem: str, flags: list[str]):
     info = dict(path=path, seconds=time.perf_counter() - t0,
                 ptxas=open(log).read() if os.path.exists(log) else "")
     return lib, info
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel symbol: (registers, spill store bytes, spill load bytes)}
+    from an `nvcc -Xptxas -v` report."""
+    usage, fn, spills = {}, None, (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn is not None:
+            usage[fn] = (int(m.group(1)),) + spills
+    return usage
 
 
 def load_strip_kernel():
@@ -176,9 +200,10 @@ def strip_numeric(a_val, a_occ, b_val, b_occ, aptr, ak, slots, *,
                          f"{a_val.device}")
     ntp, tm, tk, tn, n_blocks = _geometry(a_val, b_val, max_b, gm,
                                           block_rows)
-    if (tm, tn) not in SUPPORTED_TILES:
-        raise ValueError(f"strip kernel takes (tm, tn) in {SUPPORTED_TILES}, "
-                         f"got ({tm}, {tn})")
+    if (tm, tn) not in SUPPORTED_TILES or tk % TK_MULTIPLE:
+        raise ValueError(f"strip kernel takes (tm, tn) in {SUPPORTED_TILES} "
+                         f"and tk a multiple of {TK_MULTIPLE}, got ({tm}, "
+                         f"{tn}) and tk={tk}")
     if n_blocks * max_cblock >= 2 ** 31:
         raise ValueError("strip kernel grid exceeds 2^31-1 C slots")
     lib = load_strip_kernel()

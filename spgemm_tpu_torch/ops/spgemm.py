@@ -78,11 +78,13 @@ def _resolve_backend(a: TileMat, b: TileMat, backend: str,
     ported. The gate is the CUDA kernel's own limit (its instantiated
     tile shapes); the plain version on the CPU takes any tiles."""
     if backend in ("auto", "strip"):
-        if device.type == "cpu" or (a.tm, b.tn) in kernels.SUPPORTED_TILES:
+        if device.type == "cpu" or ((a.tm, b.tn) in kernels.SUPPORTED_TILES
+                                    and a.tn % kernels.TK_MULTIPLE == 0):
             return
         raise _not_ported(
-            f"a backend for {a.tm}x{b.tn} tiles on CUDA (the strip kernel "
-            f"takes (tm, tn) in {kernels.SUPPORTED_TILES})", "gustavson")
+            f"a backend for {a.tm}x{b.tn} tiles with tk={a.tn} on CUDA (the "
+            f"strip kernel takes (tm, tn) in {kernels.SUPPORTED_TILES} and "
+            f"tk a multiple of {kernels.TK_MULTIPLE})", "gustavson")
     if backend in _ROADMAP_ITEM:
         raise _not_ported(f"backend={backend!r}", backend)
     if backend == "esc":

@@ -3,7 +3,10 @@
 
 Three routes, with the JAX package's router kept:
   * the strip kernel (`_spmm_strip`): the packed plan through
-    ops/spmm_kernels.py:spmm_strip, in the resident or the window form;
+    ops/spmm_kernels.py:spmm_strip, in the resident or the window form.
+    The router decides on the reference's 128-padded k, as the JAX package
+    does; X and Y are then packed at 8, 16 or 32 columns for k <= 32
+    (the kernel's narrow form), else at that k_pad;
   * the tile fallback (`_spmm_tiles`): gather, `bmm` and `index_add_` per
     chunk of stored tiles; the f64 route on CUDA and the route for tiles the
     kernel does not take;
@@ -250,7 +253,7 @@ class SpmmOperands:
     package's _pack_spmm_operands returns, in its order)."""
 
     a_dense: np.ndarray   # (nt + max_ablock, tm, tk), zero tail
-    xb: np.ndarray        # (gn, tn, k_pad)
+    xb: np.ndarray        # (gn, tn, width), width from pack_width(k)
     aptr: np.ndarray      # (gm+1,) int32
     ak: np.ndarray        # (nt + max_ablock,) int32 tile column
     arow: np.ndarray      # (nt + max_ablock,) int32 tile row
@@ -267,7 +270,9 @@ class SpmmOperands:
 def _pack_spmm_operands(a: TileMat, x: np.ndarray, k_pad: int, dtype,
                         block_rows: int,
                         max_ablock: int | None = None) -> SpmmOperands:
-    """Operand packing for the strip SpMM kernel and its timer."""
+    """Operand packing for the strip SpMM kernel and its timer, X at
+    `k_pad` columns (the JAX package's 128-padded width, or a narrow
+    width from spmm_kernels.pack_width)."""
     k = x.shape[1]
     np_dtype = np.float64 if is_f64(dtype) else np.float32
     xb = np.zeros((a.gn, a.tn, k_pad), dtype=np_dtype)
@@ -296,16 +301,21 @@ def _window_kmin(a: TileMat, stats) -> np.ndarray:
 def _spmm_strip(a: TileMat, x: np.ndarray, k_pad: int, dtype,
                 block_rows: int = 64, mode: str = "resident", stats=None, *,
                 device: torch.device) -> torch.Tensor:
+    """The strip kernel route. `k_pad` is the reference's 128-padded width,
+    which the router decided on; X and Y are packed at
+    spmm_kernels.pack_width(k), which is narrower for k <= 32. Returns
+    (gm*tm, width)."""
     if stats is None:
         stats = _spmm_block_stats(a, block_rows)
-    ops = _pack_spmm_operands(a, x, k_pad, dtype, block_rows,
+    width = spmm_kernels.pack_width(x.shape[1])
+    ops = _pack_spmm_operands(a, x, width, dtype, block_rows,
                               max_ablock=stats[0])
     kmin = None
     if mode == "window":
         kmin = torch.from_numpy(_window_kmin(a, stats)).to(device)
     y = spmm_kernels.spmm_strip(*ops.to_device(device), kmin, gm=a.gm,
                                 block_rows=block_rows)
-    return y.reshape(-1, k_pad)[: a.gm * a.tm]
+    return y.reshape(-1, width)[: a.gm * a.tm]
 
 
 def time_spmm(a: TileMat, x, *, warmup: int = 3, iters: int = 20,
@@ -324,7 +334,8 @@ def time_spmm(a: TileMat, x, *, warmup: int = 3, iters: int = 20,
     if mode != "resident":
         raise ValueError("strip SpMM (resident X) infeasible for this "
                          "matrix/k; time the window mode via spmm()")
-    ops = _pack_spmm_operands(a, x, k_pad, torch.float32, block_rows,
+    ops = _pack_spmm_operands(a, x, spmm_kernels.pack_width(x.shape[1]),
+                              torch.float32, block_rows,
                               max_ablock=stats[0]).to_device(dev)
     return cuda_event_ms(
         lambda: spmm_kernels.spmm_strip(*ops, gm=a.gm, block_rows=block_rows),

@@ -5,9 +5,11 @@ PyTorch version.
 spmm_strip_pallas` (:757, X resident, reaching `_spmm_kernel_factory`
 :679) and of `spmm_window_pallas` (:894, an X window per block, reaching
 `_spmm_window_kernel_factory` :805). Both compute the same Y = A·X from the
-same (aptr, ak, arow) plan, so one CUDA kernel, `csrc/spmm_strip.cu`,
+same (aptr, ak, arow) plan, so one CUDA source, `csrc/spmm_strip.cu`,
 serves both: `kmin` None is the resident form, `kmin` set the window form.
-The source's header says what bounds the kernel on an H100 and what its
+The packed width of X and Y picks the kernel: 8, 16 or 32 columns (k up
+to 32, `pack_width`) the narrow form, a multiple of 128 the 128-column
+form. The source's header says what bounds each on an H100 and what its
 design does about it.
 
 For CPU tensors the wrapper runs the plain PyTorch version; for CUDA
@@ -15,7 +17,8 @@ tensors it launches the kernel or raises. It never falls back. The library
 is built with nvcc at first use (never at import) into
 `spgemm_tpu_torch/_build/`.
 
-Launch counters: `spmm_strip.kernel_launches` counts kernel launches and
+Launch counters: `spmm_strip.kernel_launches` counts kernel launches (both
+forms), `spmm_strip.narrow_launches` those of the narrow form, and
 `spmm_strip.plain_launches` dispatches to the plain version. Only the
 wrapper increments them.
 """
@@ -33,6 +36,7 @@ from spgemm_tpu_torch.ops.kernels import build_cuda_library
 # A tile heights the CUDA kernel is instantiated for; tk is free
 SPMM_TM = (8, 16, 32, 64)
 KCOLS = 128          # k_pad is a multiple of this (one CTA per 128 columns)
+NARROW_WIDTHS = (8, 16, 32)  # packed widths of the narrow form (k <= 32)
 # bytes of temporaries the plain version allows per chunk of A tiles
 _PLAIN_CHUNK_BYTES = 256 << 20
 
@@ -62,6 +66,15 @@ def load_spmm_kernel():
         build_info.update(info)
         _lib = lib
         return _lib
+
+
+def pack_width(k: int) -> int:
+    """The width X and Y are packed at for k columns: k rounded up to a
+    power of two of at least 8 while k <= 32 (the narrow form), else k
+    rounded up to a multiple of 128 (the JAX package's k_pad)."""
+    if k <= NARROW_WIDTHS[-1]:
+        return next(w for w in NARROW_WIDTHS if w >= k)
+    return -(-k // KCOLS) * KCOLS
 
 
 def _check_operands(a_dense, xb, aptr, ak, arow, kmin, *, gm, block_rows):
@@ -124,8 +137,10 @@ def spmm_strip(a_dense, xb, aptr, ak, arow, kmin=None, *, gm: int,
     ops/spmm.py:SpmmOperands.to_device): a_dense (ntA_pad, tm, tk), xb
     (gk, tk, k_pad), aptr (gm+1,), ak and arow (ntA_pad,), and for the
     window form kmin (n_blocks,). Returns Y (n_blocks*block_rows, tm,
-    k_pad); rows past gm are zero. CPU tensors run spmm_strip_plain (f32 or
-    f64); CUDA tensors launch csrc/spmm_strip.cu (f32 only)."""
+    k_pad); rows past gm are zero. k_pad is xb's packed width: 8, 16 or 32
+    launches the narrow form, a multiple of 128 the 128-column form. CPU
+    tensors run spmm_strip_plain (f32 or f64, any width); CUDA tensors
+    launch csrc/spmm_strip.cu (f32 only)."""
     kw = dict(gm=gm, block_rows=block_rows)
     n_blocks = _check_operands(a_dense, xb, aptr, ak, arow, kmin, **kw)
     if a_dense.device.type == "cpu":
@@ -140,9 +155,12 @@ def spmm_strip(a_dense, xb, aptr, ak, arow, kmin=None, *, gm: int,
     if a_dense.dtype != torch.float32:
         raise ValueError(f"the SpMM kernel takes float32, got "
                          f"{a_dense.dtype}")
-    if tm not in SPMM_TM or k_pad % KCOLS or k_pad // KCOLS > 65535:
+    narrow = k_pad in NARROW_WIDTHS
+    if tm not in SPMM_TM or not narrow and (
+            k_pad % KCOLS or k_pad // KCOLS > 65535):
         raise ValueError(f"the SpMM kernel takes tm in {SPMM_TM} and k_pad "
-                         f"a multiple of {KCOLS}, got tm={tm} k_pad={k_pad}")
+                         f"in {NARROW_WIDTHS} or a multiple of {KCOLS}, got "
+                         f"tm={tm} k_pad={k_pad}")
     if n_rows >= 2 ** 31:
         raise ValueError("SpMM kernel grid exceeds 2^31-1 rows")
     lib = load_spmm_kernel()
@@ -157,8 +175,10 @@ def spmm_strip(a_dense, xb, aptr, ak, arow, kmin=None, *, gm: int,
     if err != 0:
         raise RuntimeError(f"SpMM kernel launch failed: CUDA error {err}")
     spmm_strip.kernel_launches += 1
+    spmm_strip.narrow_launches += narrow
     return y
 
 
 spmm_strip.kernel_launches = 0
+spmm_strip.narrow_launches = 0
 spmm_strip.plain_launches = 0

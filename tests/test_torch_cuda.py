@@ -1,7 +1,8 @@
 """Card-only checks of the PyTorch port: the CUDA strip kernel, the three
-ESC scan kernels, the Ozaki strip kernel, the SpMM strip kernel and the
-pair kernel against their plain PyTorch versions, and the public entry
-points on a CUDA device.
+ESC scan kernels, the Ozaki strip kernel, the SpMM strip kernel (both its
+128-column and its narrow form) and the pair kernel against their plain
+PyTorch versions, the strip kernel's register budget, and the public
+entry points on a CUDA device.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it also runs on a machine that has only torch:
@@ -10,7 +11,8 @@ no JAX, so it also runs on a machine that has only torch:
 
 Tolerances: integer values are exact in f32 and must agree exactly;
 Gaussian values are summed in another order (rtol 1e-5, atol
-1e-6*max|C|; TF32 would miss by ~1e-3). Counts are exact f32 sums of 0/1
+1e-6*max|C|; TF32 would miss by ~1e-3, the strip kernel's 3xTF32 does
+not: tests/test_torch_strip_arith.py emulates it). Counts are exact f32 sums of 0/1
 products in both versions and must be equal. The scan kernels add in
 their plain versions' order, with no contraction, so they must be
 bit-equal to them on any values. So must the Ozaki kernel: its int32
@@ -76,6 +78,65 @@ def test_kernel_matches_plain(card, tm, window, values):
             kernels.strip_numeric.plain_launches) == (before[0] + 1, before[1])
     _assert_close(kv, pv, values)
     assert torch.equal(kc, pc)
+
+
+def _wide_range(a, rng):
+    """Standard-normal values scaled to magnitudes spanning 1e-3..1e3."""
+    return a.with_data(rng.standard_normal(a.nnz)
+                       * 10.0 ** rng.uniform(-3, 3, a.nnz))
+
+
+@pytest.mark.parametrize("tm", [8, 16, 32, 64])
+@pytest.mark.parametrize("window", [None, False])
+def test_kernel_wide_range_values(card, tm, window):
+    # 3xTF32 keeps f32 accuracy where TF32 alone would miss by ~1e-3
+    rng = np.random.default_rng(6)
+    a = _wide_range(banded(rng, 3000, 64), rng)
+    args = build_strip_args(pt.csr_to_tiles(a, tm, 128),
+                            pt.csr_to_tiles(a, 128, 128), window=window)
+    ops = args.to_device(card)
+    kv, kc = kernels.strip_numeric(*ops, **args.kernel_kwargs())
+    pv, pc = kernels.strip_numeric_plain(*ops, **args.kernel_kwargs())
+    torch.cuda.synchronize()
+    _assert_close(kv, pv, "gaussian")
+    assert torch.equal(kc, pc)
+
+
+@pytest.mark.parametrize("tk", [16, 48, 256])
+@pytest.mark.parametrize("values", ["integer", "gaussian"])
+def test_kernel_other_inner_tiles(card, tk, values):
+    # A tiles 64 x tk, B tiles tk x 128: k staged in 32-deep chunks, the
+    # last one zero-filled past tk
+    a = _matrix(values, 2000, 64)
+    args = build_strip_args(pt.csr_to_tiles(a, 64, tk),
+                            pt.csr_to_tiles(a, tk, 128))
+    assert args.tk == tk
+    ops = args.to_device(card)
+    kv, kc = kernels.strip_numeric(*ops, **args.kernel_kwargs())
+    pv, pc = kernels.strip_numeric_plain(*ops, **args.kernel_kwargs())
+    torch.cuda.synchronize()
+    _assert_close(kv, pv, values)
+    assert torch.equal(kc, pc)
+
+
+def test_kernel_rejects_tk_not_multiple_of_8(card):
+    a = _matrix("integer", 600, 16)
+    at, bt = pt.csr_to_tiles(a, 16, 20), pt.csr_to_tiles(a, 20, 128)
+    args = build_strip_args(at, bt)
+    with pytest.raises(ValueError, match="tk a multiple of 8"):
+        kernels.strip_numeric(*args.to_device(card), **args.kernel_kwargs())
+    with pytest.raises(NotImplementedError, match="Orchestrator fallbacks"):
+        pt.spgemm(at, bt, device=card)
+
+
+def test_strip_kernel_registers(card):
+    # two 256-thread CTAs per SM need <= 128 registers a thread
+    kernels.load_strip_kernel()
+    usage = kernels.ptxas_usage(kernels.build_info["ptxas"])
+    tm64 = [v for fn, v in usage.items() if "strip_numeric_kernelILi64E" in fn]
+    assert len(tm64) == 1
+    regs, spill_stores, spill_loads = tm64[0]
+    assert regs <= 128 and spill_stores == 0 and spill_loads == 0
 
 
 def test_kernel_rejects_unsupported_tiles(card):
@@ -363,6 +424,36 @@ def test_spmm_kernel_matches_plain(card, tm, tk, k_pad):
             _assert_close(got, exp, values)
 
 
+@pytest.mark.parametrize("tm", [8, 16, 64])
+@pytest.mark.parametrize("tk", [18, 128])
+@pytest.mark.parametrize("width,k", [(8, 1), (8, 5), (16, 1), (16, 5),
+                                     (32, 1), (32, 5), (32, 32)])
+def test_spmm_narrow_kernel_matches_plain(card, tm, tk, width, k):
+    rng = np.random.default_rng(33)
+    for values in ("integer", "gaussian"):
+        a = _matrix(values, 2500, 64)
+        t = pt.csr_to_tiles(a, tm, tk)
+        x = (rng.integers(-4, 5, (a.n, k)).astype(np.float64)
+             if values == "integer" else rng.standard_normal((a.n, k)))
+        block_rows = 8
+        stats = pspmm._spmm_block_stats(t, block_rows)
+        ops = pspmm._pack_spmm_operands(t, x, width, torch.float32,
+                                        block_rows).to_device(card)
+        kmin = torch.from_numpy(pspmm._window_kmin(t, stats)).to(card)
+        w = spmm_kernels.spmm_strip
+        for form in (None, kmin):
+            before = (w.kernel_launches, w.narrow_launches, w.plain_launches)
+            got = w(*ops, form, gm=t.gm, block_rows=block_rows)
+            exp = spmm_kernels.spmm_strip_plain(*ops, form, gm=t.gm,
+                                                block_rows=block_rows)
+            torch.cuda.synchronize()
+            assert (w.kernel_launches, w.narrow_launches,
+                    w.plain_launches) == (before[0] + 1, before[1] + 1,
+                                          before[2])
+            assert got.shape == exp.shape and got.shape[2] == width
+            _assert_close(got, exp, values)
+
+
 @pytest.mark.parametrize("tm", [8, 16, 32, 64])
 @pytest.mark.parametrize("tk", [16, 128])
 def test_pair_kernel_matches_plain(card, tm, tk):
@@ -439,7 +530,9 @@ def test_spmm_entry_points_on_card_match_cpu(card, monkeypatch):
         assert y.device.type == "cuda" and torch.equal(y.cpu(),
                                                        torch.from_numpy(host))
     monkeypatch.undo()
+    before = w.narrow_launches
     v = pt.spmv(t, x[:, 0], device=card)
+    assert w.narrow_launches == before + 1
     assert v.shape == (a.m,) and np.array_equal(v.cpu().numpy(), host[:, 0])
     for backend in ("xla", "gather"):
         y = pt.spmm(t, x, backend=backend, device=card)

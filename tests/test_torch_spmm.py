@@ -340,3 +340,107 @@ def test_timers_need_a_card(make_random_csr):
                         device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         pspmm.time_spmm_gather(a, np.ones((64, 8)), device="cpu")
+
+
+def test_pack_width():
+    widths = {k: spmm_kernels.pack_width(k)
+              for k in (1, 3, 8, 9, 16, 17, 32, 33, 128, 129)}
+    assert widths == {1: 8, 3: 8, 8: 8, 9: 16, 16: 16, 17: 32, 32: 32,
+                      33: 128, 128: 128, 129: 256}
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 17, 32])
+@pytest.mark.parametrize("form", ["resident", "window"])
+@pytest.mark.parametrize("values", ["integer", "gaussian"])
+def test_narrow_packing_matches_pallas(k, form, values):
+    """X packed at the narrow width holds the reference's 128-wide X's
+    first columns, and the plain version at that width gives the Pallas
+    kernels' Y (run at k_pad 128) in its first k columns."""
+    block_rows = 2
+    tm, tn = 16, 16
+    a, x, jt = _strip_case(values, tm, tn, seed=40 + k)
+    x = x[:, :k]
+    width = spmm_kernels.pack_width(k)
+    stats = jspmm._spmm_block_stats(jt, block_rows)
+    j_ops = jspmm._pack_spmm_operands(jt, x, 128, jnp.float32, block_rows)
+    kw = dict(gm=jt.gm, max_ablock=j_ops[5], block_rows=block_rows,
+              interpret=True)
+    pt_ = pt.csr_to_tiles(to_port(a), tm, tn)
+    p_ops = pspmm._pack_spmm_operands(pt_, x, width, torch.float32,
+                                      block_rows)
+    np.testing.assert_array_equal(p_ops.xb, j_ops[1][..., :width])
+    kmin = None
+    if form == "window":
+        kmin_np = np.clip(stats[1], 0, jt.gn - stats[2]).astype(np.int32)
+        exp = spmm_window_pallas(*map(jnp.asarray, j_ops[:5]),
+                                 jnp.asarray(kmin_np), kwin=stats[2], **kw)
+        kmin = torch.from_numpy(kmin_np)
+    else:
+        exp = spmm_strip_pallas(*map(jnp.asarray, j_ops[:5]), **kw)
+    got = spmm_kernels.spmm_strip(*p_ops.to_device("cpu"), kmin, gm=jt.gm,
+                                  block_rows=block_rows)
+    assert got.shape[2] == width
+    _assert_close(got.numpy()[..., :k], np.asarray(exp)[..., :k], values)
+    assert not got.numpy()[..., k:].any()
+
+
+def _width_spy(monkeypatch, widths):
+    """Record the width the port packs X at for the strip kernel."""
+    fn = pspmm._pack_spmm_operands
+
+    def spy(a, x, width, *args, **kw):
+        widths.append(width)
+        return fn(a, x, width, *args, **kw)
+
+    monkeypatch.setattr(pspmm, "_pack_spmm_operands", spy)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 17, 32])
+@pytest.mark.parametrize("values", ["integer", "gaussian"])
+def test_narrow_spmm_and_spmv_match_jax(monkeypatch, make_random_csr, rng, k,
+                                        values):
+    a = make_random_csr(120, 140, 0.06)
+    if values == "integer":
+        x = rng.integers(-4, 5, size=(140, k)).astype(np.float64)
+    else:
+        a = a.with_data(rng.standard_normal(a.nnz))
+        x = rng.standard_normal((140, k))
+    widths = []
+    _width_spy(monkeypatch, widths)
+    got, exp, plog, jlog = _both(monkeypatch, a, x, 16, 16)
+    assert plog == jlog == ["_spmm_strip"]
+    assert widths == [spmm_kernels.pack_width(k)]
+    assert got.shape == (120, k)
+    _assert_close(got, exp, values)
+    if k == 1:
+        v = pt.spmv(pt.csr_to_tiles(to_port(a), 16, 16), x[:, 0],
+                    device="cpu")
+        jv = np.asarray(jspmm.spmv(jtile.csr_to_tiles(a, 16, 16), x[:, 0]))
+        assert v.shape == (120,) and widths[-1] == 8
+        _assert_close(v.numpy(), jv, values)
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 17, 32])
+@pytest.mark.parametrize("case", ["unstructured", "banded"])
+def test_routing_at_narrow_k_matches_jax(monkeypatch, case, k):
+    """Routing still decides on the 128-padded width at k <= 32: the gather
+    gate's traffic model and the kernel mode are the reference's."""
+    rng = np.random.default_rng(50 + k)
+    if case == "unstructured":
+        n = 4096
+        r, c = rng.integers(0, n, 3000), rng.integers(0, n, 3000)
+        a = JCSR.from_coo(r, c, rng.integers(1, 10, r.size).astype(
+            np.float64), (n, n))
+        route = "spmm_gather"
+    else:
+        from spgemm_tpu.utils.generators import banded
+
+        a = banded(rng, 1000, 30)
+        route = "_spmm_strip"
+    x = rng.integers(-3, 4, (a.n, k)).astype(np.float64)
+    got, exp, plog, jlog = _both(monkeypatch, a, x, 16, 128)
+    assert plog == jlog == [route]
+    _assert_close(got, exp, "integer")
+    t = pt.csr_to_tiles(to_port(a), 16, 128)
+    dev = torch.device("cuda")  # the card's gate reads only shapes
+    assert pspmm._spmm_mode(t, 128, device=dev)[0] == "resident"
