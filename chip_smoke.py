@@ -7,8 +7,10 @@ Phases (each prints a line; any failure exits non-zero, with no result):
   2. build the strip kernel, the ESC scan kernels, the Ozaki strip
      kernel, the SpMM strip kernel and the pair kernel from
      spgemm_tpu_torch/csrc with nvcc (one nvcc per source, all five
-     started together) and print the build seconds and the ptxas
-     register report;
+     started together) and print the build seconds and each kernel's
+     ptxas registers and spills (the tm 32, 8-group Ozaki kernel must
+     stay within 128 registers, and it and the three scan kernels must
+     not spill);
   3. compare the strip kernel with its plain PyTorch version on the card,
      on random banded plans: 64x128 and 16x128 A tiles (B 128x128),
      integer values (equal exactly) and Gaussian values (rtol 1e-5, atol
@@ -35,6 +37,9 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      their plain versions on a random 8192^2 and a full banded 2048^2
      (band 40: 7 passes, windows taller than COMBINE_K) plan, G = 1 and 4,
      integer and Gaussian values: bit-equal (torch.equal) in every case;
+     then spgemm(tiles, tiles, backend="esc") on a random 8192^2 in f32
+     (equal to scipy exactly) and f64 (rtol 1e-10, atol 1e-11*max|C|),
+     through the scan kernels;
   7. drive the ESC path at full size, C = A^2 on the JAX suite's
      rmat65536 (tools/run_suite.py), through spgemm_csr(device="cuda")
      (auto routing must pick esc) and EscExecutor.run_csr() in modes
@@ -192,13 +197,27 @@ def build_kernels() -> None:
         for f in futs:
             f.result()
     print(f"phase build: five sources in {time.perf_counter() - t0!r} s")
+    usage = {}
     for info in (kernels.build_info, scan_kernels.build_info,
                  ozaki_kernels.build_info, spmm_kernels.build_info,
                  pair_kernels.build_info):
         print(f"phase build: {info['seconds']!r} s -> {info['path']}")
-        for ln in info["ptxas"].splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"phase build: ptxas {ln.strip()}")
+        for fn, (regs, st, ld) in sorted(
+                kernels.ptxas_usage(info["ptxas"]).items()):
+            usage[fn] = (regs, st, ld)
+            print(f"phase build: ptxas {fn}: {regs} registers, {st} bytes "
+                  f"spill stores, {ld} bytes spill loads")
+    # the main plans' instantiations: the Ozaki kernel at tm 32 with up to
+    # 8 pair groups (two CTAs per SM: <= 128 registers) and the three scan
+    # kernels must not spill
+    oz = [v for fn, v in usage.items()
+          if "ozaki_strip_kernelILi32ELi8E" in fn]
+    scan = [v for fn, v in usage.items() if "esc_scan_kernel" in fn]
+    check(len(oz) == 1 and oz[0][0] <= 128 and oz[0][1:] == (0, 0),
+          f"the tm 32, 8-group Ozaki kernel needs <= 128 registers and no "
+          f"spills: {oz}")
+    check(len(scan) == 3 and all(v[1:] == (0, 0) for v in scan),
+          f"the scan kernels spill: {scan}")
 
 
 def compare_scan_kernels() -> None:
@@ -246,6 +265,45 @@ def compare_scan_kernels() -> None:
                           f"bit_equal={equal}")
                     check(equal, f"{label} differs from its plain version "
                                  f"({name}, {values}, G={g}): {err}")
+
+
+def run_esc_tiles() -> None:
+    """Phase 6b: spgemm(tiles, tiles, backend="esc") on a random 8192^2,
+    f32 (integer values) and f64 (Gaussian): C back on tiles through the
+    scan kernels, against the scipy oracle."""
+    import torch
+
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import golden
+    from spgemm_tpu_torch.ops import scan_kernels as sk
+    from spgemm_tpu_torch.ops.spgemm import spgemm
+    from spgemm_tpu_torch.utils.generators import random_uniform
+
+    a = random_uniform(np.random.default_rng(12), 8192)
+    ag = a.with_data(np.random.default_rng(14).standard_normal(a.nnz))
+    for label, x, dt, w in (("f32", a, torch.float32, sk.esc_scan),
+                            ("f64", ag, torch.float64, sk.esc_scan_dd)):
+        _zero_counters(sk.esc_scan, sk.esc_scan_dd)
+        res = spgemm(csr_to_tiles(x, 16, TN), csr_to_tiles(x, TN, TN),
+                     backend="esc", compute_dtype=dt, device="cuda")
+        torch.cuda.synchronize()
+        launches = (w.kernel_launches, w.plain_launches)
+        print(f"phase esc-tiles: {label} tiles {res.c.tm}x{res.c.tn} "
+              f"stats={res.stats} launches (kernel, plain)={launches}")
+        check(res.stats["backend"] == "esc" and launches == (1, 0),
+              f"spgemm(backend='esc') {label} did not run the scan kernel")
+        ref = golden.spgemm_scipy(x, x)
+        got = golden.drop_explicit_zeros(res.c.to_csr())
+        if label == "f32":
+            _check_exact("spgemm(tiles, backend=esc)", got, ref)
+            continue
+        pat = got.pattern_equal(ref)
+        scale = float(np.abs(ref.data).max())
+        close = pat and np.allclose(got.data, ref.data, rtol=F64_RTOL,
+                                    atol=F64_ATOL * scale)
+        print(f"phase check: spgemm(tiles, backend=esc) f64 pattern_equal="
+              f"{pat} close={close}")
+        check(close, "spgemm(tiles, backend=esc) f64 differs from scipy")
 
 
 def _planes(out):
@@ -1198,6 +1256,7 @@ def run() -> dict:
     torch.cuda.empty_cache()
 
     compare_scan_kernels()
+    run_esc_tiles()
     suite = pgen.suite(SUITE_N)
     esc_entries = run_esc_path(suite)
     torch.cuda.empty_cache()

@@ -12,8 +12,10 @@ For CPU tensors the wrapper runs the plain PyTorch version; for CUDA
 tensors it launches the kernel or raises. It never falls back. Both
 versions sum exact int32 group products and reduce them with the same
 TwoSum sequence (the kernel is built with --fmad=false), so h, m, l and
-the counts are bit-equal. The library is built with nvcc at first use
-(never at import) into `spgemm_tpu_torch/_build/`.
+the counts are bit-equal. The kernel has an instantiation for up to 8
+pair groups (the plans' usual pmax 7) and one for all 15; the launch
+picks by the plan's group count. The library is built with nvcc at first
+use (never at import) into `spgemm_tpu_torch/_build/`.
 
 Launch counters: `ozaki_strip_numeric.kernel_launches` counts kernel
 launches and `ozaki_strip_numeric.plain_launches` dispatches to the plain
@@ -225,6 +227,9 @@ def ozaki_strip_numeric(av8, a_occ, bv8, b_occ, aptr, ak, slots, *,
                          f"tk={tk}")
     if n_blocks * max_cblock >= 2 ** 31:
         raise ValueError("Ozaki strip kernel grid exceeds 2^31-1 C slots")
+    if any(t.data_ptr() % 16 for t in (av8, a_occ, bv8, b_occ)):
+        raise ValueError("the Ozaki strip kernel copies 16-byte runs: av8, "
+                         "a_occ, bv8 and b_occ must start 16-byte aligned")
     lib = load_ozaki_kernel()
     planes = [torch.empty(n_blocks * max_cblock, tm, tn, dtype=torch.float32,
                           device=av8.device) for _ in range(4)]

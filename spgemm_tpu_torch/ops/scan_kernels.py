@@ -184,6 +184,10 @@ def _launch(fn_name: str, planes, meta, n_out: int, passes: int,
     if meta.device.type != "cuda":
         raise ValueError(f"the scan kernels run on cpu or cuda, not "
                          f"{meta.device}")
+    for t in (*planes, meta):
+        if t.data_ptr() % 16:
+            raise ValueError("the scan kernels read 16-byte rows: every "
+                             "plane must start 16-byte aligned")
     lib = load_scan_kernel()
     outs = [torch.empty(meta.shape[0] // group_rows, LANES,
                         dtype=torch.float32, device=meta.device)

@@ -46,7 +46,7 @@ def _not_ported(what: str, key: str) -> NotImplementedError:
 
 @dataclasses.dataclass
 class SpGEMMResult:
-    c: TileMat | None  # None on the ESC route, which builds no tiles
+    c: TileMat | None  # None on spgemm_csr's ESC route (no tiles)
     schedule: object  # StripArgs, ScanPlan, OzakiStripPlan or PairSchedule
     timings_ms: dict[str, float]
     stats: dict[str, float]
@@ -87,8 +87,6 @@ def _resolve_backend(a: TileMat, b: TileMat, backend: str,
             f"tk a multiple of {kernels.TK_MULTIPLE})", "gustavson")
     if backend in _ROADMAP_ITEM:
         raise _not_ported(f"backend={backend!r}", backend)
-    if backend == "esc":
-        raise ValueError("backend='esc' runs on CSR input: use spgemm_csr")
     raise ValueError(f"unknown backend {backend!r}")
 
 
@@ -96,13 +94,16 @@ def spgemm(a: TileMat, b: TileMat, *, compute_dtype=torch.float32,
            backend: str = "auto", device=None) -> SpGEMMResult:
     """Sparse C = A @ B on the tiled format through the strip route
     (backend "auto" or "strip"), in f64 through the Ozaki route (backend
-    "ozaki", whatever compute_dtype), or through a pair backend: "pallas"
-    (the per-C-tile pair kernel, float32) or "xla" (torch ops, float32 or
-    float64). `device` None means CUDA."""
+    "ozaki", whatever compute_dtype), through the ESC scan route (backend
+    "esc": f32, or the double-double f64 scan), or through a pair
+    backend: "pallas" (the per-C-tile pair kernel, float32) or "xla"
+    (torch ops, float32 or float64). `device` None means CUDA."""
     if backend == "ozaki":
         return spgemm_ozaki(a, b, device=device)
     f64 = esc.is_f64(compute_dtype)
     dev = resolve_device(device)
+    if backend == "esc":
+        return _spgemm_tiles_esc(a, b, f64=f64, device=dev)
     if backend in ("pallas", "xla"):
         return _spgemm_pairs(a, b, backend=backend, f64=f64, device=dev)
     if f64:
@@ -163,6 +164,26 @@ def _spgemm_pairs(a: TileMat, b: TileMat, *, backend: str, f64: bool,
         "backend": backend,
     }
     return SpGEMMResult(c=c, schedule=sched, timings_ms=timings, stats=stats)
+
+
+def _spgemm_tiles_esc(a: TileMat, b: TileMat, *, f64: bool,
+                      device) -> SpGEMMResult:
+    """backend="esc" on tiles (`spgemm_tpu/ops/spgemm.py:271-291`): the ESC
+    engine works on CSR, so A and B go to CSR, through spgemm_esc in the
+    compute dtype, and C back to tiles of A's height and B's width."""
+    c, timings, plan = esc.spgemm_esc(
+        a.to_csr(), b.to_csr(),
+        dtype=torch.float64 if f64 else torch.float32, device=device)
+    c_tiles = csr_to_tiles(c, a.tm, b.tn)
+    stats = {
+        "num_pairs": float(plan.num_products),
+        "numblkC_candidate": float(c_tiles.nt),
+        "numblkC": float(c_tiles.nt),
+        "nnzC": float(c.nnz),
+        "backend": "esc",
+    }
+    return SpGEMMResult(c=c_tiles, schedule=plan, timings_ms=timings,
+                        stats=stats)
 
 
 def _spgemm_strip(a: TileMat, b: TileMat, *, device) -> SpGEMMResult:

@@ -17,7 +17,8 @@ products in both versions and must be equal. The scan kernels add in
 their plain versions' order, with no contraction, so they must be
 bit-equal to them on any values. So must the Ozaki kernel: its int32
 group sums are exact and its TwoSum reduce follows the plain version's
-order.
+order. `spgemm(backend="esc")` on tiles runs the scan kernels and must
+give the CPU's C exactly.
 """
 
 import numpy as np
@@ -217,6 +218,73 @@ def test_scan_kernels_match_plain(card, kind, group_rows, values):
             assert torch.equal(g, e), wrapper.__name__
 
 
+@pytest.mark.parametrize("group_rows", [2, 8])
+@pytest.mark.parametrize("passes", [0, 7])
+def test_scan_kernels_groups_passes_and_ragged_rows(card, group_rows,
+                                                    passes):
+    # a CTA holds 8 warps, one output row each: cut the plan to a row
+    # count whose output rows are not a multiple of 8
+    a = _scan_matrix("band", "gaussian")
+    plan = pt.build_esc_scan_plan(a, a, group_rows=group_rows)
+    n_out = plan.qv.shape[0] // group_rows
+    assert n_out > 16
+    rows = group_rows * (n_out - n_out % 8 - 5)
+    up = lambda x: torch.from_numpy(np.ascontiguousarray(x[:rows])).to(card)
+    meta = up(plan.meta16())
+    kw = dict(passes=passes, group_rows=group_rows)
+    cases = ((scan_kernels.esc_scan, scan_kernels.esc_scan_plain,
+              (up(plan.qv),)),
+             (scan_kernels.esc_scan_mul, scan_kernels.esc_scan_mul_plain,
+              tuple(map(up, gather_planes(plan, a.data, a.data)))),
+             (scan_kernels.esc_scan_dd, scan_kernels.esc_scan_dd_plain,
+              tuple(map(up, scan_dd_planes(plan, a.data, a.data)))))
+    for wrapper, plain, planes in cases:
+        got = wrapper(*planes, meta, **kw)
+        exp = plain(*planes, meta, **kw)
+        torch.cuda.synchronize()
+        for g, e in zip(got if isinstance(got, tuple) else (got,),
+                        exp if isinstance(exp, tuple) else (exp,)):
+            assert g.shape == (rows // group_rows, 128)
+            assert torch.equal(g, e), wrapper.__name__
+
+
+def test_scan_kernels_reject_misaligned_planes(card):
+    qv = torch.zeros(4 * 128 + 1, dtype=torch.float32, device=card)
+    meta = torch.zeros(4 * 128 + 8, dtype=torch.int16, device=card)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        scan_kernels.esc_scan(qv[1:].view(4, 128), meta[:512].view(4, 128),
+                              passes=1, group_rows=1)
+
+
+def test_spgemm_tiles_esc_on_card_matches_cpu(card):
+    a = _scan_matrix("random", "integer")
+    at, bt = pt.csr_to_tiles(a, 16, 128), pt.csr_to_tiles(a, 128, 128)
+    w = scan_kernels.esc_scan
+    before = (w.kernel_launches, w.plain_launches)
+    res = pt.spgemm(at, bt, backend="esc", device=card)
+    assert (w.kernel_launches, w.plain_launches) == (before[0] + 1,
+                                                     before[1])
+    hres = pt.spgemm(at, bt, backend="esc", device="cpu")
+    assert res.stats == hres.stats and res.stats["backend"] == "esc"
+    gc, hc = res.c.to_csr(), hres.c.to_csr()
+    assert gc.pattern_equal(hc) and np.array_equal(gc.data, hc.data)
+    ref = golden.spgemm_scipy(a, a)
+    got = golden.drop_explicit_zeros(gc)
+    assert got.pattern_equal(ref) and np.array_equal(got.data, ref.data)
+
+    ag = a.with_data(np.random.default_rng(4).standard_normal(a.nnz))
+    at, bt = pt.csr_to_tiles(ag, 16, 128), pt.csr_to_tiles(ag, 128, 128)
+    w = scan_kernels.esc_scan_dd
+    before = w.kernel_launches
+    res = pt.spgemm(at, bt, backend="esc", compute_dtype=torch.float64,
+                    device=card)
+    assert w.kernel_launches == before + 1
+    hres = pt.spgemm(at, bt, backend="esc", compute_dtype=torch.float64,
+                     device="cpu")
+    gc, hc = res.c.to_csr(), hres.c.to_csr()
+    assert gc.pattern_equal(hc) and np.array_equal(gc.data, hc.data)
+
+
 def test_esc_entry_points_on_card_match_cpu(card):
     a = _scan_matrix("random", "integer")
     before = scan_kernels.esc_scan.kernel_launches
@@ -320,6 +388,86 @@ def test_ozaki_kernel_other_inner_tiles(card, tk):
     torch.cuda.synchronize()
     for g, e in zip(got, exp):
         assert torch.equal(g, e)
+
+
+def _ozaki_check(card, plan, pmax):
+    ops = plan.to_device(card)
+    kw = plan.kernel_kwargs()
+    if pmax is not None:
+        kw["pmax"] = pmax
+    got = ozaki_kernels.ozaki_strip_numeric(*ops, **kw)
+    exp = ozaki_kernels.ozaki_strip_numeric_plain(*ops, **kw)
+    torch.cuda.synchronize()
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+    return got
+
+
+@pytest.mark.parametrize("tm", [16, 32])
+@pytest.mark.parametrize("pmax", [None, 14])
+def test_ozaki_kernel_slot_with_many_pairs(card, tm, pmax):
+    # one 32-row tile row over 300 k tiles of 16, against 300 B tiles in one
+    # column: each C slot sums 300 (g, y) entries, more than one gather
+    # (256) holds; Gaussian values, S = 8x8 (pmax 7 and all 15 groups)
+    rng = np.random.default_rng(23)
+    kt, tk = 300, 16
+    ar = np.repeat(np.arange(32), 4 * kt)
+    ac = (np.tile(np.arange(kt), 32 * 4) * tk
+          + rng.integers(0, tk, ar.size))
+    a = pt.CSR.from_coo(ar, ac, rng.standard_normal(ar.size), (32, kt * tk))
+    br = np.repeat(np.arange(kt * tk), 3)
+    bc = rng.integers(0, 128, br.size)
+    b = pt.CSR.from_coo(br, bc, rng.standard_normal(br.size), (kt * tk, 128))
+    plan = build_ozaki_strip(pt.csr_to_tiles(a, tm, tk),
+                             pt.csr_to_tiles(b, tk, 128))
+    assert (plan.sa, plan.sb) == (8, 8)
+    s = plan.sargs
+    hits = np.bincount(s.slots[s.slots < s.max_cblock])
+    assert hits.max() > 256
+    got = _ozaki_check(card, plan, pmax)
+    assert bool((got[3] > 0).any())
+
+
+@pytest.mark.parametrize("tm", [16, 32])
+@pytest.mark.parametrize("pmax", [None, 14])
+def test_ozaki_kernel_padded_slots_are_zero(card, tm, pmax):
+    # a banded first block and an almost empty second one: most of the
+    # second block's padded slots are reached by no pair
+    rng = np.random.default_rng(24)
+    a = banded(rng, 1800, 64)
+    rows = a.rows_expanded()
+    keep = (rows < 32 * tm) | ((rows < 32 * tm + 8) & (a.indices == rows))
+    a = pt.CSR.from_coo(rows[keep], a.indices[keep],
+                        rng.standard_normal(int(keep.sum())), a.shape)
+    plan = build_ozaki_strip(pt.csr_to_tiles(a, tm, 128),
+                             pt.csr_to_tiles(a, 128, 128))
+    s = plan.sargs
+    n_slots = -(-s.gm // s.block_rows) * s.max_cblock
+    tile_row = np.repeat(np.arange(s.gm), np.diff(s.aptr))
+    blk = np.repeat(tile_row // s.block_rows, s.max_b)
+    sl = s.slots[: s.aptr[-1] * s.max_b]
+    live = sl < s.max_cblock
+    reached = np.zeros(n_slots, bool)
+    reached[blk[live] * s.max_cblock + sl[live]] = True
+    assert (~reached).sum() > 0
+    got = _ozaki_check(card, plan, pmax)
+    idle = torch.from_numpy(~reached).to(card)
+    for g in got:
+        assert not bool(g[idle].any())
+        assert bool(g[~idle].any())
+
+
+def test_ozaki_kernel_registers(card):
+    # the main plan's instantiation (tm 32, up to 8 groups): two 256-thread
+    # CTAs per SM need <= 128 registers a thread, and no spills
+    ozaki_kernels.load_ozaki_kernel()
+    usage = kernels.ptxas_usage(ozaki_kernels.build_info["ptxas"])
+    inst = {fn: v for fn, v in usage.items() if "ozaki_strip_kernel" in fn}
+    assert len(inst) == 4
+    main = [v for fn, v in inst.items() if "ILi32ELi8E" in fn]
+    assert len(main) == 1
+    regs, spill_stores, spill_loads = main[0]
+    assert regs <= 128 and spill_stores == 0 and spill_loads == 0
 
 
 def test_ozaki_entry_points_on_card_match_cpu(card):

@@ -384,6 +384,47 @@ def test_f64_dd_route_matches_jax(kind):
     np.testing.assert_array_equal(pc2.data, pc.data)
 
 
+# spgemm(backend="esc") on tiles: CSR round trip, C back in A's tile rows
+# and B's tile columns (spgemm_tpu/ops/spgemm.py:271-291). Integer values
+# are exact; Gaussian f32 within rtol 1e-5 (atol 1e-6*max|C|); f64 within
+# the double-double route's rtol 1e-10, atol 1e-11 (tests/test_esc.py:334)
+@pytest.mark.parametrize("kind", ["random", "rmat"])
+@pytest.mark.parametrize("values,f64", [("integer", False),
+                                        ("gaussian", False),
+                                        ("gaussian", True)])
+def test_spgemm_tiles_esc_matches_jax(kind, values, f64):
+    import spgemm_tpu.models.tile as jtile
+
+    a = _suite_like(kind, values)
+    jres = spgemm_tpu.spgemm(jtile.csr_to_tiles(a, 16, 128),
+                             jtile.csr_to_tiles(a, 128, 128), backend="esc",
+                             compute_dtype=jnp.float64 if f64
+                             else jnp.float32)
+    pa = to_port(a)
+    wrapper = scan_kernels.esc_scan_dd if f64 else scan_kernels.esc_scan
+    before = wrapper.plain_launches
+    pres = pt.spgemm(pt.csr_to_tiles(pa, 16, 128),
+                     pt.csr_to_tiles(pa, 128, 128), backend="esc",
+                     compute_dtype=torch.float64 if f64 else torch.float32,
+                     device="cpu")
+    assert wrapper.plain_launches == before + 1
+    assert isinstance(pres.schedule, pesc.ScanPlan)
+    assert (pres.c.tm, pres.c.tn) == (jres.c.tm, jres.c.tn) == (16, 128)
+    assert sorted(pres.stats) == sorted(jres.stats)
+    assert pres.stats["backend"] == jres.stats["backend"] == "esc"
+    for k in ("num_pairs", "numblkC_candidate", "numblkC", "nnzC"):
+        assert pres.stats[k] == jres.stats[k], k
+    pc, jc = pres.c.to_csr(), jres.c.to_csr()
+    assert pc.pattern_equal(jc)
+    if values == "integer":
+        np.testing.assert_array_equal(pc.data, jc.data)
+    elif f64:
+        np.testing.assert_allclose(pc.data, jc.data, rtol=1e-10, atol=1e-11)
+    else:
+        np.testing.assert_allclose(pc.data, jc.data, rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(jc.data).max()))
+
+
 def test_f64_integer_data_takes_the_exact_f32_route():
     a = to_port(_suite_like("random"))
     before = (scan_kernels.esc_scan.plain_launches,
