@@ -8,8 +8,9 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      kernel, the SpMM strip kernel and the pair kernel from
      spgemm_tpu_torch/csrc with nvcc (one nvcc per source, all five
      started together) and print the build seconds and each kernel's
-     ptxas registers and spills (the tm 32, 8-group Ozaki kernel must
-     stay within 128 registers, and it and the three scan kernels must
+     ptxas registers and spills (the tm 32, 8-group Ozaki kernel and the
+     tm 64 pair kernel must stay within 128 registers, and they, the
+     three scan kernels and the four 128-column SpMM instantiations must
      not spill);
   3. compare the strip kernel with its plain PyTorch version on the card,
      on random banded plans: 64x128 and 16x128 A tiles (B 128x128),
@@ -87,13 +88,18 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      torch.sparse.mm(A, X) and torch.mv(A, x), with GFLOPS = 2*nnz*k /
      kernel ms, and the gather route's device time at rmat65536;
  16. compare the pair kernel with its plain version on random banded
-     plans: 16x128 and 64x128 A tiles (B 128x128), integer values (equal
-     exactly), Gaussian values (rtol 1e-5), counts > 0 equal;
+     plans: 16x128 and 64x128 A tiles (B 128x128), float32 and bfloat16
+     occupancy, integer values (equal exactly), Gaussian values (rtol
+     1e-5), counts > 0 equal;
  17. drive the pair backends: C = A^2 on the cant-like matrix at 64x128
      through spgemm_csr(backend="pallas") and ("xla"), counters zeroed
      just before each: C equal to the scipy oracle (pattern and values
      exactly), the pair kernel launched on "pallas" and its plain version
-     never; then time the kernel and its plain version on that schedule;
+     never; then time the kernel (bfloat16 occupancy, as the backend
+     uploads it) and its plain version on that schedule, with integer
+     and with standard-normal values (rtol 1e-5), the bound counted on
+     the reference's float32 planes and the bytes the kernel moves
+     printed beside it;
  18. print the kernels JSON line, then the contract line
      {"ok": true, "device": {...}} as the last line.
 
@@ -218,6 +224,16 @@ def build_kernels() -> None:
           f"spills: {oz}")
     check(len(scan) == 3 and all(v[1:] == (0, 0) for v in scan),
           f"the scan kernels spill: {scan}")
+    # the pair kernel at the main plan's tm 64 (two CTAs per SM: <= 128
+    # registers) and every 128-column SpMM instantiation must not spill
+    pair = [v for fn, v in usage.items()
+            if "pair_accumulate_kernelILi64E" in fn]
+    spmm = [v for fn, v in usage.items() if "spmm_strip_kernelILi" in fn]
+    check(len(pair) == 1 and pair[0][0] <= 128 and pair[0][1:] == (0, 0),
+          f"the tm 64 pair kernel needs <= 128 registers and no spills: "
+          f"{pair}")
+    check(len(spmm) == 4 and all(v[1:] == (0, 0) for v in spmm),
+          f"a 128-column SpMM instantiation spills: {spmm}")
 
 
 def compare_scan_kernels() -> None:
@@ -988,12 +1004,16 @@ def run_spmm_path(suite: dict) -> list:
     return entries
 
 
-def _pair_operands(at, bt, sched, device):
+def _pair_operands(at, bt, sched, device, occ=None):
+    """The pair kernel's operands; the occupancy planes in `occ` (float32,
+    the reference's contract, unless given: the main path uploads
+    bfloat16)."""
     import torch
 
+    occ = occ or torch.float32
     up = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-    return (up(at.dense(np.float32)), up(at.occ()).float(),
-            up(bt.dense(np.float32)), up(bt.occ()).float(), up(sched.pa),
+    return (up(at.dense(np.float32)), up(at.occ()).to(occ),
+            up(bt.dense(np.float32)), up(bt.occ()).to(occ), up(sched.pa),
             up(sched.pb), up(sched.pair_ptr))
 
 
@@ -1014,20 +1034,26 @@ def compare_pair_plans() -> None:
                 a = a.with_data(rng.standard_normal(a.nnz))
             at, bt = csr_to_tiles(a, tm, TN), csr_to_tiles(a, TN, TN)
             sched = build_pair_schedule(at, bt)
-            ops = _pair_operands(at, bt, sched, "cuda")
-            gv, gc = pk.pair_accumulate_cuda(*ops, num_segments=sched.nt_c)
-            pv, pc = pk.pair_accumulate_plain(*ops, num_segments=sched.nt_c)
-            torch.cuda.synchronize()
-            if values == "integer":
-                ok, err = torch.equal(gv, pv), (gv - pv).abs().max().item()
-            else:
-                ok, err, _ = _close(gv, pv)
-            counts = torch.equal(gc > 0, pc > 0)
-            print(f"phase pair-compare: tiles {tm}x{TN} {values} "
-                  f"C tiles={sched.nt_c} pairs={sched.num_pairs} "
-                  f"max_abs_err={err!r} values_ok={ok} counts_equal={counts}")
-            check(ok and counts, f"pair kernel differs from its plain "
-                                 f"version ({tm}x{TN}, {values}): {err}")
+            for occ in (torch.float32, torch.bfloat16):
+                ops = _pair_operands(at, bt, sched, "cuda", occ)
+                gv, gc = pk.pair_accumulate_cuda(*ops,
+                                                 num_segments=sched.nt_c)
+                pv, pc = pk.pair_accumulate_plain(*ops,
+                                                  num_segments=sched.nt_c)
+                torch.cuda.synchronize()
+                if values == "integer":
+                    ok = torch.equal(gv, pv)
+                    err = (gv - pv).abs().max().item()
+                else:
+                    ok, err, _ = _close(gv, pv)
+                counts = torch.equal(gc > 0, pc > 0)
+                print(f"phase pair-compare: tiles {tm}x{TN} {values} "
+                      f"occupancy {occ} C tiles={sched.nt_c} "
+                      f"pairs={sched.num_pairs} max_abs_err={err!r} "
+                      f"values_ok={ok} counts_equal={counts}")
+                check(ok and counts, f"pair kernel differs from its plain "
+                                     f"version ({tm}x{TN}, {values}, {occ}): "
+                                     f"{err}")
 
 
 def run_pair_path(a, ref, lib_ms) -> dict:
@@ -1071,8 +1097,12 @@ def run_pair_path(a, ref, lib_ms) -> dict:
         _check_exact(f"spgemm_csr(backend={backend})", c, ref)
         del c, res
 
-    ops = _pair_operands(csr_to_tiles(a, TM, TN), csr_to_tiles(a, TN, TN),
-                         sched, "cuda")
+    at, bt = csr_to_tiles(a, TM, TN), csr_to_tiles(a, TN, TN)
+    # the bound counts the operands of the timed call: the bf16 occupancy
+    # that the main path uploads; bound_ref_ms counts the reference's f32
+    # planes instead, for comparison with kernels that read those
+    ref_ops = _pair_operands(at, bt, sched, "cuda")
+    ops = _pair_operands(at, bt, sched, "cuda", torch.bfloat16)
     kw = dict(num_segments=sched.nt_c)
     gv, gc = w(*ops, **kw)
     pv, pc = pk.pair_accumulate_plain(*ops, **kw)
@@ -1083,9 +1113,12 @@ def run_pair_path(a, ref, lib_ms) -> dict:
           f"schedule: {err}")
     tm, tk = ops[0].shape[1:]
     products = float(sched.num_pairs) * tm * tk * TN
-    b_ms, b_by = bound("pair_accumulate (values and counts)", ops, (gv, gc),
-                       _f32_mma_ops(products) + [(2 * products, "bf16")])
-    del gv, gc, pv, pc
+    pair_ops = _f32_mma_ops(products) + [(2 * products, "bf16")]
+    b_ms, b_by = bound("pair_accumulate (values and counts, bf16 occupancy)",
+                       ops, (gv, gc), pair_ops)
+    ref_ms, _ = bound("pair_accumulate (values and counts, f32 occupancy: "
+                      "bound_ref_ms)", ref_ops, (gv, gc), pair_ops)
+    del gv, gc, pv, pc, ref_ops
     ms = cuda_event_ms(lambda: w(*ops, **kw), warmup=3, iters=20)
     plain_ms = cuda_event_ms(lambda: pk.pair_accumulate_plain(*ops, **kw),
                              warmup=1, iters=10)
@@ -1094,12 +1127,31 @@ def run_pair_path(a, ref, lib_ms) -> dict:
           f"max_abs_err={err!r} dense-tile TFLOP/s={flop / (ms * 1e9)!r} "
           f"(values and counts, {flop!r} FLOP); peak device memory "
           f"{torch.cuda.max_memory_allocated()!r} bytes")
+    del ops
+    # the same schedule with standard-normal values: every k step takes
+    # the 3xTF32 split
+    ag = a.with_data(np.random.default_rng(0).standard_normal(a.nnz))
+    g_ops = _pair_operands(csr_to_tiles(ag, TM, TN), csr_to_tiles(ag, TN, TN),
+                           sched, "cuda", torch.bfloat16)
+    gv, gc = w(*g_ops, **kw)
+    pv, pc = pk.pair_accumulate_plain(*g_ops, **kw)
+    torch.cuda.synchronize()
+    g_ok, g_err, g_scale = _close(gv, pv)
+    g_cnt = torch.equal(gc, pc)
+    del gv, gc, pv, pc
+    check(g_ok and g_cnt, f"the pair kernel differs from its plain version "
+                          f"on Gaussian values: {g_err}, counts {g_cnt}")
+    g_ms = cuda_event_ms(lambda: w(*g_ops, **kw), warmup=3, iters=20)
+    print(f"phase pair-time: Gaussian values kernel_ms={g_ms!r} "
+          f"max_abs_err={g_err!r} max_abs={g_scale!r}, counts equal")
+    del g_ops
     return dict(name="pair_accumulate", route="cuda",
                 source="spgemm_tpu_torch/csrc/pair_accumulate.cu",
                 replaces="spgemm_tpu/ops/pallas_kernels.py:32",
                 launches=pallas_launches, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms)
+                bound_ref_ms=ref_ms, library_ms=lib_ms, gaussian_ms=g_ms,
+                gaussian_max_abs_err=g_err)
 
 
 def run() -> dict:

@@ -1,20 +1,32 @@
-"""A/B timing of the Ozaki strip kernel and the three ESC scan kernels on
-one CUDA card: this checkout's sources against another revision's.
+"""A/B timing of the port's hand-written kernels on one CUDA card: this
+checkout's sources against another revision's.
 
     git archive <rev> spgemm_tpu_torch/csrc | tar -x -C _checkout/parent
     python3 kernel_ab.py _checkout/parent/spgemm_tpu_torch/csrc
 
-Both revisions' `ozaki_strip.cu` and `esc_scan.cu` are built with the
-port's nvcc flags (their C interfaces are the same) and driven through the
-port's wrappers on the main plans of `chip_smoke.py`: the cant-like
-62,451^2 A^2 with standard-normal values at 32x128 tiles (the Ozaki
-kernel), the suite's rmat65536 A^2 (premul and mul) and random65536 with
-standard-normal values (double-double). Each kernel is first checked
-bit-equal (torch.equal) to its plain version, then timed with CUDA events
-(median of 20 calls after 3 warm-up calls) in the order base, new, new,
-base, base, new, so that both sides see the same card in turns. Prints the
-card's name and power limit, each build's ptxas registers and spills,
-every timing, and last one JSON line {"<kernel>": {"base": [...],
+Both revisions' `ozaki_strip.cu`, `esc_scan.cu`, `strip_numeric.cu`,
+`pair_accumulate.cu` and `spmm_strip.cu` are built with the port's nvcc
+flags (one nvcc per source and side, all started together) and driven on
+the main plans of `chip_smoke.py`: the cant-like 62,451^2 A^2 with
+standard-normal values at 32x128 tiles (the Ozaki kernel), the suite's
+rmat65536 A^2 (premul and mul), random65536 with standard-normal values
+(double-double), the cant-like A^2 at 64x128 with integer values (the
+strip kernel, and the pair kernel on the pair schedule), and the suite's
+banded65536 at 16x128 tiles with standard-normal X at k = 128 (resident
+form) and k = 256 (window form; the SpMM kernel's 128-column form). Where
+both sides share a C interface the port's wrapper drives either library;
+the pair kernel's changed with its tensor-core redesign (bf16 occupancy
+and a row stride `lda`), so an older pair library is called through its
+own interface with float32 occupancy, a newer one through the wrapper
+with the bfloat16 occupancy the pair backend uploads (told apart by the
+`pair_accumulate_abi` symbol the newer library exports). Each kernel is
+first checked
+against its plain version (bit-equal with torch.equal, or for SpMM with
+Gaussian X within rtol 1e-5, atol 1e-6*max|Y|), then timed with CUDA
+events (median of 20 calls after 3 warm-up calls) in the order base, new,
+new, base, base, new, so that both sides see the same card in turns.
+Prints the card's name and power limit, each build's ptxas registers and
+spills, every timing, and last one JSON line {"<kernel>": {"base": [...],
 "new": [...]}}. Exits 1 without CUDA or on any disagreement.
 """
 
@@ -35,11 +47,25 @@ def _build(src, stem, flags, bind):
 
     lib, info = kernels.build_cuda_library(src, stem, flags)
     bind(lib)
-    for fn, (regs, st, ld) in sorted(
-            kernels.ptxas_usage(info["ptxas"]).items()):
-        print(f"ptxas {stem} {fn}: {regs} registers, {st} bytes spill "
-              f"stores, {ld} bytes spill loads")
-    return lib
+    return lib, info
+
+
+def _build_all(jobs):
+    """jobs {key: (src, stem, flags, bind)} -> {key: lib}, one nvcc per
+    job, all started together; prints each build's ptxas report."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from spgemm_tpu_torch.ops import kernels
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futs = {k: pool.submit(_build, *job) for k, job in jobs.items()}
+        built = {k: f.result() for k, f in futs.items()}
+    for (src, stem, _, _), (_, info) in zip(jobs.values(), built.values()):
+        for fn, (regs, st, ld) in sorted(
+                kernels.ptxas_usage(info["ptxas"]).items()):
+            print(f"ptxas {stem} {fn}: {regs} registers, {st} bytes spill "
+                  f"stores, {ld} bytes spill loads")
+    return {k: lib for k, (lib, _) in built.items()}
 
 
 def _bind_ozaki(lib):
@@ -58,25 +84,93 @@ def _bind_scan(lib):
         fn.restype = ctypes.c_int
 
 
+def _bind_strip(lib):
+    lib.strip_numeric_f32.argtypes = ([ctypes.c_void_p] * 9
+                                      + [ctypes.c_int64] * 8
+                                      + [ctypes.c_void_p])
+    lib.strip_numeric_f32.restype = ctypes.c_int
+
+
+def _bind_spmm(lib):
+    lib.spmm_strip_f32.argtypes = ([ctypes.c_void_p] * 6
+                                   + [ctypes.c_int64] * 6 + [ctypes.c_void_p])
+    lib.spmm_strip_f32.restype = ctypes.c_int
+
+
+def _pair_abi(lib):
+    """The pair library's interface version: 2 (bf16 occupancy and an A row
+    stride `lda`) where it exports `pair_accumulate_abi`, else 1 (f32
+    occupancy, no row stride: before the tensor-core redesign)."""
+    return lib.pair_accumulate_abi() if hasattr(lib, "pair_accumulate_abi") \
+        else 1
+
+
+def _bind_pair(lib):
+    n_int = 5 if _pair_abi(lib) == 2 else 4
+    lib.pair_accumulate_f32.argtypes = ([ctypes.c_void_p] * 9
+                                        + [ctypes.c_int64] * n_int
+                                        + [ctypes.c_void_p])
+    lib.pair_accumulate_f32.restype = ctypes.c_int
+
+
+def _pair_base_call(lib, ops, num_segments):
+    """The older pair library on f32-occupancy operands, through its own
+    C interface (allocating C as the wrapper does)."""
+    import torch
+
+    a_val, _, b_val = ops[:3]
+    tm, tk = a_val.shape[1:]
+    tn = b_val.shape[2]
+    c_val = torch.empty(num_segments, tm, tn, dtype=torch.float32,
+                        device=a_val.device)
+    c_cnt = torch.empty_like(c_val)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.pair_accumulate_f32(*(t.data_ptr() for t in ops),
+                                  c_val.data_ptr(), c_cnt.data_ptr(),
+                                  num_segments, tm, tk, tn, stream)
+    if err != 0:
+        raise SystemExit(f"base pair kernel launch failed: CUDA error {err}")
+    return c_val, c_cnt
+
+
 def _tuple(x):
     return x if isinstance(x, tuple) else (x,)
 
 
-def _ab(label, module, libs, call, plain):
-    """Check both libraries' results against the plain version's, then
-    time them in ORDER. Returns {"base": [...], "new": [...]}."""
+def _swap(module, lib, fn):
+    """fn run with `module`'s loaded library swapped for `lib`."""
+    def call():
+        module._lib = lib
+        return fn()
+    return call
+
+
+def _agree(got, exp, close):
+    import torch
+
+    if not close:
+        return all(torch.equal(g, e) for g, e in zip(got, exp))
+    scale = max(e.abs().max().item() for e in exp)
+    return all(torch.allclose(g, e, rtol=1e-5, atol=1e-6 * scale)
+               for g, e in zip(got, exp))
+
+
+def _ab(label, calls, plain, close=False):
+    """Check each side's result against the plain version's (bit-equal,
+    or within rtol 1e-5 with `close`), then time them in ORDER. `calls`
+    maps "base" and "new" to a no-argument launch. Returns {"base": [...],
+    "new": [...]}."""
     import torch
 
     from spgemm_tpu_torch.utils.timing import cuda_event_ms
 
     exp = _tuple(plain())
-    for side, lib in libs.items():
-        module._lib = lib
+    for side, call in calls.items():
         got = _tuple(call())
         torch.cuda.synchronize()
-        equal = all(torch.equal(g, e) for g, e in zip(got, exp))
-        print(f"{label}: {side} bit_equal={equal}")
-        if not equal:
+        ok = _agree(got, exp, close)
+        print(f"{label}: {side} {'close' if close else 'bit_equal'}={ok}")
+        if not ok:
             raise SystemExit(f"{label}: the {side} kernel differs from its "
                              f"plain version")
         del got
@@ -84,8 +178,7 @@ def _ab(label, module, libs, call, plain):
     torch.cuda.empty_cache()
     times = {"base": [], "new": []}
     for side in ORDER:
-        module._lib = libs[side]
-        times[side].append(cuda_event_ms(call, warmup=3, iters=20))
+        times[side].append(cuda_event_ms(calls[side], warmup=3, iters=20))
     print(f"{label}: ms {times}")
     return times
 
@@ -97,27 +190,36 @@ def main(base_dir: str) -> int:
         print("kernel_ab: needs a CUDA card", file=sys.stderr)
         return 1
     from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import kernels
     from spgemm_tpu_torch.ops import ozaki_kernels as ok
+    from spgemm_tpu_torch.ops import pair_kernels as pk
     from spgemm_tpu_torch.ops import scan_kernels as sk
+    from spgemm_tpu_torch.ops import spmm as pspmm
+    from spgemm_tpu_torch.ops import spmm_kernels as smk
     from spgemm_tpu_torch.ops.esc import (build_esc_scan_plan,
                                           choose_group_rows, gather_planes,
                                           scan_dd_planes)
+    from spgemm_tpu_torch.ops.gustavson import build_strip_args
     from spgemm_tpu_torch.ops.ozaki import build_ozaki_strip
+    from spgemm_tpu_torch.ops.symbolic import build_pair_schedule
     from spgemm_tpu_torch.utils.generators import cantlike, suite
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
-    oz_libs = {side: _build(src, f"libozaki_strip_{side}", ok.NVCC_FLAGS,
-                            _bind_ozaki)
-               for side, src in (("base", os.path.join(base_dir,
-                                                       "ozaki_strip.cu")),
-                                 ("new", ok.KERNEL_SRC))}
-    sc_libs = {side: _build(src, f"libesc_scan_{side}", sk.NVCC_FLAGS,
-                            _bind_scan)
-               for side, src in (("base", os.path.join(base_dir,
-                                                       "esc_scan.cu")),
-                                 ("new", sk.KERNEL_SRC))}
+    jobs = {}
+    for name, mod, bind in (
+            ("ozaki_strip", ok, _bind_ozaki),
+            ("esc_scan", sk, _bind_scan),
+            ("strip_numeric", kernels, _bind_strip),
+            ("pair_accumulate", pk, _bind_pair),
+            ("spmm_strip", smk, _bind_spmm)):
+        jobs[name, "base"] = (os.path.join(base_dir, name + ".cu"),
+                              f"lib{name}_base", mod.NVCC_FLAGS, bind)
+        jobs[name, "new"] = (mod.KERNEL_SRC, f"lib{name}_new",
+                             mod.NVCC_FLAGS, bind)
+    libs = _build_all(jobs)
+    sides = lambda name: {side: libs[name, side] for side in ("base", "new")}
     out = {}
 
     a0 = cantlike(62451, 64)
@@ -130,11 +232,12 @@ def main(base_dir: str) -> int:
           f"max_cblock={s.max_cblock} pairs={s.num_pairs}")
     ops = plan.to_device("cuda")
     kw = plan.kernel_kwargs()
+    run = lambda: ok.ozaki_strip_numeric(*ops, **kw)
     out["ozaki_strip"] = _ab(
-        "ozaki_strip cant-like tm 32", ok, oz_libs,
-        lambda: ok.ozaki_strip_numeric(*ops, **kw),
+        "ozaki_strip cant-like tm 32",
+        {side: _swap(ok, lib, run) for side, lib in sides("ozaki_strip").items()},
         lambda: ok.ozaki_strip_numeric_plain(*ops, **kw))
-    del ops, plan
+    del ops, plan, run
     torch.cuda.empty_cache()
 
     mats = suite(65536)
@@ -158,11 +261,70 @@ def main(base_dir: str) -> int:
         for mode in modes:
             w, plain = getattr(sk, mode), getattr(sk, mode + "_plain")
             planes = make[mode]()
-            out[mode] = _ab(f"{mode} {name}", sk, sc_libs,
-                            lambda: w(*planes, meta, **kw),
-                            lambda: plain(*planes, meta, **kw))
+            run = lambda: w(*planes, meta, **kw)
+            out[mode] = _ab(
+                f"{mode} {name}",
+                {side: _swap(sk, lib, run)
+                 for side, lib in sides("esc_scan").items()},
+                lambda: plain(*planes, meta, **kw))
             del planes
         del meta, p
+        torch.cuda.empty_cache()
+
+    # the cant-like A^2 at 64x128 with integer values: the strip kernel on
+    # the main plan, the pair kernel on the pair schedule
+    at, bt = csr_to_tiles(a0, 64, 128), csr_to_tiles(a0, 128, 128)
+    args = build_strip_args(at, bt)
+    ops = args.to_device("cuda")
+    kw = args.kernel_kwargs()
+    run = lambda: kernels.strip_numeric(*ops, **kw)
+    out["strip_numeric"] = _ab(
+        "strip_numeric cant-like tm 64",
+        {side: _swap(kernels, lib, run)
+         for side, lib in sides("strip_numeric").items()},
+        lambda: kernels.strip_numeric_plain(*ops, **kw))
+    del ops, args, run
+    torch.cuda.empty_cache()
+    sched = build_pair_schedule(at, bt)
+    up = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to("cuda")
+    f32_ops = (up(at.dense(np.float32)), up(at.occ()).float(),
+               up(bt.dense(np.float32)), up(bt.occ()).float(), up(sched.pa),
+               up(sched.pb), up(sched.pair_ptr))
+    bf16_ops = (f32_ops[0], f32_ops[1].to(torch.bfloat16), f32_ops[2],
+                f32_ops[3].to(torch.bfloat16)) + f32_ops[4:]
+    nseg = sched.nt_c
+    run = lambda: pk.pair_accumulate_cuda(*bf16_ops, num_segments=nseg)
+    calls = {side: _swap(pk, lib, run)
+             for side, lib in sides("pair_accumulate").items()}
+    if _pair_abi(libs["pair_accumulate", "base"]) == 1:
+        calls["base"] = lambda: _pair_base_call(
+            libs["pair_accumulate", "base"], f32_ops, nseg)
+    out["pair_accumulate"] = _ab(
+        f"pair_accumulate cant-like tm 64 ({sched.num_pairs} pairs)", calls,
+        lambda: pk.pair_accumulate_plain(*f32_ops, num_segments=nseg))
+    del f32_ops, bf16_ops
+    torch.cuda.empty_cache()
+
+    # banded65536 at 16x128, Gaussian X: k 128 (resident) and 256 (window)
+    band = mats["banded65536"]
+    t = csr_to_tiles(band, 16, 128)
+    block_rows = 64
+    stats = pspmm._spmm_block_stats(t, block_rows)
+    rng = np.random.default_rng(41)
+    for k, form in ((128, "resident"), (256, "window")):
+        x = rng.standard_normal((band.n, k)).astype(np.float32)
+        ops = pspmm._pack_spmm_operands(t, x, k, torch.float32,
+                                        block_rows).to_device("cuda")
+        km = (torch.from_numpy(pspmm._window_kmin(t, stats)).to("cuda")
+              if form == "window" else None)
+        kw = dict(gm=t.gm, block_rows=block_rows)
+        run = lambda: smk.spmm_strip(*ops, km, **kw)
+        out[f"spmm_strip_k{k}"] = _ab(
+            f"spmm_strip banded65536 16x128 k {k} {form}",
+            {side: _swap(smk, lib, run)
+             for side, lib in sides("spmm_strip").items()},
+            lambda: smk.spmm_strip_plain(*ops, km, **kw), close=True)
+        del ops, run
         torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0

@@ -6,9 +6,12 @@
 // reached through spmm_strip_pallas (:757) and spmm_window_pallas (:894).
 // Both compute the same Y from the same (aptr, ak, arow) plan; the window
 // form only reads X through a per-block window [kmin[blk], kmin[blk]+kwin)
-// and rebases ak by kmin[blk]. So one kernel serves both: `kmin` null is
-// the resident form, `kmin` set the window form, where tile g of tile-row
-// i (block blk = i / block_rows) reads X slab kmin[blk] + (ak[g] - kmin[blk]).
+// and rebases ak by kmin[blk]: tile g of tile-row i (block blk =
+// i / block_rows) reads X slab kmin[blk] + (ak[g] - kmin[blk]), which is
+// slab ak[g]. On the card X is one array in device memory in both forms
+// (the window is a TPU VMEM budget), so both read the same addresses and
+// one kernel serves them: `kmin` null is the resident form, `kmin` set
+// the window form.
 //
 // What it computes. For every tile-row i < gm and every A tile g in
 // [aptr[i], aptr[i+1]):
@@ -16,34 +19,42 @@
 // with y laid out (n_blocks*block_rows, tm, k_pad) as the TPU kernels
 // emit it; the padding rows i >= gm of the last block come out zero.
 //
-// What differs from the TPU kernels, and why. The TPU kernels hold X (or
-// a block's X window) in VMEM, stream a block's A tiles by one DMA and
-// stage a whole block's Y in VMEM, over an in-order grid. An H100 CTA has
-// at most 227 KB of shared memory and CTAs run in no order. Here one
-// 256-thread CTA owns one tile-row and one 128-wide chunk of k_pad: it
-// walks the row's A tiles in order, stages A (tm x 16) and X (16 x 128)
-// k-chunks through shared memory (conflict-free float4 reads of X, A rows
-// padded to 17 words), keeps its tm x 128 accumulator in registers and
-// writes its Y rows once. No atomics, a fixed accumulation order, and X
-// is read from device memory through the 50 MB L2 in both forms ("X
-// resident" on this card means "X held in L2", which is what
-// ops/spmm.py:_spmm_mode budgets for).
-//
-// Arithmetic: f32 FFMA on the CUDA cores, never TF32 tensor cores (the
-// JAX reference multiplies at Precision.HIGHEST). Built without
-// --use_fast_math.
+// What differs from the TPU kernels, and why (128-column form). The TPU
+// kernels hold X (or a block's X window) in VMEM, stream a block's A
+// tiles by one DMA and stage a whole block's Y in VMEM, over an in-order
+// grid. An H100 CTA has at most 227 KB of shared memory and CTAs run in
+// no order. Here one 256-thread CTA owns a group of consecutive tile rows
+// (128 rows of Y: 128/tm tile rows, one m16 row tile per warp) and one
+// 128-wide chunk of k_pad. Neighbouring tile rows of a band read the same
+// X slabs, so the CTA stages each slab its rows use once, in ascending
+// ak, and every warp whose row has a tile on that slab multiplies it:
+//   - the slab order is a merge of the rows' ak lists (each ascending),
+//     made in the kernel by one warp from (aptr, ak): the next slab is the
+//     least next ak over the rows, so every row still adds its tiles in
+//     ascending ak, and every (row, tile) is visited once. Up to kSchedCap
+//     slabs are merged per pass into shared memory;
+//   - the (slab, 16-deep k chunk) steps stream X (16 x 128) and the rows'
+//     A chunks (128 x 16; a row without a tile on the slab is zero-filled)
+//     through a 4-stage cp.async ring, one barrier per step;
+//   - values multiply as 3xTF32 on mma.sync.m16n8k8 with f32 accumulation.
+//     X is the operand all eight warps read, so it is split into hi/lo
+//     once per chunk, in shared memory, by the whole CTA (hi in place, lo
+//     into one of two lo buffers), one step ahead of its products; A is
+//     split by the warp that owns its rows. The products skip the terms
+//     whose lo is all zero (lo_a.hi_b where the warp's A fragments are
+//     TF32 values, hi_a.lo_b where the chunk's X is), which adds exact
+//     zeros only: the integer model stays bit-equal to the plain version.
+// The tm x 128 accumulators (64 registers) stay in registers and each Y
+// row is written once. No atomics, a fixed accumulation order.
 //
 // What bounds it on the card. At the suite's banded65536 with 16x128
-// tiles and k = 128 (8,184 A tiles, gm 4,096, gn 512) the dense-tile work
-// is 2*8,184*16*128*128 = 4.3 GFLOP (the useful 2*nnz*k is 1.09 GFLOP),
-// against 67 TFLOP/s of f32 FFMA peak: about 64 us at peak. The bytes are
-// A 67 MB, X 32 MB (its slabs re-read by neighbouring rows hit L2 on a
-// band) and Y 32 MB, about 40 us at 3.35 TB/s. So the FFMA rate and the
-// shared-memory operand reads that feed it bound the kernel, not bytes;
-// at tm 16 each thread does 8 FMAs per 3 shared loads, so the shared
-// loads are the first limit. A register micro-tile per thread (RM rows x
-// 4 columns, float4 X reads) is what this design does about it; wgmma
-// and TMA staging are later work.
+// tiles and k = 128 (8,184 A tiles, gm 4,096, gn 512) the bytes each read
+// or written once are A 67 MB, X 33.5 MB and Y 33.5 MB: 40 us at 3.35
+// TB/s. The dense-tile work is 2*8,184*16*128*128 = 4.3 GFLOP (the useful
+// 2*nnz*k is 1.09 GFLOP): as 3xTF32, 12.9 GFLOP at 495 TFLOP/s, 26 us.
+// So bytes bound it; the L2 -> shared stream of X slabs (about 3 slabs of
+// 64 KB per 128-row group on the band, against one 64 KB slab per A tile
+// when each tile row restaged its own) is what the row groups cut.
 //
 // Narrow form (k <= 32, SpMV first). The TPU pads k to 128 lanes; the
 // 128-column form above would then spend 127/128 of its work on padding
@@ -58,112 +69,281 @@
 // format, not of the kernel.
 //
 // Limits (checked by the caller, spgemm_tpu_torch/ops/spmm_kernels.py):
-//   tm in {8, 16, 32, 64}; any tk >= 1; k_pad a multiple of 128, or 8,
+//   tm in {8, 16, 32, 64}; any tk >= 1 (16-byte copies of A rows where
+//   tk % 4 == 0, 4-byte copies otherwise); k_pad a multiple of 128, or 8,
 //   16 or 32 (narrow form); n_blocks*block_rows < 2^31 (grid size);
 //   k_pad/128 < 65536. All element offsets are int64.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC spmm_strip.cu -o libspmm_strip.so
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "sm90_common.cuh"
+
 namespace {
 
+using namespace sm90;
+
 constexpr int kThreads = 256;
-constexpr int kChunk = 16;            // k depth staged per step
-constexpr int kAStride = kChunk + 1;  // A rows padded: no bank conflicts
 constexpr int kCols = 128;            // k_pad columns per CTA
-constexpr int kTX = kCols / 4;        // threads across the columns (float4)
-constexpr int kTY = kThreads / kTX;   // threads down the rows
+constexpr int kNT = kCols / 8;        // n8 column tiles per warp
+constexpr int kGroupRows = 128;       // Y rows per CTA: one m16 per warp
+constexpr int kXK = 16;               // k depth of one step
+constexpr int kStages = 4;            // cp.async ring depth
+constexpr int kLoBufs = 2;            // X lo planes: this step and the next
+constexpr int kXStride = kCols + 8;   // X rows, words: no bank conflicts
+constexpr int kAStride = kXK + 4;     // A rows, words: no bank conflicts
+constexpr int kSchedCap = 64;         // slabs merged per pass
 
 template <int TM>
-__global__ void __launch_bounds__(kThreads)
+struct SpmmCfg {
+  static constexpr int R = kGroupRows / TM;        // tile rows per CTA
+  static constexpr int XB = kXK * kXStride * 4;    // stage layout, bytes
+  static constexpr int AB = kGroupRows * kAStride * 4;
+  static constexpr int STAGE = XB + AB;
+  static constexpr int SMEM = kStages * STAGE + kLoBufs * XB;
+  static_assert(R * TM == kGroupRows && R <= 32, "rows must fill a group");
+  static_assert(XB % 16 == 0 && AB % 16 == 0, "16-byte aligned parts");
+};
+
+template <int TM>
+__global__ void __launch_bounds__(kThreads, 2)
 spmm_strip_kernel(const float* __restrict__ a,
                   const float* __restrict__ xb,
                   const int32_t* __restrict__ aptr,
                   const int32_t* __restrict__ ak,
-                  const int32_t* __restrict__ kmin,
                   float* __restrict__ y,
-                  int64_t gm, int64_t block_rows, int64_t tk,
-                  int64_t k_pad) {
-  constexpr int RM = TM / kTY;
-  static_assert(RM * kTY == TM, "tm must be a multiple of 8");
-
-  __shared__ float as[TM * kAStride];
-  __shared__ __align__(16) float xs[kChunk * kCols];
+                  int64_t gm, int64_t n_rows, int64_t tk, int64_t k_pad) {
+  using C = SpmmCfg<TM>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int32_t sched_v[kSchedCap];          // slab of each entry
+  __shared__ int32_t sched_g[kSchedCap * C::R];   // each row's tile or -1
+  __shared__ int32_t sched_n;
 
   const int tid = threadIdx.x;
-  const int tx = tid % kTX;
-  const int ty = tid / kTX;
-  const int64_t row = blockIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int gid = lane >> 2;  // mma fragment row / column group
+  const int tig = lane & 3;   // thread in group
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * C::R;
   const int64_t c0 = static_cast<int64_t>(blockIdx.y) * kCols;
+  const int nch = static_cast<int>((tk + kXK - 1) / kXK);
+  const bool vec = (tk & 3) == 0;  // A rows 16-byte aligned
+  // the warp's m16 rows 16*warp .. +15 of the group are tile rows r_lo
+  // (and r_lo + 1 at tm 8)
+  const int r_lo = 16 * warp / TM;
+  float* lo_buf = reinterpret_cast<float*>(smem + kStages * C::STAGE);
 
-  float acc[RM][4];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  // merge cursors: lane r < R of warp 0 walks tile row row0 + r
+  int cur = 0;
+  int end = 0;
+  if (warp == 0 && lane < C::R && row0 + lane < gm) {
+    cur = aptr[row0 + lane];
+    end = aptr[row0 + lane + 1];
   }
 
-  if (row < gm) {
-    const int64_t g0 = aptr[row];
-    const int64_t g1 = aptr[row + 1];
-    // window form: the block's X window starts at slab klo
-    const int64_t klo = kmin != nullptr ? kmin[row / block_rows] : 0;
-    const float* xwin = xb + klo * tk * k_pad;
-    for (int64_t g = g0; g < g1; ++g) {
-      const float* a_g = a + g * TM * tk;
-      const float* x_g = xwin + (ak[g] - klo) * tk * k_pad + c0;
-      for (int64_t k0 = 0; k0 < tk; k0 += kChunk) {
-        for (int i = tid; i < TM * kChunk; i += kThreads) {
-          const int r = i / kChunk;
-          const int kk = i % kChunk;
-          const int64_t k = k0 + kk;
-          as[r * kAStride + kk] = k < tk ? a_g[r * tk + k] : 0.f;
-        }
-        for (int i = tid; i < kChunk * kTX; i += kThreads) {
-          const int kk = i / kTX;
-          const int c4 = i % kTX;
-          const int64_t k = k0 + kk;
-          reinterpret_cast<float4*>(xs)[i] =
-              k < tk ? *reinterpret_cast<const float4*>(x_g + k * k_pad +
-                                                        c4 * 4)
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-        __syncthreads();
+  float acc[kNT][4];
 #pragma unroll
-        for (int kk = 0; kk < kChunk; ++kk) {
-          const float4 xv = reinterpret_cast<const float4*>(xs)[kk * kTX + tx];
+  for (int j = 0; j < kNT; ++j) {
 #pragma unroll
-          for (int i = 0; i < RM; ++i) {
-            const float av = as[(ty * RM + i) * kAStride + kk];
-            acc[i][0] = fmaf(av, xv.x, acc[i][0]);
-            acc[i][1] = fmaf(av, xv.y, acc[i][1]);
-            acc[i][2] = fmaf(av, xv.z, acc[i][2]);
-            acc[i][3] = fmaf(av, xv.w, acc[i][3]);
-          }
-        }
-        __syncthreads();
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+  }
+
+  // copies k chunk `step % nch` of schedule entry `step / nch` into stage
+  // `buf`: X rows from the entry's slab, A rows from each row's tile
+  auto load_step = [&](int buf, int step) {
+    int tid = threadIdx.x;  // opaque: offsets recomputed per step
+    asm volatile("" : "+r"(tid));
+    const int d = step / nch;
+    const int64_t k0 = static_cast<int64_t>(step - d * nch) * kXK;
+    const int kmax = static_cast<int>(tk - k0 < kXK ? tk - k0 : kXK);
+    float* xs = reinterpret_cast<float*>(smem + buf * C::STAGE);
+    float* as = reinterpret_cast<float*>(smem + buf * C::STAGE + C::XB);
+    const float* xg =
+        xb + (static_cast<int64_t>(sched_v[d]) * tk + k0) * k_pad + c0;
+#pragma unroll
+    for (int j = 0; j < kXK * kCols / 4 / kThreads; ++j) {
+      const int i = tid + j * kThreads;
+      const int kr = i / (kCols / 4);
+      const int c = (i % (kCols / 4)) * 4;
+      const bool in = kr < kmax;
+      cp_async16(xs + kr * kXStride + c, in ? xg + kr * k_pad + c : xb, in);
+    }
+    const int32_t* gs = sched_g + d * C::R;
+    if (vec) {
+#pragma unroll
+      for (int j = 0; j < kGroupRows * kXK / 4 / kThreads; ++j) {
+        const int i = tid + j * kThreads;
+        const int m = i / (kXK / 4);
+        const int c = (i % (kXK / 4)) * 4;
+        const int g = gs[m / TM];
+        const bool in = g >= 0 && c < kmax;
+        cp_async16(as + m * kAStride + c,
+                   in ? a + (static_cast<int64_t>(g) * TM + m % TM) * tk +
+                            k0 + c
+                      : a,
+                   in);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kGroupRows * kXK / kThreads; ++j) {
+        const int i = tid + j * kThreads;
+        const int m = i / kXK;
+        const int c = i % kXK;
+        const int g = gs[m / TM];
+        const bool in = g >= 0 && c < kmax;
+        cp_async4(as + m * kAStride + c,
+                  in ? a + (static_cast<int64_t>(g) * TM + m % TM) * tk +
+                           k0 + c
+                     : a,
+                  in);
       }
     }
+  };
+
+  // splits the X chunk of stage `buf` into hi (in place) and lo (lo
+  // buffer `lb`); true if any of this thread's values is not a TF32 value
+  auto split_x = [&](int buf, int lb) {
+    uint32_t* xs = reinterpret_cast<uint32_t*>(smem + buf * C::STAGE);
+    uint32_t* xl = reinterpret_cast<uint32_t*>(lo_buf) + lb * (C::XB / 4);
+    uint32_t low = 0u;
+#pragma unroll
+    for (int j = 0; j < kXK * kCols / 4 / kThreads; ++j) {
+      const int i = tid + j * kThreads;
+      const int off = (i / (kCols / 4)) * kXStride + (i % (kCols / 4)) * 4;
+      uint4 v = *reinterpret_cast<uint4*>(xs + off);
+      uint4 h, l;
+      low |= v.x | v.y | v.z | v.w;
+      split_tf32(__uint_as_float(v.x), h.x, l.x);
+      split_tf32(__uint_as_float(v.y), h.y, l.y);
+      split_tf32(__uint_as_float(v.z), h.z, l.z);
+      split_tf32(__uint_as_float(v.w), h.w, l.w);
+      *reinterpret_cast<uint4*>(xs + off) = h;
+      *reinterpret_cast<uint4*>(xl + off) = l;
+    }
+    return (low & kTf32Low) != 0u;
+  };
+
+  // the warp's products over stage `buf` (schedule entry d); x_lo: some
+  // X value of the chunk has a nonzero lo
+  auto compute_step = [&](int buf, int lb, int d, bool x_lo) {
+    const int32_t* gs = sched_g + d * C::R;
+    const bool has = gs[r_lo] >= 0 || (TM < 16 && gs[r_lo + 1] >= 0);
+    if (!has) return;  // warp-uniform: no tile of the warp's rows here
+    const float* as = reinterpret_cast<const float*>(smem + buf * C::STAGE +
+                                                     C::XB);
+    const uint32_t* xh =
+        reinterpret_cast<const uint32_t*>(smem + buf * C::STAGE);
+    const uint32_t* xl = reinterpret_cast<const uint32_t*>(lo_buf) +
+                         lb * (C::XB / 4);
+#pragma unroll
+    for (int kk = 0; kk < kXK; kk += 8) {
+      const float* ap = as + (16 * warp + gid) * kAStride + kk + tig;
+      const float af[4] = {ap[0], ap[8 * kAStride], ap[4],
+                           ap[8 * kAStride + 4]};
+      uint32_t ah[4], al[4];
+      uint32_t low = 0u;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        low |= __float_as_uint(af[q]);
+        split_tf32(af[q], ah[q], al[q]);
+      }
+      const bool a_lo = __any_sync(0xffffffffu, (low & kTf32Low) != 0u);
+      const uint32_t* bh = xh + (kk + tig) * kXStride + gid;
+      const uint32_t* bl = xl + (kk + tig) * kXStride + gid;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        // 3xTF32 in the order lo_a.hi_b + hi_a.lo_b + hi_a.hi_b, without
+        // the terms whose lo is zero throughout
+        const uint32_t h0 = bh[nt * 8];
+        const uint32_t h1 = bh[nt * 8 + 4 * kXStride];
+        if (a_lo) mma_tf32(acc[nt], al, h0, h1);
+        if (x_lo) mma_tf32(acc[nt], ah, bl[nt * 8], bl[nt * 8 + 4 * kXStride]);
+        mma_tf32(acc[nt], ah, h0, h1);
+      }
+    }
+  };
+
+  for (;;) {
+    // merge up to kSchedCap slabs of the rows' ak lists (warp 0)
+    if (warp == 0) {
+      int nd = 0;
+      while (nd < kSchedCap) {
+        const int mine = cur < end ? ak[cur] : INT_MAX;
+        const int v = __reduce_min_sync(0xffffffffu, mine);
+        if (v == INT_MAX) break;
+        if (lane < C::R) sched_g[nd * C::R + lane] = mine == v ? cur : -1;
+        if (lane == 0) sched_v[nd] = v;
+        cur += mine == v;
+        ++nd;
+      }
+      if (lane == 0) sched_n = nd;
+    }
+    __syncthreads();
+    const int nd = sched_n;
+    if (nd == 0) break;
+
+    // the (slab, k chunk) steps through the ring; chunk s+1 is split
+    // while chunk s is multiplied
+    const int steps = nd * nch;
+#pragma unroll
+    for (int p = 0; p < kStages - 1; ++p) {
+      if (p < steps) load_step(p, p);
+      cp_async_commit();
+    }
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk 0 is visible
+    bool x_lo_mine = split_x(0, 0);
+    for (int step = 0; step < steps; ++step) {
+      cp_async_wait<kStages - 3>();
+      // chunk step+1 is visible, the split of chunk step too; the buffers
+      // the copies and the split below overwrite are no longer read
+      const bool x_lo = __syncthreads_or(x_lo_mine) != 0;
+      if (step + 1 < steps) x_lo_mine = split_x((step + 1) % kStages,
+                                                (step + 1) % kLoBufs);
+      const int next = step + kStages - 1;
+      if (next < steps) load_step(next % kStages, next);
+      cp_async_commit();
+      compute_step(step % kStages, step % kLoBufs, step / nch, x_lo);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // stages and schedule are free for the next pass
   }
 
-  float* y_row = y + row * TM * k_pad + c0 + tx * 4;
+  // Y rows of the group: group row m is Y row row0*TM + m
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    *reinterpret_cast<float4*>(y_row + (ty * RM + i) * k_pad) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int64_t col = c0 + nt * 8 + 2 * tig;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = 16 * warp + gid + 8 * h;
+      if (row0 + m / TM < n_rows) {
+        *reinterpret_cast<float2*>(y + (row0 * TM + m) * k_pad + col) =
+            make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
+      }
+    }
   }
 }
 
 template <int TM>
-void launch(dim3 grid, cudaStream_t stream, const float* a, const float* xb,
-            const int32_t* aptr, const int32_t* ak, const int32_t* kmin,
-            float* y, int64_t gm, int64_t block_rows, int64_t tk,
-            int64_t k_pad) {
-  spmm_strip_kernel<TM><<<grid, kThreads, 0, stream>>>(
-      a, xb, aptr, ak, kmin, y, gm, block_rows, tk, k_pad);
+int launch(cudaStream_t stream, const float* a, const float* xb,
+           const int32_t* aptr, const int32_t* ak, float* y, int64_t gm,
+           int64_t n_rows, int64_t tk, int64_t k_pad) {
+  using C = SpmmCfg<TM>;
+  // all of the SM's unified L1/shared memory to shared, so two CTAs fit;
+  // set once per device
+  static bool ready[kMaxDevices] = {};
+  const cudaError_t err =
+      set_smem_once(spmm_strip_kernel<TM>, C::SMEM, true, ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>((n_rows + C::R - 1) / C::R),
+                  static_cast<unsigned>(k_pad / kCols));
+  spmm_strip_kernel<TM><<<grid, kThreads, C::SMEM, stream>>>(
+      a, xb, aptr, ak, y, gm, n_rows, tk, k_pad);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---- narrow form: X and Y W = 8, 16 or 32 columns wide (k <= 32) ------
@@ -184,28 +364,6 @@ void launch(dim3 grid, cudaStream_t stream, const float* a, const float* xb,
 
 constexpr int kNarrowThreads = 256;
 constexpr int kNarrowStages = 3;
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         bool valid, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? bytes : 0;  // 0: zero-fill, nothing read
-  if (bytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n));
-  }
-}
 
 template <int TM, int W>
 struct NarrowCfg {
@@ -262,7 +420,7 @@ spmm_narrow_kernel(const float* __restrict__ a,
           const int rr = i / (C::KCH / 4);
           const int kk = (i % (C::KCH / 4)) * 4;
           const bool in = k0 + kk < tk;
-          cp_async(as + rr * C::AS + kk, in ? a_g + rr * tk + kk : a, in, 16);
+          cp_async16(as + rr * C::AS + kk, in ? a_g + rr * tk + kk : a, in);
         }
       } else {
 #pragma unroll
@@ -271,12 +429,12 @@ spmm_narrow_kernel(const float* __restrict__ a,
           const int rr = i / C::KCH;
           const int kk = i % C::KCH;
           const bool in = k0 + kk < tk;
-          cp_async(as + rr * C::AS + kk, in ? a_g + rr * tk + kk : a, in, 4);
+          cp_async4(as + rr * C::AS + kk, in ? a_g + rr * tk + kk : a, in);
         }
       }
       for (int i = tid; i < C::KCH * W / 4; i += kNarrowThreads) {
         const bool in = k0 + (i * 4) / W < tk;
-        cp_async(xs + i * 4, in ? x_g + i * 4 : xb, in, 16);
+        cp_async16(xs + i * 4, in ? x_g + i * 4 : xb, in);
       }
     };
 #pragma unroll
@@ -338,9 +496,9 @@ int launch_narrow_w(cudaStream_t stream, const float* a, const float* xb,
                     const int32_t* kmin, float* y, int64_t gm,
                     int64_t block_rows, int64_t tk, int64_t n_rows) {
   constexpr int smem = NarrowCfg<TM, W>::SMEM;
-  const cudaError_t err = cudaFuncSetAttribute(
-      spmm_narrow_kernel<TM, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  static bool ready[kMaxDevices] = {};  // the attribute is set once a device
+  const cudaError_t err =
+      set_smem_once(spmm_narrow_kernel<TM, W>, smem, false, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   spmm_narrow_kernel<TM, W>
       <<<static_cast<unsigned>(n_rows), kNarrowThreads, smem, stream>>>(
@@ -412,25 +570,19 @@ int spmm_strip_f32(const void* a, const void* xb, const void* aptr,
         return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  const dim3 grid(static_cast<unsigned>(n_rows),
-                  static_cast<unsigned>(k_pad / kCols));
+  // the 128-column form reads no kmin: both forms read slab ak[g]
   switch (tm) {
     case 64:
-      launch<64>(grid, st, av, xv, ap, kk, km, yv, gm, block_rows, tk, k_pad);
-      break;
+      return launch<64>(st, av, xv, ap, kk, yv, gm, n_rows, tk, k_pad);
     case 32:
-      launch<32>(grid, st, av, xv, ap, kk, km, yv, gm, block_rows, tk, k_pad);
-      break;
+      return launch<32>(st, av, xv, ap, kk, yv, gm, n_rows, tk, k_pad);
     case 16:
-      launch<16>(grid, st, av, xv, ap, kk, km, yv, gm, block_rows, tk, k_pad);
-      break;
+      return launch<16>(st, av, xv, ap, kk, yv, gm, n_rows, tk, k_pad);
     case 8:
-      launch<8>(grid, st, av, xv, ap, kk, km, yv, gm, block_rows, tk, k_pad);
-      break;
+      return launch<8>(st, av, xv, ap, kk, yv, gm, n_rows, tk, k_pad);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

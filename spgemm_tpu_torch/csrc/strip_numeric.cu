@@ -50,6 +50,10 @@
 //   the B slab is N-major, and a C slot's few k-steps leave little for
 //   an asynchronous warpgroup product to hide.
 //
+// The pair kernel (pair_accumulate.cu) runs the same tile pipeline on a
+// pair_ptr range instead of the slot scan; it keeps its own copy, so this
+// kernel's generated code stays as it was.
+//
 // Staging. The k range of every matched (g, y) pair is cut into 32-deep
 // chunks, and the chunks of all the slot's pairs form one stream of
 // steps. A ring of STAGES buffers in dynamic shared memory (A values and
@@ -79,7 +83,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "sm90_common.cuh"
+
 namespace {
+
+using namespace sm90;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -114,63 +122,6 @@ struct Cfg {
   static_assert(AV % 16 == 0 && AO % 16 == 0 && BV % 16 == 0,
                 "stage parts must stay 16-byte aligned");
 };
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);  // exact in f32
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
 
 template <int TM>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -433,15 +384,11 @@ int launch(dim3 grid, cudaStream_t stream, const float* a_val,
            float* c_val, float* c_cnt, int64_t gm, int64_t block_rows,
            int64_t max_b, int64_t max_cblock, int64_t tk) {
   using C = Cfg<TM>;
-  cudaError_t err = cudaFuncSetAttribute(
-      strip_numeric_kernel<TM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      C::SMEM);
-  if (err == cudaSuccess) {
-    // all of the SM's unified L1/shared memory to shared, so two CTAs fit
-    err = cudaFuncSetAttribute(strip_numeric_kernel<TM>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  }
+  // all of the SM's unified L1/shared memory to shared, so two CTAs fit;
+  // set once per device
+  static bool ready[kMaxDevices] = {};
+  const cudaError_t err =
+      set_smem_once(strip_numeric_kernel<TM>, C::SMEM, true, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   strip_numeric_kernel<TM><<<grid, kThreads, C::SMEM, stream>>>(
       a_val, a_occ, b_val, b_occ, aptr, ak, slots, c_val, c_cnt, gm,

@@ -21,8 +21,9 @@ import torch
 
 
 def _pair_matmuls(a_val, a_occ, b_val, b_occ):
-    """Batched per-pair products: values and structural counts."""
-    return torch.bmm(a_val, b_val), torch.bmm(a_occ, b_occ)
+    """Batched per-pair products: values and structural counts (in
+    float32, whatever the occupancy planes' dtype)."""
+    return torch.bmm(a_val, b_val), torch.bmm(a_occ.float(), b_occ.float())
 
 
 def pair_accumulate(a_val, a_occ, b_val, b_occ, pa, pb, seg, *,
@@ -31,7 +32,8 @@ def pair_accumulate(a_val, a_occ, b_val, b_occ, pa, pb, seg, *,
     a_val's dtype, c_cnt float32.
 
     a_val (ntA, tm, tk) and b_val (ntB, tk, tn) are dense tiles, a_occ and
-    b_occ their float32 0/1 occupancy; pa, pb, seg (P,) the pair list
+    b_occ their 0/1 occupancy (float32 or bfloat16: the counts are summed
+    in float32 either way); pa, pb, seg (P,) the pair list
     sorted by segment (padding pairs may point at segment num_segments,
     which is dropped). Pairs are taken `chunk` at a time, so gathered
     tiles never exceed chunk * tile bytes."""

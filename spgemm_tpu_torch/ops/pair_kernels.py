@@ -11,8 +11,12 @@ For CPU tensors the wrapper runs the plain PyTorch version (the XLA
 backend's ops/numeric.py:pair_accumulate over the same pairs); for CUDA
 tensors it launches the kernel or raises. It never falls back. Both
 accumulate in float32 only: float64 raises ValueError, as the Pallas
-wrapper does. The library is built with nvcc at first use (never at
-import) into `spgemm_tpu_torch/_build/`.
+wrapper does. The occupancy planes may be float32 (the reference's
+contract) or bfloat16 0/1, which is what the kernel reads: the wrapper
+converts float32 planes to bfloat16 on the device, exactly, and the plain
+version counts in float32 either way. The library is built with nvcc at
+first use (never at import) into `spgemm_tpu_torch/_build/`; its build
+key covers the source and the headers it includes.
 
 Launch counters: `pair_accumulate_cuda.kernel_launches` counts kernel
 launches and `pair_accumulate_cuda.plain_launches` dispatches to the plain
@@ -32,6 +36,10 @@ from spgemm_tpu_torch.ops.kernels import build_cuda_library
 
 # (tm, tn) tile shapes the CUDA kernel is instantiated for; tk is free
 PAIR_TILES = ((8, 128), (16, 128), (32, 128), (64, 128))
+# the kernel reads A rows in 16-byte runs of bf16: rows of other widths
+# are padded to a multiple of this with zero columns
+ROW_MULTIPLE = 8
+OCC_DTYPES = (torch.float32, torch.bfloat16)
 
 KERNEL_SRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc", "pair_accumulate.cu")
@@ -54,7 +62,7 @@ def load_pair_kernel():
         lib, info = build_cuda_library(KERNEL_SRC, "libpair_accumulate",
                                        NVCC_FLAGS)
         lib.pair_accumulate_f32.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 4 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 5 + [ctypes.c_void_p])
         lib.pair_accumulate_f32.restype = ctypes.c_int
         build_info.update(info)
         _lib = lib
@@ -74,15 +82,16 @@ def _check_operands(a_val, a_occ, b_val, b_occ, pa, pb, pair_ptr, *,
                     num_segments):
     check_pair_dtype(a_val.dtype)
     dev = a_val.device
-    for name, t, dt in (("a_val", a_val, torch.float32),
-                        ("a_occ", a_occ, torch.float32),
-                        ("b_val", b_val, torch.float32),
-                        ("b_occ", b_occ, torch.float32),
-                        ("pa", pa, torch.int32), ("pb", pb, torch.int32),
-                        ("pair_ptr", pair_ptr, torch.int32)):
-        if t.dtype != dt or t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name}: need a contiguous {dt} tensor on "
-                             f"{dev}, got {t.dtype} on {t.device}")
+    for name, t, dts in (("a_val", a_val, (torch.float32,)),
+                         ("a_occ", a_occ, OCC_DTYPES),
+                         ("b_val", b_val, (torch.float32,)),
+                         ("b_occ", b_occ, OCC_DTYPES),
+                         ("pa", pa, (torch.int32,)), ("pb", pb, (torch.int32,)),
+                         ("pair_ptr", pair_ptr, (torch.int32,))):
+        if t.dtype not in dts or t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous tensor of "
+                             f"{' or '.join(map(str, dts))} on {dev}, got "
+                             f"{t.dtype} on {t.device}")
     if (a_val.dim() != 3 or b_val.dim() != 3 or a_occ.shape != a_val.shape
             or b_occ.shape != b_val.shape or b_val.shape[1] != a_val.shape[2]
             or pb.numel() != pa.numel()
@@ -98,8 +107,9 @@ def pair_accumulate_plain(a_val, a_occ, b_val, b_occ, pa, pb, pair_ptr, *,
                           num_segments: int):
     """Plain PyTorch version of the pair kernel, on any device: the XLA
     backend's pair_accumulate over the same pairs, each pair's segment
-    read off pair_ptr. Returns (c_val, c_cnt) f32, (num_segments, tm,
-    tn); a C tile with no pairs is zero."""
+    read off pair_ptr; counts in float32 whatever the occupancy planes'
+    dtype. Returns (c_val, c_cnt) f32, (num_segments, tm, tn); a C tile
+    with no pairs is zero."""
     seg = torch.repeat_interleave(
         torch.arange(num_segments, device=a_val.device),
         torch.diff(pair_ptr.long()))
@@ -111,10 +121,13 @@ def pair_accumulate_cuda(a_val, a_occ, b_val, b_occ, pa, pb, pair_ptr, *,
                          num_segments: int):
     """Per-C-tile pair accumulation: for every C tile i, c_val[i] = sum of
     a_val[pa[j]] @ b_val[pb[j]] and c_cnt[i] the same over the occupancy
-    planes, j in [pair_ptr[i], pair_ptr[i+1]). a_val (ntA, tm, tk), b_val
-    (ntB, tk, tn) and their 0/1 occupancy planes are float32. Returns
-    (c_val, c_cnt) f32, (num_segments, tm, tn). CPU tensors run
-    pair_accumulate_plain; CUDA tensors launch csrc/pair_accumulate.cu."""
+    planes, j in [pair_ptr[i], pair_ptr[i+1]). a_val (ntA, tm, tk) and
+    b_val (ntB, tk, tn) are float32, their 0/1 occupancy planes float32
+    or bfloat16. Returns (c_val, c_cnt) f32, (num_segments, tm, tn). CPU
+    tensors run pair_accumulate_plain; CUDA tensors launch
+    csrc/pair_accumulate.cu, with the occupancy converted to bfloat16 and
+    A's rows padded to a multiple of ROW_MULTIPLE columns first where
+    they are not (both on the device, inside the call)."""
     _check_operands(a_val, a_occ, b_val, b_occ, pa, pb, pair_ptr,
                     num_segments=num_segments)
     if a_val.device.type == "cpu":
@@ -137,13 +150,23 @@ def pair_accumulate_cuda(a_val, a_occ, b_val, b_occ, pa, pb, pair_ptr, *,
     c_cnt = torch.empty_like(c_val)
     if num_segments == 0:  # an empty grid: nothing to launch
         return c_val, c_cnt
+    a_occ = a_occ.to(torch.bfloat16)  # exact for 0/1; no copy if bf16
+    b_occ = b_occ.to(torch.bfloat16)
+    lda = -(-tk // ROW_MULTIPLE) * ROW_MULTIPLE
+    if lda != tk:  # zero columns up to a 16-byte row of bf16
+        pad = (0, lda - tk)
+        a_val = torch.nn.functional.pad(a_val, pad)
+        a_occ = torch.nn.functional.pad(a_occ, pad)
+    if any(t.data_ptr() % 16 for t in (a_val, a_occ, b_val, b_occ)):
+        raise ValueError("the pair kernel copies 16-byte runs: the value and "
+                         "occupancy planes must start 16-byte aligned")
     with torch.cuda.device(a_val.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.pair_accumulate_f32(
             a_val.data_ptr(), a_occ.data_ptr(), b_val.data_ptr(),
             b_occ.data_ptr(), pa.data_ptr(), pb.data_ptr(),
             pair_ptr.data_ptr(), c_val.data_ptr(), c_cnt.data_ptr(),
-            num_segments, tm, tk, tn, stream)
+            num_segments, tm, tk, tn, lda, stream)
     if err != 0:
         raise RuntimeError(f"pair kernel launch failed: CUDA error {err}")
     pair_accumulate_cuda.kernel_launches += 1

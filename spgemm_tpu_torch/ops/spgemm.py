@@ -132,8 +132,10 @@ def _spgemm_pairs(a: TileMat, b: TileMat, *, backend: str, f64: bool,
     np_dt = np.float64 if f64 else np.float32
     up = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device)
     a_val, b_val = up(a.dense(np_dt)), up(b.dense(np_dt))
-    # occupancy travels as uint8 and widens to f32 on the device
-    a_occ, b_occ = up(a.occ()).float(), up(b.occ()).float()
+    # occupancy travels as uint8 and widens on the device: to bf16 0/1 for
+    # the pair kernel, to the f32 that the xla backend's counts use
+    occ_dt = torch.bfloat16 if backend == "pallas" else torch.float32
+    a_occ, b_occ = up(a.occ()).to(occ_dt), up(b.occ()).to(occ_dt)
     timings["upload_ms"] = (time.perf_counter() - t0) * 1e3
 
     t0 = time.perf_counter()

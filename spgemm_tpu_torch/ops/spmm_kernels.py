@@ -15,7 +15,8 @@ design does about it.
 For CPU tensors the wrapper runs the plain PyTorch version; for CUDA
 tensors it launches the kernel or raises. It never falls back. The library
 is built with nvcc at first use (never at import) into
-`spgemm_tpu_torch/_build/`.
+`spgemm_tpu_torch/_build/`; its build key covers the source and the
+headers it includes.
 
 Launch counters: `spmm_strip.kernel_launches` counts kernel launches (both
 forms), `spmm_strip.narrow_launches` those of the narrow form, and
@@ -163,6 +164,9 @@ def spmm_strip(a_dense, xb, aptr, ak, arow, kmin=None, *, gm: int,
                          f"tm={tm} k_pad={k_pad}")
     if n_rows >= 2 ** 31:
         raise ValueError("SpMM kernel grid exceeds 2^31-1 rows")
+    if a_dense.data_ptr() % 16 or xb.data_ptr() % 16:
+        raise ValueError("the SpMM kernel copies 16-byte runs: a_dense and "
+                         "xb must start 16-byte aligned")
     lib = load_spmm_kernel()
     y = torch.empty(n_rows, tm, k_pad, dtype=torch.float32,
                     device=a_dense.device)

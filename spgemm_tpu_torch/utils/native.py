@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -48,17 +49,50 @@ def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctype)
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_closure(src: str) -> list[str]:
+    """`src` and every file it pulls in with `#include "..."`, recursively
+    (each resolved beside the file that names it, as the compiler does
+    first; a name that resolves to no file there is left to the compiler's
+    search path and not followed), in first-seen order."""
+    seen, todo = [], [os.path.abspath(src)]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        for name in _INCLUDE.findall(text):
+            dep = os.path.join(os.path.dirname(path), name.decode())
+            if os.path.exists(dep):
+                todo.append(os.path.abspath(dep))
+    return seen
+
+
+def library_path(src: str, stem: str, flags: list[str]) -> str:
+    """BUILD_DIR/<stem>-<hash>.so for `src` built with `flags`: the hash
+    covers the bytes of the source and of every file it includes with
+    `#include "..."` (source_closure), and the flags, so an edited header
+    never loads a library built from the old one."""
+    digest = hashlib.sha256()
+    for path in source_closure(src):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(flags).encode())
+    return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
+
+
 def build_shared_library(cmd_prefix: list[str], src: str, stem: str,
                          flags: list[str], timeout: float) -> str:
-    """Compile `src` into BUILD_DIR/<stem>-<hash>.so unless that file
-    already exists; the hash covers the source bytes and the flags. The
-    compiler's output is kept beside it as <name>.so.log. Raises
-    subprocess.CalledProcessError (with the compiler's output) or
-    FileNotFoundError. Shared by the g++ host build and the nvcc kernel
-    build (ops/kernels.py)."""
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
-    out = os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
+    """Compile `src` into library_path(src, stem, flags) unless that file
+    already exists. The compiler's output is kept beside it as
+    <name>.so.log. Raises subprocess.CalledProcessError (with the
+    compiler's output) or FileNotFoundError. Shared by the g++ host build
+    and the nvcc kernel build (ops/kernels.py)."""
+    out = library_path(src, stem, flags)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)

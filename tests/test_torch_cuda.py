@@ -1,8 +1,9 @@
 """Card-only checks of the PyTorch port: the CUDA strip kernel, the three
 ESC scan kernels, the Ozaki strip kernel, the SpMM strip kernel (both its
 128-column and its narrow form) and the pair kernel against their plain
-PyTorch versions, the strip kernel's register budget, and the public
-entry points on a CUDA device.
+PyTorch versions, the register budgets of the strip, Ozaki, pair and
+128-column SpMM kernels, the wrappers' refusals, and the public entry
+points on a CUDA device.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it also runs on a machine that has only torch:
@@ -11,8 +12,9 @@ no JAX, so it also runs on a machine that has only torch:
 
 Tolerances: integer values are exact in f32 and must agree exactly;
 Gaussian values are summed in another order (rtol 1e-5, atol
-1e-6*max|C|; TF32 would miss by ~1e-3, the strip kernel's 3xTF32 does
-not: tests/test_torch_strip_arith.py emulates it). Counts are exact f32 sums of 0/1
+1e-6*max|C|; TF32 would miss by ~1e-3, the 3xTF32 of the strip, pair
+and SpMM kernels does not: tests/test_torch_strip_arith.py emulates
+it). Counts are exact f32 sums of 0/1
 products in both versions and must be equal. The scan kernels add in
 their plain versions' order, with no contraction, so they must be
 bit-equal to them on any values. So must the Ozaki kernel: its int32
@@ -545,17 +547,29 @@ def _write_mtx(path, a):
             f.write(f"{r} {c} {v:.17g}\n")
 
 
+def _spmm_matrix(values: str):
+    """Banded 2500^2 with two empty row ranges, so some tile rows (and, at
+    every tile height, whole row groups of the 128-column kernel) have no
+    tiles."""
+    a = _matrix(values, 2500, 64)
+    r = a.rows_expanded()
+    keep = ((r < 300) | (r >= 700)) & ((r < 1500) | (r >= 1530))
+    return pt.CSR.from_coo(r[keep], a.indices[keep], a.data[keep], a.shape)
+
+
 @pytest.mark.parametrize("tm", [8, 16, 32, 64])
-@pytest.mark.parametrize("tk", [16, 128])
-@pytest.mark.parametrize("k_pad", [128, 256])
+@pytest.mark.parametrize("tk", [16, 18, 128])
+@pytest.mark.parametrize("k_pad", [128, 256, 384])
 def test_spmm_kernel_matches_plain(card, tm, tk, k_pad):
+    # block_rows 6: the kernel's row groups (128/tm tile rows) span block
+    # edges and the last group is not full; tk 18 takes 4-byte A copies
     rng = np.random.default_rng(31)
     for values in ("integer", "gaussian"):
-        a = _matrix(values, 2500, 64)
+        a = _spmm_matrix(values)
         t = pt.csr_to_tiles(a, tm, tk)
         x = (rng.integers(-4, 5, (a.n, k_pad - 3)).astype(np.float64)
              if values == "integer" else rng.standard_normal((a.n, k_pad - 3)))
-        block_rows = 8
+        block_rows = 6
         stats = pspmm._spmm_block_stats(t, block_rows)
         ops = pspmm._pack_spmm_operands(t, x, k_pad, torch.float32,
                                         block_rows).to_device(card)
@@ -570,6 +584,22 @@ def test_spmm_kernel_matches_plain(card, tm, tk, k_pad):
             assert (w.kernel_launches, w.plain_launches) == (before[0] + 1,
                                                              before[1])
             _assert_close(got, exp, values)
+            assert not got[t.gm:].any()  # the block padding rows
+
+
+def test_spmm_kernel_wide_range_values(card):
+    # 3xTF32 on both operands (A and X far from TF32 values)
+    rng = np.random.default_rng(34)
+    a0 = _spmm_matrix("integer")
+    a = _wide_range(a0, rng)
+    t = pt.csr_to_tiles(a, 16, 128)
+    x = rng.standard_normal((a.n, 256)) * 10.0 ** rng.uniform(-3, 3,
+                                                               (a.n, 256))
+    ops = pspmm._pack_spmm_operands(t, x, 256, torch.float32,
+                                    8).to_device(card)
+    got = spmm_kernels.spmm_strip(*ops, gm=t.gm, block_rows=8)
+    exp = spmm_kernels.spmm_strip_plain(*ops, gm=t.gm, block_rows=8)
+    _assert_close(got, exp, "gaussian")
 
 
 @pytest.mark.parametrize("tm", [8, 16, 64])
@@ -602,17 +632,24 @@ def test_spmm_narrow_kernel_matches_plain(card, tm, tk, width, k):
             _assert_close(got, exp, values)
 
 
+def _pair_ops(at, bt, sched, card, occ):
+    up = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(card)
+    return (up(at.dense(np.float32)), up(at.occ()).to(occ),
+            up(bt.dense(np.float32)), up(bt.occ()).to(occ), up(sched.pa),
+            up(sched.pb), up(sched.pair_ptr))
+
+
 @pytest.mark.parametrize("tm", [8, 16, 32, 64])
-@pytest.mark.parametrize("tk", [16, 128])
-def test_pair_kernel_matches_plain(card, tm, tk):
+@pytest.mark.parametrize("tk", [1, 7, 16, 100, 128])
+@pytest.mark.parametrize("occ", [torch.float32, torch.bfloat16])
+def test_pair_kernel_matches_plain(card, tm, tk, occ):
+    # tk 1, 7 and 100: A rows padded to a multiple of 8 by the wrapper;
+    # tk 1 and 7 give C tiles of many pairs, tk 128 of one or two
     for values in ("integer", "gaussian"):
-        a = _matrix(values, 1500, 64)
+        a = _matrix(values, 700 if tk < 16 else 1500, 64)
         at, bt = pt.csr_to_tiles(a, tm, tk), pt.csr_to_tiles(a, tk, 128)
         sched = build_pair_schedule(at, bt)
-        up = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(card)
-        ops = (up(at.dense(np.float32)), up(at.occ()).float(),
-               up(bt.dense(np.float32)), up(bt.occ()).float(),
-               up(sched.pa), up(sched.pb), up(sched.pair_ptr))
+        ops = _pair_ops(at, bt, sched, card, occ)
         w = pair_kernels.pair_accumulate_cuda
         before = (w.kernel_launches, w.plain_launches)
         gv, gc = w(*ops, num_segments=sched.nt_c)
@@ -622,7 +659,47 @@ def test_pair_kernel_matches_plain(card, tm, tk):
         assert (w.kernel_launches, w.plain_launches) == (before[0] + 1,
                                                          before[1])
         _assert_close(gv, pv, values)
-        assert torch.equal(gc > 0, pc > 0)
+        assert torch.equal(gc, pc)
+
+
+@pytest.mark.parametrize("tm", [8, 16, 32, 64])
+@pytest.mark.parametrize("tk", [7, 40])
+def test_pair_kernel_tiles_of_0_1_and_many_pairs(card, tm, tk):
+    # C tiles with no pair (zero), one pair and nine pairs, in one launch
+    rng = np.random.default_rng(35)
+    a_val = rng.standard_normal((5, tm, tk)).astype(np.float32)
+    b_val = rng.standard_normal((4, tk, 128)).astype(np.float32)
+    a_val[a_val < -1.0] = 0.0
+    b_val[b_val < -1.0] = 0.0
+    pa = np.array([3, 0, 1, 2, 3, 4, 0, 1, 2, 3], np.int32)
+    pb = np.array([1, 0, 1, 2, 3, 0, 1, 2, 3, 0], np.int32)
+    pair_ptr = np.array([0, 0, 1, 1, 10, 10], np.int32)
+    up = lambda v: torch.from_numpy(v).to(card)
+    ops = (up(a_val), up(a_val != 0).float(), up(b_val),
+           up(b_val != 0).to(torch.bfloat16), up(pa), up(pb), up(pair_ptr))
+    gv, gc = pair_kernels.pair_accumulate_cuda(*ops, num_segments=5)
+    pv, pc = pair_kernels.pair_accumulate_plain(*ops, num_segments=5)
+    _assert_close(gv, pv, "gaussian")
+    assert torch.equal(gc, pc)
+    for i in (0, 2, 4):
+        assert not gv[i].any() and not gc[i].any()
+
+
+def test_pair_and_spmm_kernel_registers(card):
+    # two 256-thread CTAs per SM need <= 128 registers a thread: the pair
+    # kernel at tm 64 (the main plan's) and every 128-column SpMM
+    # instantiation, none spilling
+    pair_kernels.load_pair_kernel()
+    spmm_kernels.load_spmm_kernel()
+    usage = kernels.ptxas_usage(pair_kernels.build_info["ptxas"])
+    pair = {fn: v for fn, v in usage.items() if "pair_accumulate_kernel" in fn}
+    assert len(pair) == 4
+    tm64 = [v for fn, v in pair.items() if "ILi64E" in fn]
+    assert len(tm64) == 1 and tm64[0][0] <= 128 and tm64[0][1:] == (0, 0)
+    usage = kernels.ptxas_usage(spmm_kernels.build_info["ptxas"])
+    spmm = [v for fn, v in usage.items() if "spmm_strip_kernel" in fn]
+    assert len(spmm) == 4
+    assert all(regs <= 128 and st == ld == 0 for regs, st, ld in spmm)
 
 
 def test_spmm_and_pair_kernels_reject(card):
@@ -639,6 +716,12 @@ def test_spmm_and_pair_kernels_reject(card):
         spmm_kernels.spmm_strip(*ops64, gm=t16.gm, block_rows=4)
     with pytest.raises(ValueError, match="infeasible"):
         pt.spmm(t, np.ones((a.n, 4)), backend="strip", device=card)
+    ops16 = list(pspmm._pack_spmm_operands(t16, np.ones((a.n, 4)), 128,
+                                           torch.float32, 4).to_device(card))
+    shifted = torch.empty(ops16[1].numel() + 1, device=card)[1:]
+    ops16[1] = shifted.view_as(ops16[1]).copy_(ops16[1])  # 4 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        spmm_kernels.spmm_strip(*ops16, gm=t16.gm, block_rows=4)
 
     at, bt = pt.csr_to_tiles(a, 8, 16), pt.csr_to_tiles(a, 16, 16)
     sched = build_pair_schedule(at, bt)
@@ -648,6 +731,16 @@ def test_spmm_and_pair_kernels_reject(card):
             up(sched.pb), up(sched.pair_ptr)]
     with pytest.raises(ValueError, match="pair kernel takes"):
         pair_kernels.pair_accumulate_cuda(*pops, num_segments=sched.nt_c)
+    t16p = pt.csr_to_tiles(a, 16, 16)
+    sp = build_pair_schedule(t16p, pt.csr_to_tiles(a, 16, 128))
+    bq = pt.csr_to_tiles(a, 16, 128)
+    qops = [up(t16p.dense(np.float32)), up(t16p.occ()).float(),
+            up(bq.dense(np.float32)), up(bq.occ()).float(), up(sp.pa),
+            up(sp.pb), up(sp.pair_ptr)]
+    shifted = torch.empty(qops[2].numel() + 1, device=card)[1:]
+    qops[2] = shifted.view_as(qops[2]).copy_(qops[2])  # 4 bytes off
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pair_kernels.pair_accumulate_cuda(*qops, num_segments=sp.nt_c)
     pops[0] = pops[0].double()
     with pytest.raises(ValueError, match="float64"):
         pair_kernels.pair_accumulate_cuda(*pops, num_segments=sched.nt_c)

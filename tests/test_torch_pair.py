@@ -150,6 +150,63 @@ def test_plain_pair_matches_pallas(tm, tn, values):
     np.testing.assert_array_equal(pc.numpy() > 0, np.asarray(jc) > 0)
 
 
+@pytest.mark.parametrize("tm,tn", [(8, 16), (16, 16)])
+@pytest.mark.parametrize("values", ["integer", "gaussian"])
+def test_plain_pair_bf16_occupancy_matches_pallas(tm, tn, values):
+    """bf16 0/1 occupancy (what the pair backend uploads and the kernel
+    reads) gives the JAX kernel's C and exactly the f32-occupancy result:
+    the plain version counts in f32 either way."""
+    rng = np.random.default_rng(12)
+    a, b = _operands("rectangular", rng)
+    if values == "gaussian":
+        a = a.with_data(rng.standard_normal(a.nnz))
+        b = b.with_data(rng.standard_normal(b.nnz))
+    jt, _ = _tiles(a, b, tm, tn)
+    sched = j_schedule(*jt)
+    planes = _planes(jt, np.float32)
+    idx = (sched.pa, sched.pb, sched.pair_ptr)
+    jv, jc = pair_accumulate_pallas(*map(jnp.asarray, planes + idx),
+                                    num_segments=sched.nt_c, interpret=True)
+    f32 = list(map(torch.from_numpy, planes + idx))
+    bf16 = list(f32)
+    bf16[1], bf16[3] = f32[1].to(torch.bfloat16), f32[3].to(torch.bfloat16)
+    w = pair_kernels.pair_accumulate_cuda
+    pv, pc = w(*bf16, num_segments=sched.nt_c)
+    fv, fc = w(*f32, num_segments=sched.nt_c)
+    assert pv.dtype == pc.dtype == torch.float32
+    assert torch.equal(pv, fv) and torch.equal(pc, fc)
+    _assert_close(pv.numpy(), jv, values)
+    np.testing.assert_array_equal(pc.numpy() > 0, np.asarray(jc) > 0)
+    pv2, pc2 = pair_kernels.pair_accumulate_plain(*bf16,
+                                                  num_segments=sched.nt_c)
+    assert torch.equal(pv2, pv) and torch.equal(pc2, pc)
+
+
+@pytest.mark.parametrize("values", ["integer", "gaussian"])
+def test_spgemm_pallas_uploads_bf16_occupancy(monkeypatch, values):
+    """spgemm(backend="pallas") hands the pair kernel's wrapper bf16
+    occupancy planes and still gives the JAX package's C."""
+    rng = np.random.default_rng(13)
+    a, b = _operands("rectangular", rng)
+    if values == "gaussian":
+        a = a.with_data(rng.standard_normal(a.nnz))
+        b = b.with_data(rng.standard_normal(b.nnz))
+    (ja, jb), (pa_, pb_) = _tiles(a, b, 16, 16)
+    seen = []
+    real = pair_kernels._check_operands
+
+    def spy(*args, **kw):  # the wrapper checks its operands first
+        seen.append((args[1].dtype, args[3].dtype))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(pair_kernels, "_check_operands", spy)
+    res = pt.spgemm(pa_, pb_, backend="pallas", device="cpu")
+    assert seen == [(torch.bfloat16, torch.bfloat16)]
+    jres = spgemm_tpu.spgemm(ja, jb, backend="pallas")
+    _assert_same_csr(res.c.to_csr(), jres.c.to_csr(), values)
+    assert res.stats["nnzC"] == jres.stats["nnzC"]
+
+
 def test_plain_pair_empty_tile_is_zero():
     """A C tile with no pairs (an empty range of pair_ptr) comes out
     zero."""

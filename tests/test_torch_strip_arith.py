@@ -1,4 +1,13 @@
-"""The strip kernel's arithmetic, emulated in plain torch on the CPU.
+"""The tensor-core kernels' arithmetic, emulated in plain torch on the CPU.
+
+The strip and pair kernels run one tile pipeline (csrc/strip_numeric.cu,
+copied into csrc/pair_accumulate.cu), and the 128-column SpMM kernel
+(csrc/spmm_strip.cu) the same 3xTF32 products; the SpMM kernel splits each X chunk into hi/lo planes once, for
+all warps, and skips the products whose lo operand is zero throughout
+(lo_a.hi_b where A is made of TF32 values, hi_a.lo_b where X is). Adding
+those zero products changes no accumulator, so the skipped and the full
+sums agree bit for bit; the tests below hold both at the SpMM and pair
+shapes.
 
 `csrc/strip_numeric.cu` multiplies f32 values on the tensor cores as
 3xTF32: each operand x splits into hi = rna_tf32(x) and lo =
@@ -99,6 +108,63 @@ def test_integers_split_with_zero_lo():
     ah, _ = split_tf32(a)
     bh, _ = split_tf32(b)
     assert torch.equal(ah @ bh, a @ b)
+
+
+def _accumulate_3xtf32(a_tiles, b_tiles, skip_zero_lo):
+    """sum_t a_tiles[t] @ b_tiles[t], each product added into the f32
+    accumulator term by term (lo_a.hi_b, hi_a.lo_b, hi_a.hi_b), as the
+    kernels' mma.sync steps do; B split once per tile (the SpMM kernel's
+    hi/lo planes)."""
+    acc = torch.zeros(a_tiles.shape[1], b_tiles.shape[2])
+    for a, b in zip(a_tiles, b_tiles):
+        ah, al = split_tf32(a)
+        bh, bl = split_tf32(b)
+        if not skip_zero_lo or al.any():
+            acc = acc + al @ bh
+        if not skip_zero_lo or bl.any():
+            acc = acc + ah @ bl
+        acc = acc + ah @ bh
+    return acc
+
+
+def _values(kind, rng, shape):
+    if kind == "integer":
+        return rng.integers(-9, 10, shape).astype(np.float32)
+    return _wide_gaussian(rng, shape)
+
+
+# (A tile height, A tiles summed into one C/Y tile): the SpMM kernel at
+# each tile height over a row's 3 slabs, the pair kernel's 64x128 C tile
+# over 2 pairs
+@pytest.mark.parametrize("tm,n_tiles", [(8, 3), (16, 3), (32, 3), (64, 3),
+                                        (64, 2)])
+@pytest.mark.parametrize("a_kind,b_kind", [("wide", "wide"),
+                                           ("integer", "wide"),
+                                           ("wide", "integer")])
+def test_3xtf32_at_spmm_and_pair_shapes(tm, n_tiles, a_kind, b_kind):
+    rng = np.random.default_rng(tm + n_tiles)
+    a = _values(a_kind, rng, (n_tiles, tm, 128))
+    b = _values(b_kind, rng, (n_tiles, 128, 128))
+    exp = np.einsum("tik,tkj->ij", a.astype(np.float64), b.astype(np.float64))
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    got = _accumulate_3xtf32(at, bt, skip_zero_lo=True)
+    assert torch.equal(got, _accumulate_3xtf32(at, bt, skip_zero_lo=False))
+    assert _within(got.numpy(), exp).all()
+    tf32 = sum(rna_tf32(x) @ rna_tf32(y) for x, y in zip(at, bt))
+    assert not _within(tf32.numpy(), exp).all()
+
+
+@pytest.mark.parametrize("tm,n_tiles", [(8, 3), (16, 3), (64, 2)])
+def test_integer_tiles_bit_equal_at_spmm_and_pair_shapes(tm, n_tiles):
+    # integer A and X (the bench's value model): every lo is zero, only
+    # the hi.hi products run, and the sum equals the plain f32 one exactly
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.integers(1, 10, (n_tiles, tm, 128)).astype(
+        np.float32))
+    b = torch.from_numpy(rng.integers(-4, 5, (n_tiles, 128, 128)).astype(
+        np.float32))
+    got = _accumulate_3xtf32(a, b, skip_zero_lo=True)
+    assert torch.equal(got, torch.bmm(a, b).sum(0))
 
 
 def test_ptxas_usage_parses_registers_and_spills():
