@@ -100,8 +100,33 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      and with standard-normal values (rtol 1e-5), the bound counted on
      the reference's float32 planes and the bytes the kernel moves
      printed beside it;
- 18. print the kernels JSON line, then the contract line
-     {"ok": true, "device": {...}} as the last line.
+ 18. drive the Gustavson slab route (torch ops, no hand kernel): C = A^2
+     on the cant-like matrix at TileSpGEMM's 16x16 tiles through
+     spgemm_csr(tm=16, tn=16): auto routing must pick gustavson, C equal
+     to scipy exactly (integer model), also A*A^T; standard-normal values
+     through backend="strip" must report gustavson(strip-fallback: ...)
+     and match scipy within rtol 1e-5, atol 1e-6*max|C|;
+ 19. drive the dense route: the suite's banded8192 A^2 at 16x16 (auto
+     must pick dense), C equal to scipy exactly; a cancelling product
+     keeps its stored zero;
+ 20. drive the f64 slab engine: the cant-like A^2 with standard-normal
+     values at 16x16 through spgemm_csr(compute_dtype=float64) must run
+     ozaki(S=8x8)(xla-fallback) within 1e-12*max|C| of scipy; its (h, m,
+     l, counts) on the leading 4,096^2 cut must be bit-equal to the CPU's
+     ozaki_core on the same plan; an arrow pattern (no windowed plan) at
+     32x128 through backend="ozaki" takes it too and matches scipy;
+ 21. OzakiExecutor on phase 20's plan: run + assemble equal to phase 20's
+     C; update_values with new values, rerun, within 1e-12*max|C|.
+     Phases 18-21 zero the launch counters first and fail if any hand
+     kernel or plain kernel version ran. Each route's timing lines start
+     with the card's name and power limit: symbolic, upload and numeric
+     ms (CUDA events, median), the device split by aten op
+     (torch.profiler), compact ms and wall, the bytes the numeric step
+     moves over 3.35 TB/s beside its operations bound, torch.sparse.mm
+     on the same product (f64 for the slab engine), and GFLOPS =
+     2*nnzCub/(symbolic + numeric);
+ 22. print the kernels JSON line (the nine hand kernels), then the
+     contract line {"ok": true, "device": {...}} as the last line.
 
 Beside every kernel's time the script prints (phase bound) its bound_ms:
 the larger of the bytes its operands and results take, each read or
@@ -1154,6 +1179,349 @@ def run_pair_path(a, ref, lib_ms) -> dict:
                 gaussian_max_abs_err=g_err)
 
 
+# --- the tiled routes without a hand kernel ----------------------------------
+SLAB_T = 16                     # TileSpGEMM's own tile (SURVEY.md): 16x16
+CUT_ROWS = 4096                 # the f64 slab cut held bit-equal to the CPU
+CARD = ""                       # nvidia-smi's name and power limit line
+
+
+def _all_wrappers():
+    from spgemm_tpu_torch.ops import (kernels, ozaki_kernels, pair_kernels,
+                                      scan_kernels, spmm_kernels)
+
+    return (kernels.strip_numeric, scan_kernels.esc_scan,
+            scan_kernels.esc_scan_mul, scan_kernels.esc_scan_dd,
+            ozaki_kernels.ozaki_strip_numeric, spmm_kernels.spmm_strip,
+            pair_kernels.pair_accumulate_cuda)
+
+
+def _check_no_kernel(label: str) -> None:
+    """No hand kernel and no plain kernel version ran since the counters
+    were zeroed: the route is torch ops end to end."""
+    ran = {w.__name__: (w.kernel_launches, w.plain_launches)
+           for w in _all_wrappers() if w.kernel_launches or w.plain_launches}
+    print(f"phase check: {label} hand-kernel launches (kernel, plain) since "
+          f"zeroed: {ran or 'none'}")
+    check(not ran, f"{label} ran a hand kernel or a plain version: {ran}")
+
+
+def _route(label: str, call):
+    """Counters zeroed, then `call` (an entry point) with its wall time;
+    checks that no kernel ran. Returns (C, result, wall_s)."""
+    import torch
+
+    _zero_counters(*_all_wrappers())
+    t0 = time.perf_counter()
+    c, res = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"phase {label}: backend={res.stats['backend']} wall_s={wall!r} "
+          f"timings_ms={res.timings_ms} stats={res.stats}")
+    _check_no_kernel(label)
+    return c, res, wall
+
+
+def _check_close(label, got, ref, *, rtol, atol_rel) -> None:
+    from spgemm_tpu_torch.ops import golden
+
+    got = golden.drop_explicit_zeros(got)
+    pat = got.pattern_equal(ref)
+    scale = float(np.abs(ref.data).max()) if ref.nnz else 0.0
+    err = float(np.abs(got.data - ref.data).max()) if pat and ref.nnz \
+        else (0.0 if pat else float("inf"))
+    ok = pat and np.allclose(got.data, ref.data, rtol=rtol,
+                             atol=atol_rel * scale)
+    print(f"phase check: {label} nnzC={got.nnz} oracle nnzC={ref.nnz} "
+          f"pattern_equal={pat} max_abs_err={err!r} max|C|={scale!r} "
+          f"(rtol {rtol}, atol {atol_rel}*max|C|)")
+    check(ok, f"{label} result differs from the scipy oracle")
+
+
+def op_split(fn, *, iters: int = 3) -> dict:
+    """Device milliseconds per call of `fn` by the aten op that launched
+    the work (torch.profiler, self device time): bmm, copy_ (permutes and
+    casts), index_add_, add/sub/mul (sums and the TwoSum combine)..."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        # aten ops only: the profiler's own buffer events carry device time
+        if (e.device_type == DeviceType.CPU and e.key.startswith("aten::")
+                and e.self_device_time_total > 0):
+            split[e.key] = e.self_device_time_total / iters / 1e3
+    return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+
+
+def _time_lines(label, res, wall, numeric_ms, split, moved, bnd, lib_ms,
+                nnz_cub, sym_ms) -> None:
+    """The route's timing lines, each led by the card's name and limit.
+    `moved` is the bytes of the numeric step's inputs and outputs, `bnd`
+    its (bound_ms, bound_by) from bound()."""
+    tms = res.timings_ms
+    total = sum(split.values())
+    shares = ", ".join(f"{k} {v!r} ms ({v / total:.1%})"
+                       for k, v in split.items()) if total else "none"
+    print(f"{CARD} | phase {label}-time: symbolic_ms={sym_ms!r} "
+          f"prep_ms={tms.get('prep_ms', 0.0)!r} "
+          f"upload_ms={tms['upload_ms']!r} numeric_ms={numeric_ms!r} "
+          f"(CUDA events, median) in-call numeric_ms={tms['numeric_ms']!r}")
+    print(f"{CARD} | phase {label}-time: device split per call (torch."
+          f"profiler, self device time by op): {shares}; sum {total!r} ms")
+    print(f"{CARD} | phase {label}-time: compact_ms={tms['compact_ms']!r} "
+          f"wall_s={wall!r}")
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    print(f"{CARD} | phase {label}-time: numeric bytes={moved} (inputs read "
+          f"once, outputs written once) -> {bytes_ms!r} ms at 3.35 TB/s; "
+          f"bound_ms={bnd[0]!r} (by {bnd[1]}, the products at their type's "
+          f"peak); share {bnd[0] / numeric_ms:.1%}")
+    print(f"{CARD} | phase {label}-time: library_ms={lib_ms!r} "
+          f"(torch.sparse.mm on the same product)")
+    gflops = 2.0 * nnz_cub / ((sym_ms + numeric_ms) * 1e6)
+    print(f"{CARD} | phase {label}-time: GFLOPS={gflops!r} "
+          f"(2*nnzCub/(symbolic+numeric), nnzCub={nnz_cub})")
+
+
+def run_gustavson_route(a, ref):
+    """Phase 18: the slab route. The cant-like A^2 at 16x16 through
+    spgemm_csr: auto must pick gustavson, C equal to scipy exactly on the
+    integer model, also A*A^T; standard-normal values through
+    backend="strip" fall back to it, within rtol 1e-5. Then its timings.
+    Returns (Gaussian A, its scipy A^2) for the f64 phases."""
+    import torch
+
+    from spgemm_tpu_torch.models.csr import flop_count_spgemm
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import golden
+    from spgemm_tpu_torch.ops.gustavson import (build_gustavson_plan,
+                                                gustavson_numeric)
+    from spgemm_tpu_torch.ops.spgemm import spgemm_csr
+    from spgemm_tpu_torch.utils.timing import cuda_event_ms
+
+    torch.cuda.empty_cache()
+    c, res, wall = _route("gustavson", lambda: spgemm_csr(
+        a, tm=SLAB_T, tn=SLAB_T, device="cuda"))
+    plan = res.schedule
+    print(f"phase gustavson: cant-like {ROWS}x{ROWS} tiles {SLAB_T}x{SLAB_T} "
+          f"gk={plan.gk} max_a={plan.max_a} max_b={plan.max_b} "
+          f"pairs={plan.num_pairs} slots={plan.gk * plan.max_a * plan.max_b} "
+          f"padding_ratio={plan.padding_ratio()!r} nt_c={plan.nt_c}")
+    check(res.stats["backend"] == "gustavson",
+          f"auto routing picked {res.stats['backend']} at 16x16")
+    _check_exact("gustavson integer", c, ref)
+    del c
+    ct, rest, _ = _route("gustavson-aat", lambda: spgemm_csr(
+        a, tm=SLAB_T, tn=SLAB_T, aat=True, device="cuda"))
+    check(rest.stats["backend"] == "gustavson", "aat did not run gustavson")
+    _check_exact("gustavson aat integer", ct, golden.spgemm_scipy(
+        a, a.transpose()))
+    del ct
+    ag = a.with_data(np.random.default_rng(0).standard_normal(a.nnz))
+    cg, resg, _ = _route("gustavson-strip-fallback", lambda: spgemm_csr(
+        ag, tm=SLAB_T, tn=SLAB_T, backend="strip", device="cuda"))
+    check(resg.stats["backend"].startswith("gustavson(strip-fallback: "),
+          f"backend='strip' at 16x16 reported {resg.stats['backend']}")
+    ref_g = golden.spgemm_scipy(ag, ag)
+    _check_close("gustavson Gaussian", cg, ref_g, rtol=GAUSS_RTOL,
+                 atol_rel=1e-6)
+    del cg
+
+    at = csr_to_tiles(a, SLAB_T, SLAB_T)
+    sym_ms = float("inf")
+    for _ in range(3):
+        sym_ms = min(sym_ms, build_gustavson_plan(at, at).symbolic_ms)
+    ops = plan.to_device("cuda")
+    kw = plan.numeric_kwargs()
+    step = lambda: gustavson_numeric(*ops, **kw)
+    ms = cuda_event_ms(step, warmup=2, iters=10)
+    split = op_split(step)
+    out = step()
+    moved = _nbytes(ops) + _nbytes(out)
+    # two full-FP32 slab products (values, counts) over every padded slot
+    flops = 2 * 2.0 * plan.gk * plan.max_a * plan.max_b * SLAB_T ** 3
+    bnd = bound("gustavson numeric", ops, out, [(flops, "f32")])
+    del out
+    a_t = _torch_csr(a, torch.float32)
+    lib = library_ms("torch.sparse.mm(A_csr, A_csr) f32 at the cant-like "
+                     "(gustavson)", lambda: torch.sparse.mm(a_t, a_t),
+                     iters=3)
+    del a_t, ops
+    _time_lines("gustavson", res, wall, ms, split, moved, bnd, lib,
+                flop_count_spgemm(a, a), sym_ms)
+    return ag, ref_g
+
+
+def run_dense_route():
+    """Phase 19: the dense route. The suite's banded8192 A^2 at 16x16
+    through spgemm_csr: auto must pick dense, C equal to scipy exactly;
+    a cancelling product keeps its stored zero. Then its timings."""
+    import torch
+
+    from spgemm_tpu_torch.models.csr import CSR, flop_count_spgemm
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import golden
+    from spgemm_tpu_torch.ops.spgemm import spgemm_csr, time_dense
+    from spgemm_tpu_torch.ops.spgemm import _dense_operands, _dense_step
+    from spgemm_tpu_torch.utils import generators as pgen
+
+    torch.cuda.empty_cache()
+    b8 = pgen.suite(8192)["banded8192"]
+    c, res, wall = _route("dense", lambda: spgemm_csr(
+        b8, tm=SLAB_T, tn=SLAB_T, device="cuda"))
+    print(f"phase dense: banded8192 nnz={b8.nnz} tiles {SLAB_T}x{SLAB_T} "
+          f"C tiles={res.stats['numblkC']:.0f}")
+    check(res.stats["backend"] == "dense",
+          f"auto routing picked {res.stats['backend']} for banded8192")
+    _check_exact("dense integer", c, golden.spgemm_scipy(b8, b8))
+    del c
+    za = CSR.from_dense(np.array([[1.0, -1.0], [0.0, 2.0]]))
+    zb = CSR.from_dense(np.array([[1.0, 0.0], [1.0, 0.0]]))
+    zc, zres = spgemm_csr(za, zb, tm=2, tn=2, backend="dense", device="cuda")
+    print(f"phase dense: cancelling product backend={zres.stats['backend']} "
+          f"indices={zc.indices.tolist()} data={zc.data.tolist()}")
+    check(zc.indices.tolist() == [0, 0] and zc.data.tolist() == [0.0, 2.0],
+          "the dense route lost a structural zero")
+
+    at = csr_to_tiles(b8, SLAB_T, SLAB_T)
+    ms = time_dense(at, at, device="cuda", warmup=2, iters=10)
+    ops = _dense_operands(at, at, np.float32, "cuda")
+    kw = dict(gm=at.gm, gn=at.gn, tm=SLAB_T, tn=SLAB_T)
+    split = op_split(lambda: _dense_step(*ops, **kw))
+    cv4, cc4, occ = _dense_step(*ops, **kw)
+    moved = _nbytes(ops) + _nbytes((cv4, cc4, occ))
+    mkn = 2.0 * (at.gm * SLAB_T) * (at.gn * SLAB_T) ** 2
+    bnd = bound("dense step", ops, (cv4, cc4, occ),
+                [(mkn, "f32"), (mkn, "bf16")])
+    del cv4, cc4, occ, ops
+    b_t = _torch_csr(b8, torch.float32)
+    lib = library_ms("torch.sparse.mm(A_csr, A_csr) f32 at banded8192",
+                     lambda: torch.sparse.mm(b_t, b_t), iters=5)
+    del b_t
+    _time_lines("dense", res, wall, ms, split, moved, bnd, lib,
+                flop_count_spgemm(b8, b8), 0.0)
+
+
+def _arrow(n: int = 4096):
+    """One dense tile-row spanning every k: no windowed strip plan."""
+    from spgemm_tpu_torch.models.csr import CSR
+
+    r = np.concatenate([np.zeros(n // 8, np.int64), np.arange(n)])
+    c = np.concatenate([np.arange(0, n, 8), np.arange(n)])
+    return CSR.from_coo(r, c, ((r + c) % 7 + 1) + 0.5, (n, n))
+
+
+def run_slab_f64_route(ag, ref_g):
+    """Phases 20 and 21: the f64 slab engine on the cant-like A^2 with
+    standard-normal values at 16x16 (no Ozaki kernel for these tiles):
+    within 1e-12*max|C| of scipy, and bit-equal to the CPU's ozaki_core
+    on a cut; the arrow pattern through backend="ozaki"; then
+    OzakiExecutor on the same plan and its timings."""
+    import torch
+
+    from spgemm_tpu_torch.models.csr import CSR, flop_count_spgemm
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import golden
+    from spgemm_tpu_torch.ops.executor import OzakiExecutor
+    from spgemm_tpu_torch.ops.ozaki import (build_ozaki_plan, ozaki_compact,
+                                            ozaki_core)
+    from spgemm_tpu_torch.ops.spgemm import spgemm, spgemm_csr
+
+    torch.cuda.empty_cache()
+    c, res, wall = _route("f64-slab", lambda: spgemm_csr(
+        ag, tm=SLAB_T, tn=SLAB_T, compute_dtype=torch.float64,
+        device="cuda"))
+    plan = res.schedule
+    base = plan.base
+    print(f"phase f64-slab: cant-like Gaussian tiles {SLAB_T}x{SLAB_T} "
+          f"S={plan.sa}x{plan.sb} gk={base.gk} max_a={base.max_a} "
+          f"max_b={base.max_b} pairs={base.num_pairs} nt_c={base.nt_c} "
+          f"a_sl={plan.a_sl.shape} b_sl={plan.b_sl.shape}")
+    check(res.stats["backend"] == "ozaki(S=8x8)(xla-fallback)",
+          f"f64 at 16x16 ran {res.stats['backend']}")
+    _check_close("f64 slab", c, ref_g, rtol=0.0, atol_rel=OZ_RTOL)
+    del c
+
+    # bit-equal to the CPU on a cut small enough for the host
+    keep = ag.indptr[CUT_ROWS]
+    cols = ag.indices[:keep]
+    rows = ag.rows_expanded()[:keep]
+    inside = cols < CUT_ROWS
+    cut = CSR.from_coo(rows[inside], cols[inside], ag.data[:keep][inside],
+                       (CUT_ROWS, CUT_ROWS))
+    ct = csr_to_tiles(cut, SLAB_T, SLAB_T)
+    cplan = build_ozaki_plan(ct, ct)
+    on_cpu = ozaki_core(*cplan.to_device("cpu"), **cplan.core_kwargs())
+    on_card = ozaki_core(*cplan.to_device("cuda"), **cplan.core_kwargs())
+    same = [torch.equal(x, y.cpu()) for x, y in zip(on_cpu, on_card)]
+    print(f"phase f64-slab: cut {CUT_ROWS}x{CUT_ROWS} nnz={cut.nnz} "
+          f"S={cplan.sa}x{cplan.sb} nt_c={cplan.nt_c}: (h, m, l, cnt) "
+          f"bit-equal to the CPU's ozaki_core: {same}")
+    check(all(same), "the slab engine on the card differs from the CPU")
+    del on_card
+
+    arrow = _arrow()
+    aat_, abt = csr_to_tiles(arrow, 32, TN), csr_to_tiles(arrow, TN, TN)
+    _zero_counters(*_all_wrappers())
+    ares = spgemm(aat_, abt, backend="ozaki", device="cuda")
+    print(f"phase f64-slab: arrow {arrow.m}x{arrow.n} 32x{TN} "
+          f"backend={ares.stats['backend']}")
+    _check_no_kernel("f64-slab arrow")
+    check(ares.stats["backend"].endswith("(xla-fallback)"),
+          f"the arrow pattern ran {ares.stats['backend']}")
+    _check_close("f64 slab arrow", ares.c.to_csr(),
+                 golden.spgemm_scipy(arrow, arrow), rtol=0.0,
+                 atol_rel=OZ_RTOL)
+
+    # phase 21: OzakiExecutor on the phase-20 plan
+    at = csr_to_tiles(ag, SLAB_T, SLAB_T)
+    _zero_counters(*_all_wrappers())
+    ex = OzakiExecutor(plan, at, at, device="cuda")
+    out = ex.run()
+    cube = ex.assemble(out)
+    occ = out[3].cpu().numpy() > 0
+    kept = occ.any(axis=(1, 2))
+    vals = cube[kept][occ[kept]]
+    same = np.array_equal(vals, res.c.val)
+    print(f"phase ozaki-executor: run+assemble values={vals.size} equal to "
+          f"the f64-slab C: {same}")
+    check(same, "OzakiExecutor's run+assemble differs from spgemm_csr's C")
+    ag2 = ag.with_data(np.random.default_rng(1).standard_normal(ag.nnz))
+    at2 = csr_to_tiles(ag2, SLAB_T, SLAB_T)
+    ex.update_values(at2, at2)
+    c2 = ozaki_compact(plan, *ex.run(), (ag.m, ag.n)).to_csr()
+    _check_no_kernel("ozaki-executor")
+    _check_close("ozaki-executor update_values", c2,
+                 golden.spgemm_scipy(ag2, ag2), rtol=0.0, atol_rel=OZ_RTOL)
+    del c2, out, cube
+
+    # timings at the phase-20 plan (the executor holds it on the card)
+    ms = ex.time_numeric(warmup=2, iters=10)
+    split = op_split(lambda: ex.run(sync=False))
+    out = ex.run()
+    ops = [torch.from_numpy(x) for x in (plan.a_sl, plan.b_sl, plan.a_occ,
+                                         plan.b_occ, base.seg)]
+    moved = _nbytes(ops) + _nbytes(out)
+    # Sa*Sb slice products and the count product, each an f32 slab bmm
+    flops = (plan.sa * plan.sb + 1) * 2.0 * base.gk * base.max_a \
+        * base.max_b * SLAB_T ** 3
+    bnd = bound("f64 slab numeric", ops, out, [(flops, "f32")])
+    del out, ops
+    a_t = _torch_csr(ag, torch.float64)
+    lib = library_ms("torch.sparse.mm(A_csr, A_csr) f64 at the cant-like "
+                     "(slab)", lambda: torch.sparse.mm(a_t, a_t), iters=3)
+    del a_t, ex
+    _time_lines("f64-slab", res, wall, ms, split, moved, bnd, lib,
+                flop_count_spgemm(ag, ag), res.timings_ms["symbolic_ms"])
+
+
 def run() -> dict:
     import torch
 
@@ -1169,11 +1537,13 @@ def run() -> dict:
     from spgemm_tpu_torch.utils.generators import cantlike
     from spgemm_tpu_torch.utils.timing import cuda_event_ms
 
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)
     dev_name = torch.cuda.get_device_name(0)
     print(f"phase device: {dev_name} count={torch.cuda.device_count()} "
           f"torch={torch.__version__} cuda={torch.version.cuda} "
@@ -1325,6 +1695,11 @@ def run() -> dict:
 
     compare_pair_plans()
     pair_entry = run_pair_path(a, ref, strip_lib_ms)
+    torch.cuda.empty_cache()
+
+    ag, ref_g = run_gustavson_route(a, ref)
+    run_dense_route()
+    run_slab_f64_route(ag, ref_g)
 
     return {
         "kernels": [{

@@ -11,8 +11,10 @@ Layout mirrors the JAX package:
               csrc/strip_numeric.cu), the ESC scan route for unstructured
               patterns (esc.py) with its three CUDA scan kernels and their
               plain versions (scan_kernels.py, source in csrc/esc_scan.cu),
-              the Ozaki route for f64 on structured patterns (ozaki.py)
-              with its CUDA kernel and plain version (ozaki_kernels.py,
+              the Gustavson slab route (gustavson.py, torch ops), the
+              Ozaki route for f64 on structured patterns (ozaki.py: the
+              slab engine as torch ops, and the fused strip route with
+              its CUDA kernel and plain version in ozaki_kernels.py,
               source in csrc/ozaki_strip.cu), SpMM/SpMV (spmm.py) with its
               CUDA strip kernel and plain version (spmm_kernels.py, source
               in csrc/spmm_strip.cu), the pair backends' schedule
@@ -31,10 +33,11 @@ card; "cpu" runs the plain PyTorch versions (the tests use it).
 from spgemm_tpu_torch.models.csr import CSR
 from spgemm_tpu_torch.models.tile import TileMat, csr_to_tiles, tiles_to_csr
 from spgemm_tpu_torch.ops.esc import ScanPlan, build_esc_scan_plan, spgemm_esc
-from spgemm_tpu_torch.ops.ozaki import spgemm_ozaki
+from spgemm_tpu_torch.ops.ozaki import build_ozaki_plan, spgemm_ozaki
 from spgemm_tpu_torch.ops.spmm import spmm, spmm_gather, spmv
 from spgemm_tpu_torch.ops.spgemm import SpGEMMResult, spgemm, spgemm_csr
-from spgemm_tpu_torch.ops.executor import EscExecutor, StripExecutor
+from spgemm_tpu_torch.ops.executor import (EscExecutor, OzakiExecutor,
+                                           StripExecutor)
 from spgemm_tpu_torch.io.mmio import read_mtx
 
 __all__ = [
@@ -48,6 +51,8 @@ __all__ = [
     "StripExecutor",
     "spgemm_esc",
     "spgemm_ozaki",
+    "build_ozaki_plan",
+    "OzakiExecutor",
     "spmm",
     "spmv",
     "spmm_gather",

@@ -6,13 +6,15 @@ reference's `./test` binary:
 Prints the same lines as the JAX package's CLI (matrix info, load time,
 tile size, flops, conversion ms, format space, step times, tile/nnz
 counts, runtime + GFLOPS, check verdict) and appends the four CSV sinks.
-`--backend` takes auto|strip|esc|ozaki|pallas|xla: auto sends unstructured
-inputs to the ESC scan route, ozaki runs the f64 Ozaki route, pallas the
-per-C-tile pair kernel and xla the same pairs as torch ops. `--dtype f64`
-follows spgemm_csr's f64 routing (structured inputs run the Ozaki route;
-with --backend xla the pairs run in float64) and exits 2 naming the
-ROADMAP.md item where that routing has no ported engine, and where the
-backend refuses the dtype (pallas is float32).
+`--backend` takes the JAX CLI's auto|strip|gustavson|dense|esc|xla|pallas|
+ozaki: auto sends unstructured inputs to the ESC scan route and the rest
+to the tiled router (the strip kernel where it runs, else dense, slab or
+pair gather: any tile size runs, TileSpGEMM's 16x16 included), gustavson
+runs the slab route, dense the padded dense matmul, ozaki the f64 Ozaki
+route, pallas the per-C-tile pair kernel and xla the same pairs as torch
+ops. `--dtype f64` follows spgemm_csr's f64 routing (structured inputs
+run the Ozaki route; the torch-op routes multiply in float64) and exits
+2 where the backend refuses the dtype (pallas is float32).
 """
 
 from __future__ import annotations
@@ -39,8 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("tile_m", nargs="?", type=int, default=16)
     p.add_argument("tile_n", nargs="?", type=int, default=128)
     p.add_argument("--backend", default="auto",
-                   choices=["auto", "strip", "esc", "ozaki", "pallas",
-                            "xla"])
+                   choices=["auto", "strip", "gustavson", "dense", "esc",
+                            "xla", "pallas", "ozaki"])
     p.add_argument("--dtype", default="f32", choices=["f32", "f64"])
     p.add_argument("--check", default="values",
                    choices=["none", "pattern", "values"],

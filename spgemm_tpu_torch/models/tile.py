@@ -107,6 +107,31 @@ class TileMat:
         out[self.tile_ids_expanded() * (self.tm * self.tn) + self.rc] = 1
         return out.reshape(self.nt, self.tm, self.tn)
 
+    def _padded_coords(self) -> tuple[np.ndarray, np.ndarray]:
+        """(row, col) of every stored value in the (gm*tm, gn*tn) grid."""
+        t = self.tile_ids_expanded()
+        rows = self.trow[t].astype(np.int64) * self.tm + self.rc // self.tn
+        cols = self.tcol[t].astype(np.int64) * self.tn + self.rc % self.tn
+        return rows, cols
+
+    def to_dense_padded(self, dtype=None) -> np.ndarray:
+        """Full dense matrix padded to the tile grid, (gm*tm, gn*tn): the
+        dense backend's operand layout."""
+        rows, cols = self._padded_coords()
+        out = np.zeros((self.gm * self.tm, self.gn * self.tn),
+                       dtype=dtype or self.val.dtype)
+        out[rows, cols] = self.val
+        return out
+
+    def occ_dense_padded(self) -> np.ndarray:
+        """Dense structural occupancy padded to the tile grid, (gm*tm,
+        gn*tn) uint8: 1 wherever a value is stored, explicit zeros
+        included (the pattern never depends on the values)."""
+        rows, cols = self._padded_coords()
+        out = np.zeros((self.gm * self.tm, self.gn * self.tn), dtype=np.uint8)
+        out[rows, cols] = 1
+        return out
+
     @functools.cached_property
     def _csc_view(self) -> tuple[np.ndarray, np.ndarray]:
         perm = np.lexsort((self.trow, self.tcol)).astype(INDEX_DTYPE)

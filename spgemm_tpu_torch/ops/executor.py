@@ -1,5 +1,6 @@
 """Device-resident executors: build once, run many (port of
-`spgemm_tpu/ops/executor.py:StripExecutor` and `EscExecutor`).
+`spgemm_tpu/ops/executor.py`: StripExecutor, EscExecutor and
+OzakiExecutor).
 
 The packed operands stay resident as tensors on the device; each run is
 one kernel launch. `update_values` re-uploads only the value plane(s),
@@ -18,6 +19,8 @@ from spgemm_tpu_torch.ops.esc import ScanPlan
 from spgemm_tpu_torch.ops.gustavson import (StripArgs, build_strip_args,
                                             check_strip_feasible,
                                             download_compact)
+from spgemm_tpu_torch.ops.ozaki import (OzakiPlan, ozaki_assemble,
+                                        ozaki_core, slice_and_pack)
 from spgemm_tpu_torch.utils.timing import cuda_event_ms, resolve_device
 
 
@@ -164,3 +167,61 @@ class EscExecutor:
         """Median device milliseconds of one numeric launch (CUDA events
         around each launch after `warmup` untimed ones)."""
         return cuda_event_ms(self.run, warmup=warmup, iters=iters)
+
+
+class OzakiExecutor:
+    """Resident-operand executor for the Ozaki slab engine (port of
+    `spgemm_tpu/ops/executor.py:OzakiExecutor`). The int8 slice planes,
+    the int8 occupancy slabs and the seg map stay on the device;
+    `update_values(a, b)` re-slices new f64 values for the same tile
+    pattern (the base plan and its C-tile dictionary are kept; only
+    ops/ozaki.py:slice_and_pack reruns) and uploads only the slice
+    planes. The slice counts may change with the values. `device` None
+    means CUDA."""
+
+    def __init__(self, plan: OzakiPlan, a: TileMat, b: TileMat, *,
+                 device=None):
+        if not isinstance(plan, OzakiPlan):
+            raise TypeError("OzakiExecutor wraps an OzakiPlan "
+                            "(build with build_ozaki_plan)")
+        self.plan = plan
+        self.device = resolve_device(device)
+        # pattern identity for update_values (exact arrays)
+        self._struct = (a.tm, a.tn, a.trow.copy(), b.tcol.copy(),
+                        a.tnnz_ptr.copy(), b.tnnz_ptr.copy())
+        self.shape = (a.m, b.n)
+        self._dev = list(plan.to_device(self.device))
+
+    def run(self, sync: bool = True):
+        """One numeric step; returns device (c_h, c_m, c_l, c_cnt)."""
+        out = ozaki_core(*self._dev, **self.plan.core_kwargs())
+        if sync and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return out
+
+    def assemble(self, out) -> np.ndarray:
+        """Host epilogue: the (nt_c, tm, tn) f64 values (ozaki_assemble)."""
+        return ozaki_assemble(self.plan, *out, self.shape)
+
+    def update_values(self, a: TileMat, b: TileMat) -> None:
+        """Pattern-fixed f64 value refresh: re-slice and upload the slice
+        planes only."""
+        tm0, tn0, trow0, tcol0, annz0, bnnz0 = self._struct
+        if not (a.tm == tm0 and a.tn == tn0
+                and np.array_equal(a.trow, trow0)
+                and np.array_equal(b.tcol, tcol0)
+                and np.array_equal(a.tnnz_ptr, annz0)
+                and np.array_equal(b.tnnz_ptr, bnnz0)):
+            raise ValueError(
+                "update_values requires the exact same tile structure")
+        plan = self.plan
+        (plan.a_sl, plan.b_sl, plan.ea, plan.eb, plan.sa,
+         plan.sb) = slice_and_pack(a, b, plan.base)
+        self._dev[0] = torch.from_numpy(plan.a_sl).to(self.device)
+        self._dev[1] = torch.from_numpy(plan.b_sl).to(self.device)
+
+    def time_numeric(self, *, warmup: int = 3, iters: int = 20) -> float:
+        """Median device milliseconds of one numeric step (CUDA events
+        around each step after `warmup` untimed ones)."""
+        return cuda_event_ms(lambda: self.run(sync=False), warmup=warmup,
+                             iters=iters)

@@ -1,9 +1,18 @@
-"""Strip SpGEMM planner and numeric launcher (port of the strip half of
-`spgemm_tpu/ops/gustavson.py:256-714`).
+"""Gustavson-by-k slab route and the strip SpGEMM planner and numeric
+launcher (port of `spgemm_tpu/ops/gustavson.py`).
 
-The plan is built on the host exactly as the JAX package builds it (same
-native symbolic, same packing, same windowed-B decision rule), so the two
-packages run from identical plans. What differs:
+The slab route (`GustavsonPlan`, `gustavson_numeric`, the "gustavson"
+backend) groups tile pairs by the inner tile index k: A's tiles of
+column k stacked vertically, B's tiles of row k horizontally, so every
+pair product of one k is one dense matmul. The plan is NumPy, array for
+array the JAX package's; the numeric step is torch ops: one `bmm` for
+the values and one for the 0/1 counts, a permute to pair order and one
+`index_add_` into the C tiles (padding slots go to a sentinel tile).
+It runs any tile shape and dtype; the strip kernel does not.
+
+The strip plan is built on the host exactly as the JAX package builds it
+(same native symbolic, same packing, same windowed-B decision rule), so
+the two packages run from identical plans. What differs:
 
 * the TPU gates are gone: Mosaic 128-alignment, the SMEM slot-table and
   the VMEM scratch budgets (`gustavson.py:585-626,688-693,753-785`). The
@@ -22,6 +31,7 @@ packages run from identical plans. What differs:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -40,6 +50,203 @@ def _u16_to_bf16(u16: np.ndarray) -> torch.Tensor:
     """uint16 bfloat16 bit patterns -> torch.bfloat16 (shares memory)."""
     return torch.from_numpy(np.ascontiguousarray(u16).view(np.int16)).view(
         torch.bfloat16)
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """f32 matmuls on CUDA run in full FP32 inside the block, never TF32,
+    whatever the caller switched on globally: the JAX package multiplies
+    at Precision.HIGHEST. The caller's setting is restored on exit."""
+    mm = torch.backends.cuda.matmul
+    prev = mm.fp32_precision
+    mm.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        mm.fp32_precision = prev
+
+
+def product_dtype(dtype: torch.dtype, acc_dtype) -> torch.dtype:
+    """dtype a product of `dtype` operands is computed in so that it can
+    be accumulated in `acc_dtype` (None: the operands' own): the wider
+    of the two, as a matmul with preferred_element_type=acc_dtype."""
+    return torch.promote_types(dtype, acc_dtype or dtype)
+
+
+# --- slab route (backend "gustavson") ---------------------------------------
+
+@dataclasses.dataclass
+class GustavsonPlan:
+    """Host plan of the slab route: padded k-group slabs and the scatter
+    segment map."""
+
+    gk: int              # inner grid dimension (A tile-cols == B tile-rows)
+    max_a: int           # max A tiles in any column k
+    max_b: int           # max B tiles in any row k
+    tm: int
+    tk: int
+    tn: int
+    nt_c: int            # candidate C tiles
+    ctrow: np.ndarray    # (nt_c,)
+    ctcol: np.ndarray
+    num_pairs: int
+    a3_val: np.ndarray | None  # (gk, max_a*tm, tk) stacked A slabs
+    a3_occ: np.ndarray | None  # (None if built with a_slabs=False)
+    b3_val: np.ndarray | None  # (gk, tk, max_b*tn) stacked B slabs
+    b3_occ: np.ndarray
+    seg: np.ndarray      # (gk*max_a*max_b,) int32; padding -> nt_c
+    dtype: np.dtype = np.float32
+    prep_ms: float = 0.0       # slab layout build
+    symbolic_ms: float = 0.0   # pair expansion + C-tile dictionary
+
+    def padding_ratio(self) -> float:
+        """Padded pair slots / real pairs (1.0 = no waste)."""
+        return (self.gk * self.max_a * self.max_b) / max(1, self.num_pairs)
+
+    @classmethod
+    def from_numpy(cls, fields: dict) -> "GustavsonPlan":
+        """Port plan from the JAX package's GustavsonPlan fields given as
+        NumPy arrays (e.g. dataclasses.asdict of a spgemm_tpu plan)."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in fields.items() if k in names})
+
+    def to_device(self, device) -> tuple[torch.Tensor, ...]:
+        """(a3_val, a3_occ, b3_val, b3_occ, seg) on `device`, in the
+        argument order of gustavson_numeric."""
+        return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                     for x in (self.a3_val, self.a3_occ, self.b3_val,
+                               self.b3_occ, self.seg))
+
+    def numeric_kwargs(self) -> dict:
+        return dict(gk=self.gk, max_a=self.max_a, max_b=self.max_b,
+                    tm=self.tm, tn=self.tn, nt_c=self.nt_c)
+
+
+def build_gustavson_plan(a: TileMat, b: TileMat, dtype=np.float32,
+                         a_slabs: bool = True,
+                         values: bool = True) -> GustavsonPlan:
+    """Build the k-group slab plan. With a_slabs=False the stacked A slabs
+    are skipped; with values=False only the occupancy slabs are packed
+    (the Ozaki slab engine brings its own int8 slice planes, and casting
+    wide-exponent f64 values to f32 would overflow for nothing)."""
+    if a.n != b.m:
+        raise ValueError(f"dimension mismatch: {a.shape} @ {b.shape}")
+    if a.tn != b.tm:
+        raise ValueError(
+            f"inner tile dims must match: A is {a.tm}x{a.tn}, B is {b.tm}x{b.tn}")
+    gk = a.gn
+    tm, tk, tn = a.tm, a.tn, b.tn
+    c_gn = b.gn
+
+    t_prep = time.perf_counter()
+    acsc_ptr, acsc_perm = a.csc_view()
+    bptr = b.tptr.astype(np.int64)
+    cnt_a = np.diff(acsc_ptr).astype(np.int64)
+    cnt_b = np.diff(bptr)
+    max_a = max(1, int(cnt_a.max()) if a.nt else 1)
+    max_b = max(1, int(cnt_b.max()) if b.nt else 1)
+
+    a3_val = a3_occ = b3_val = None
+    if a_slabs:
+        # A slot of the r-th tile of column k (csc order): k*max_a + rank
+        rank_a = np.arange(a.nt, dtype=np.int64) - np.repeat(
+            acsc_ptr[:-1].astype(np.int64), cnt_a)
+        slot_a = np.repeat(np.arange(gk, dtype=np.int64), cnt_a) * max_a \
+            + rank_a
+        a3_occ = np.zeros((gk * max_a, tm, tk), dtype=dtype)
+        a3_occ[slot_a] = a.occ()[acsc_perm]
+        a3_occ = a3_occ.reshape(gk, max_a * tm, tk)
+        if values:
+            a3_val = np.zeros((gk * max_a, tm, tk), dtype=dtype)
+            a3_val[slot_a] = a.dense(dtype)[acsc_perm]
+            a3_val = a3_val.reshape(gk, max_a * tm, tk)
+
+    rank_b = np.arange(b.nt, dtype=np.int64) - np.repeat(bptr[:-1], cnt_b)
+    slot_b = np.repeat(np.arange(gk, dtype=np.int64), cnt_b) * max_b + rank_b
+
+    def hstack(tiles):  # (nt_b, tk, tn) -> (gk, tk, max_b*tn)
+        out = np.zeros((gk * max_b, tk, tn), dtype=dtype)
+        out[slot_b] = tiles
+        return out.reshape(gk, max_b, tk, tn).transpose(0, 2, 1, 3).reshape(
+            gk, tk, max_b * tn)
+
+    b3_occ = hstack(b.occ())
+    if values:
+        b3_val = hstack(b.dense(dtype))
+    prep_ms = (time.perf_counter() - t_prep) * 1e3
+
+    # pair expansion + C tile dictionary (the symbolic step)
+    t_sym = time.perf_counter()
+    pairs_per_k = cnt_a * cnt_b
+    total = int(pairs_per_k.sum())
+    plan = GustavsonPlan(
+        gk=gk, max_a=max_a, max_b=max_b, tm=tm, tk=tk, tn=tn, nt_c=0,
+        ctrow=np.zeros(0, INDEX_DTYPE), ctcol=np.zeros(0, INDEX_DTYPE),
+        num_pairs=total, a3_val=a3_val, a3_occ=a3_occ, b3_val=b3_val,
+        b3_occ=b3_occ, seg=np.zeros(gk * max_a * max_b, INDEX_DTYPE),
+        dtype=np.dtype(dtype), prep_ms=prep_ms)
+    if total == 0:
+        return plan
+    kk = np.repeat(np.arange(gk, dtype=np.int64), pairs_per_k)
+    off = np.arange(total, dtype=np.int64) - np.repeat(
+        np.cumsum(pairs_per_k) - pairs_per_k, pairs_per_k)
+    x = off // cnt_b[kk]
+    y = off % cnt_b[kk]
+    ia = acsc_perm[acsc_ptr[kk] + x]
+    ib = bptr[kk] + y
+    ckey = a.trow[ia].astype(np.int64) * c_gn + b.tcol[ib]
+    ukey = np.unique(ckey)
+    plan.nt_c = ukey.size
+    plan.seg = np.full(gk * max_a * max_b, plan.nt_c, dtype=INDEX_DTYPE)
+    plan.seg[(kk * max_a + x) * max_b + y] = np.searchsorted(ukey, ckey)
+    plan.ctrow = (ukey // c_gn).astype(INDEX_DTYPE)
+    plan.ctcol = (ukey % c_gn).astype(INDEX_DTYPE)
+    plan.symbolic_ms = (time.perf_counter() - t_sym) * 1e3
+    return plan
+
+
+def to_pairs(p: torch.Tensor, gk: int, max_a: int, max_b: int, tm: int,
+             tn: int) -> torch.Tensor:
+    """(gk, max_a*tm, max_b*tn) slab products -> a (gk, max_a, max_b, tm,
+    tn) view: pair (k, x, y) is A tile x times B tile y of group k."""
+    return p.view(gk, max_a, tm, max_b, tn).permute(0, 1, 3, 2, 4)
+
+
+def gustavson_core(a3_val, a3_occ, b3_val, b3_occ, seg, *, gk: int,
+                   max_a: int, max_b: int, tm: int, tn: int, nt_c: int,
+                   acc_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The slab step as torch ops: one `bmm` (gk, max_a*tm, tk) x (gk, tk,
+    max_b*tn) for the values and one for the counts, each permuted to
+    pair order straight into one (2*P, tm, tn) buffer (counts at segment
+    seg + nt_c + 1), then one `index_add_` into (2*(nt_c+1), tm, tn).
+    Products run in full FP32 (full_fp32) or the operands' wider dtype."""
+    acc = acc_dtype or a3_val.dtype
+    mm = product_dtype(a3_val.dtype, acc)
+    n_slots = gk * max_a * max_b
+    dev = a3_val.device
+    pairs = torch.empty(2 * n_slots, tm, tn, dtype=acc, device=dev)
+    with full_fp32():
+        for half, (x, y) in enumerate(((a3_val, b3_val), (a3_occ, b3_occ))):
+            prod = torch.bmm(x.to(mm), y.to(mm))
+            pairs[half * n_slots:(half + 1) * n_slots].view(
+                gk, max_a, max_b, tm, tn).copy_(
+                    to_pairs(prod, gk, max_a, max_b, tm, tn))
+            del prod
+    stride = nt_c + 1
+    seg = seg.long()
+    c = torch.zeros(2 * stride, tm, tn, dtype=acc, device=dev)
+    c.index_add_(0, torch.cat([seg, seg + stride]), pairs)
+    return c[:nt_c], c[stride:stride + nt_c]
+
+
+# the JAX package's jitted entry point and its traceable core are one
+# function here
+gustavson_numeric = gustavson_core
+
+
+class WindowInfeasible(ValueError):
+    """build_strip_args(window=True) found no windowed plan: some block's
+    B k-span is too wide (an arrow pattern)."""
 
 
 @dataclasses.dataclass
@@ -301,7 +508,7 @@ def build_strip_args(a: TileMat, b: TileMat, block_rows: int = 32,
                 b_val = np.pad(b_val, pad)
                 b_occ = np.pad(b_occ, pad)
         elif window:
-            raise ValueError(
+            raise WindowInfeasible(
                 f"windowed strip plan infeasible: {nb_blocks} blocks x k span "
                 f"{span} exceeds 2*gk+16 = {2 * gk + 16} slab fetches")
 

@@ -11,13 +11,17 @@ structural counts in the same pass:
 
 The counts are read only as > 0, so C's pattern is exact even where sums
 cancel. Values accumulate in the operands' dtype (float32 or float64);
-counts in float32.
+counts in float32. acc_dtype changes the value accumulator, as the JAX
+package's preferred_element_type does; f32 products run in full FP32,
+never TF32 (the JAX package's Precision.HIGHEST).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from spgemm_tpu_torch.ops.gustavson import full_fp32, product_dtype
 
 
 def _pair_matmuls(a_val, a_occ, b_val, b_occ):
@@ -27,9 +31,9 @@ def _pair_matmuls(a_val, a_occ, b_val, b_occ):
 
 
 def pair_accumulate(a_val, a_occ, b_val, b_occ, pa, pb, seg, *,
-                    num_segments: int, chunk: int = 32768):
+                    num_segments: int, chunk: int = 32768, acc_dtype=None):
     """Returns (c_val, c_cnt), each (num_segments, tm, tn): c_val in
-    a_val's dtype, c_cnt float32.
+    acc_dtype (None: a_val's dtype), c_cnt float32.
 
     a_val (ntA, tm, tk) and b_val (ntB, tk, tn) are dense tiles, a_occ and
     b_occ their 0/1 occupancy (float32 or bfloat16: the counts are summed
@@ -40,17 +44,20 @@ def pair_accumulate(a_val, a_occ, b_val, b_occ, pa, pb, seg, *,
     tm = a_val.shape[1]
     tn = b_val.shape[2]
     dev = a_val.device
-    c_val = torch.zeros(num_segments + 1, tm, tn, dtype=a_val.dtype,
-                        device=dev)
+    acc = acc_dtype or a_val.dtype
+    mm = product_dtype(a_val.dtype, acc)
+    a_val, b_val = a_val.to(mm), b_val.to(mm)
+    c_val = torch.zeros(num_segments + 1, tm, tn, dtype=acc, device=dev)
     c_cnt = torch.zeros(num_segments + 1, tm, tn, dtype=torch.float32,
                         device=dev)
     for lo in range(0, pa.shape[0], chunk):
         pac = pa[lo : lo + chunk].long()
         pbc = pb[lo : lo + chunk].long()
         segc = seg[lo : lo + chunk].long()
-        prod, cnt = _pair_matmuls(a_val[pac], a_occ[pac], b_val[pbc],
-                                  b_occ[pbc])
-        c_val.index_add_(0, segc, prod)
+        with full_fp32():
+            prod, cnt = _pair_matmuls(a_val[pac], a_occ[pac], b_val[pbc],
+                                      b_occ[pbc])
+        c_val.index_add_(0, segc, prod.to(acc))
         c_cnt.index_add_(0, segc, cnt)
     return c_val[:-1], c_cnt[:-1]
 

@@ -1,5 +1,5 @@
 """Ozaki-slice f64 SpGEMM for structured patterns: the fused strip route
-(port of `spgemm_tpu/ops/ozaki.py:58-372,533-557,664-985`).
+and the slab engine (port of `spgemm_tpu/ops/ozaki.py`).
 
 Each f64 value is split into S signed 7-bit integer slices against a
 per-row (A) or per-column (B) power-of-two scale,
@@ -14,19 +14,30 @@ triple float (h, m, l) per C element, and the host applies the
 2^(Ea_r + Eb_c - 14) scales in f64 on the kept nonzeros only. S adapts
 to the data: small integers need S = 1, general doubles S = 8.
 
-The plan is the JAX package's, array for array: the same scales, spans
+The plans are the JAX package's, array for array: the same scales, spans
 and slices (the shared native passes in native/csr2tile.cpp, with the
 dense-cube NumPy path as the fallback), the same windowed strip geometry
-(ops/gustavson.py:build_strip_args) and the same av8/bv8 layouts. What
-differs:
+(ops/gustavson.py:build_strip_args) and the same av8/bv8 layouts.
 
-* the TPU kernel's VMEM budget loop over block_rows is gone: the plan
-  takes block_rows=32 unless the caller passes one;
-* where the windowed geometry is infeasible the JAX package falls back to
-  its XLA slab engine, which is not ported: the port raises
-  NotImplementedError naming its ROADMAP.md item;
-* the TPU A/B knobs (SPGEMM_OZAKI_KERNEL, SPGEMM_OZAKI_PMAX) are not
-  carried; the production default runs.
+The slab engine (`OzakiPlan`, `ozaki_core`) runs the same arithmetic as
+torch ops on the Gustavson slab plan: per pair group, each slice-pair
+slab product as an f32 `bmm` of the int8 planes widened to f32 (exact:
+every partial sum is at most tk * 127^2 < 2^24, gated at tk <= 1040),
+cast to int32 and summed, one int32 `index_add_` into the C tiles, and
+the triple-float TwoSum combine as eager elementwise ops. `spgemm_ozaki`
+takes it where the strip kernel cannot run: a pattern with no windowed
+strip plan (an arrow), or, on CUDA, tiles the kernel has no
+instantiation for (TileSpGEMM's 16x16 among them). What differs from the
+JAX package:
+
+* the TPU kernel's VMEM budget loop over block_rows is gone: the strip
+  plan takes block_rows=32 unless the caller passes one;
+* the JAX package retries on the slab engine after any strip-route
+  ValueError but OzakiOverflow; the port decides before any launch, on
+  the two causes above. Non-finite values and operands that do not chain
+  raise ValueError in both engines, so the caller sees the same result;
+* the TPU A/B knobs (SPGEMM_OZAKI_KERNEL, SPGEMM_OZAKI_PMAX,
+  SPGEMM_OZAKI_COMBINE) are not carried; the production default runs.
 """
 
 from __future__ import annotations
@@ -41,11 +52,17 @@ from spgemm_tpu_torch.models.csr import INDEX_DTYPE
 from spgemm_tpu_torch.models.tile import TileMat, _build_tilemat, cdiv
 from spgemm_tpu_torch.ops import ozaki_kernels
 from spgemm_tpu_torch.ops.esc import _sync
-from spgemm_tpu_torch.ops.gustavson import StripArgs, _u16_to_bf16
+from spgemm_tpu_torch.ops.gustavson import (GustavsonPlan, StripArgs,
+                                            WindowInfeasible, _u16_to_bf16,
+                                            build_gustavson_plan, full_fp32,
+                                            to_pairs)
 from spgemm_tpu_torch.ops.ozaki_kernels import MAX_SLICES
-from spgemm_tpu_torch.utils.timing import resolve_device
+from spgemm_tpu_torch.utils.timing import cuda_event_ms, resolve_device
 
 _INT32_HEADROOM = 2     # require bound * HEADROOM < 2^31
+# the slab engine's f32 slice products are exact while one product's sum,
+# at most tk * 127^2, stays below 2^24
+_F32_EXACT = 2 ** 24
 
 
 class OzakiOverflow(ValueError):
@@ -53,12 +70,6 @@ class OzakiOverflow(ValueError):
     problem (too many products per C element for the slice width), or
     the data's span calls for per-product accuracy. The auto router then
     runs the double-double scan route."""
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to spgemm_tpu_torch yet (ROADMAP.md, "
-        f"Queue 1: {item})")
 
 
 # --- host-side value model --------------------------------------------------
@@ -107,6 +118,17 @@ def _check_int32_bound(max_pairs: int, tk: int, sa: int, sb: int) -> None:
             f"int32 bound {bound:.3g} (pairs/tile={max_pairs}, tk={tk}, "
             f"g={min(sa, sb)}) too close to 2^31: use the double-double "
             "scan route for this problem")
+
+
+def _check_f32_products(tk: int) -> None:
+    """The slab engine multiplies int8 slices as f32: exact only while
+    tk * 127^2 < 2^24, i.e. tk <= 1040."""
+    if tk * 127 * 127 >= _F32_EXACT:
+        raise OzakiOverflow(
+            f"tk={tk}: one int8 slice product sums up to tk*127^2 = "
+            f"{tk * 127 * 127} >= 2^24, past what the slab engine's f32 "
+            "products hold exactly (tk <= 1040); use the double-double "
+            "scan route")
 
 
 def _exponents(absmax: np.ndarray) -> np.ndarray:
@@ -199,7 +221,7 @@ def _scales_spans_native(a: TileMat, b: TileMat, *, strict: bool = False):
     return ea, eb, sa, sb, span
 
 
-# --- plan --------------------------------------------------------------------
+# --- fused strip route: plan ---------------------------------------------------
 
 @dataclasses.dataclass
 class OzakiStripPlan:
@@ -281,10 +303,9 @@ def build_ozaki_strip(a: TileMat, b: TileMat, *,
                       block_rows: int | None = None) -> OzakiStripPlan:
     """Build the fused-kernel plan. Raises OzakiOverflow when the int32
     bound or the strict extreme-span check fails (the auto router then
-    runs the double-double scan), NotImplementedError when the windowed
-    strip geometry is infeasible (the JAX package's XLA slab engine takes
-    those; it is not ported), ValueError on mismatched operands or
-    non-finite values."""
+    runs the double-double scan), WindowInfeasible when the windowed strip
+    geometry is infeasible (spgemm_ozaki then runs the slab engine),
+    ValueError on mismatched operands or non-finite values."""
     from spgemm_tpu_torch.ops.gustavson import build_strip_args
     from spgemm_tpu_torch.utils.native import (ozaki_slice_a_native,
                                                ozaki_slice_b_native)
@@ -315,12 +336,7 @@ def build_ozaki_strip(a: TileMat, b: TileMat, *,
     _check_int32_bound(_max_pairs_per_ctile(a, b), tk, sa, sb)
 
     stack_rows = max(32, sa * tm)  # the TPU's int8 sublane tile, kept
-    try:
-        sargs = build_strip_args(a, b, block_rows=block_rows or 32,
-                                 window=True)
-    except ValueError as ex:  # operands chain: only the window can fail
-        raise _not_ported(f"the Ozaki route on this pattern ({ex})",
-                          "f64: XLA slab engine") from ex
+    sargs = build_strip_args(a, b, block_rows=block_rows or 32, window=True)
 
     nt_pad = a.nt + sargs.max_ablock
     av8 = np.zeros((nt_pad, stack_rows, tk), np.int8)
@@ -356,19 +372,18 @@ def build_ozaki_strip(a: TileMat, b: TileMat, *,
         symbolic_ms=sargs.symbolic_ms)
 
 
-# --- numeric step and epilogue -----------------------------------------------
+# --- fused strip route: numeric step and epilogue -------------------------------
 
-def check_ozaki_tiles(tm: int, tn: int, device: torch.device) -> None:
-    """Raise NotImplementedError if the CUDA kernel has no instantiation
-    for these tiles (no-op on the CPU, whose plain version takes any)."""
-    if device.type == "cuda" and (tm, tn) not in ozaki_kernels.OZAKI_TILES:
-        raise _not_ported(
-            f"the Ozaki route at {tm}x{tn} tiles on CUDA (its kernel takes "
-            f"(tm, tn) in {ozaki_kernels.OZAKI_TILES})",
-            "f64: Ozaki kernel tiles")
+def strip_kernel_takes(tm: int, tk: int, tn: int,
+                       device: torch.device) -> bool:
+    """True where the fused strip route can run these tiles: any on the
+    CPU (the plain version), the kernel's instantiations on CUDA."""
+    return device.type != "cuda" or (
+        (tm, tn) in ozaki_kernels.OZAKI_TILES and tk % 16 == 0)
 
 
-def ozaki_strip_numeric(plan: OzakiStripPlan, device=None):
+def ozaki_strip_numeric(plan: OzakiStripPlan, device=None,
+                        sync: bool = True):
     """Upload the plan and run the fused kernel (ops/ozaki_kernels.py:
     ozaki_strip_numeric) on `device` (None means CUDA); gather the
     candidate tiles out of the block-padded layout on the device.
@@ -384,7 +399,8 @@ def ozaki_strip_numeric(plan: OzakiStripPlan, device=None):
     t0 = time.perf_counter()
     planes = ozaki_kernels.ozaki_strip_numeric(*ops, **plan.kernel_kwargs())
     out = tuple(p.index_select(0, gidx) for p in planes)
-    _sync(device)
+    if sync:
+        _sync(device)
     timings["numeric_ms"] = (time.perf_counter() - t0) * 1e3
     return out, timings
 
@@ -421,32 +437,28 @@ def _ozaki_compact_arrays(ctrow, ctcol, tm, tn, ea, eb,
         rc=rcflat.astype(INDEX_DTYPE), val=vals, gm=gm, gn=gn)
 
 
+def _host(planes) -> tuple[np.ndarray, ...]:
+    """Device (or host) tensors -> NumPy arrays on the host."""
+    return tuple(np.asarray(p.cpu()) if isinstance(p, torch.Tensor)
+                 else np.asarray(p) for p in planes)
+
+
 def ozaki_strip_compact(plan: OzakiStripPlan, c_h, c_m, c_l, c_cnt,
                         shape: tuple[int, int]) -> TileMat:
     """Download the candidate-order planes and run the host epilogue."""
     s = plan.sargs
-    h, m, l, c = (t.cpu().numpy() for t in (c_h, c_m, c_l, c_cnt))
-    return _ozaki_compact_arrays(s.ctrow, s.ctcol, s.tm, s.tn,
-                                 plan.ea, plan.eb, h, m, l, c, shape)
+    return _ozaki_compact_arrays(s.ctrow, s.ctcol, s.tm, s.tn, plan.ea,
+                                 plan.eb, *_host((c_h, c_m, c_l, c_cnt)),
+                                 shape)
 
 
-# --- entry point -------------------------------------------------------------
-
-def spgemm_ozaki(a: TileMat, b: TileMat, *, device=None,
-                 strict: bool = False):
-    """Full f64 multiply C = A @ B through the Ozaki-slice fused strip
-    kernel on `device` (None means CUDA); returns a SpGEMMResult (TileMat
-    C, f64 values) shaped like the other tiled routes. Raises
-    OzakiOverflow when the int32 accumulation bound fails (or, with
-    strict, on extreme multi-scale data): callers then run the
-    double-double scan route. Raises NotImplementedError where the JAX
-    package would fall back to its XLA slab engine. (The JAX package's
-    spgemm_ozaki and _spgemm_ozaki_strip in one: the slab fallback
-    between them is not ported.)"""
+def _spgemm_ozaki_strip(a: TileMat, b: TileMat, *, device, sync: bool,
+                        strict: bool, note: str):
+    """spgemm_ozaki through the fused strip kernel. Raises
+    WindowInfeasible before any launch where the pattern has no windowed
+    plan."""
     from spgemm_tpu_torch.ops.spgemm import SpGEMMResult
 
-    device = resolve_device(device)
-    check_ozaki_tiles(a.tm, b.tn, device)
     timings: dict[str, float] = {}
     t0 = time.perf_counter()
     plan = build_ozaki_strip(a, b, strict=strict)
@@ -454,7 +466,8 @@ def spgemm_ozaki(a: TileMat, b: TileMat, *, device=None,
     timings["prep_ms"] = max(
         0.0, (time.perf_counter() - t0) * 1e3 - plan.symbolic_ms)
 
-    (c_h, c_m, c_l, c_cnt), t_num = ozaki_strip_numeric(plan, device=device)
+    (c_h, c_m, c_l, c_cnt), t_num = ozaki_strip_numeric(plan, device=device,
+                                                        sync=sync)
     timings.update(t_num)
 
     t0 = time.perf_counter()
@@ -467,7 +480,351 @@ def spgemm_ozaki(a: TileMat, b: TileMat, *, device=None,
         "numblkC_candidate": float(s.nt_c),
         "numblkC": float(c.nt),
         "nnzC": float(c.nnz),
-        "backend": f"ozaki-strip(S={plan.sa}x{plan.sb})",
+        "backend": f"ozaki-strip(S={plan.sa}x{plan.sb})"
+                   + (f"({note})" if note else ""),
+        "slices": float(plan.sa * plan.sb),
+    }
+    return SpGEMMResult(c=c, schedule=plan, timings_ms=timings, stats=stats)
+
+
+# --- slab engine: plan -----------------------------------------------------------
+
+@dataclasses.dataclass
+class OzakiPlan:
+    """Plan of the slab engine: the Gustavson slab geometry carrying int8
+    slice planes."""
+
+    base: GustavsonPlan          # geometry + C-tile dictionary
+    a_occ: np.ndarray            # (gk, max_a*tm, tk) int8 0/1 occupancy
+    b_occ: np.ndarray            # (gk, tk, max_b*tn) int8
+    a_sl: np.ndarray             # (Sa, gk, max_a*tm, tk) int8
+    b_sl: np.ndarray             # (Sb, gk, tk, max_b*tn) int8
+    ea: np.ndarray               # (gm*tm,) int64 per-row scale exponents
+    eb: np.ndarray               # (gn*tn,) int64 per-col scale exponents
+    perm: np.ndarray             # (n_slots,) int32 pair order sorted by seg
+    bounds: np.ndarray           # (nt_c+1,) int32 segment bounds in perm
+    sa: int
+    sb: int
+    prep_ms: float = 0.0
+    symbolic_ms: float = 0.0
+
+    @property
+    def num_pairs(self) -> int:
+        return self.base.num_pairs
+
+    @property
+    def ctrow(self):
+        return self.base.ctrow
+
+    @property
+    def ctcol(self):
+        return self.base.ctcol
+
+    @property
+    def nt_c(self) -> int:
+        return self.base.nt_c
+
+    def padding_ratio(self) -> float:
+        return self.base.padding_ratio()
+
+    @classmethod
+    def from_numpy(cls, fields: dict) -> "OzakiPlan":
+        """Port plan from the JAX package's OzakiPlan fields given as NumPy
+        arrays (e.g. {f.name: getattr(plan, f.name)} of a spgemm_tpu
+        plan); `base`, the JAX GustavsonPlan, goes through
+        GustavsonPlan.from_numpy."""
+        base = fields["base"]
+        names = {f.name for f in dataclasses.fields(cls)} - {"base"}
+        return cls(base=GustavsonPlan.from_numpy(
+            {f.name: getattr(base, f.name)
+             for f in dataclasses.fields(base)}),
+            **{k: v for k, v in fields.items() if k in names})
+
+    def to_device(self, device) -> tuple[torch.Tensor, ...]:
+        """(a_sl, b_sl, a_occ, b_occ, seg) on `device`, in the argument
+        order of ozaki_core."""
+        return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                     for x in (self.a_sl, self.b_sl, self.a_occ, self.b_occ,
+                               self.base.seg))
+
+    def core_kwargs(self) -> dict:
+        return dict(self.base.numeric_kwargs(), sa=self.sa, sb=self.sb)
+
+
+def build_ozaki_plan(a: TileMat, b: TileMat,
+                     strict: bool = False) -> OzakiPlan:
+    """Slice the f64 tile values and pack them into the Gustavson slab
+    layout (the base plan's slot formulas, occupancy slabs and C-tile
+    dictionary). Raises OzakiOverflow when the occupancy slabs, slab or
+    slice bytes are past their budgets, the int32 accumulation bound
+    cannot be guaranteed, or tk > 1040 (the f32 slice products' bound)."""
+    # cheap tile-pointer feasibility before the base plan builds its occ
+    # slabs (pathological k-column skew can blow gk*max_a padding)
+    acsc_ptr, _ = a.csc_view()
+    max_a0 = max(1, int(np.diff(acsc_ptr).max())) if a.nt else 1
+    max_b0 = max(1, int(np.diff(b.tptr).max())) if b.nt else 1
+    occ_bytes = a.gn * (max_a0 * a.tm * a.tn + max_b0 * b.tm * b.tn) * 4
+    if occ_bytes > (4 << 30):
+        raise OzakiOverflow(
+            f"k-group padding explodes (occ slabs {occ_bytes/1e9:.1f} GB): "
+            "unstructured pattern; use the double-double scan route")
+    base = build_gustavson_plan(a, b, dtype=np.float32, values=False)
+
+    t_prep = time.perf_counter()
+    a_sl, b_sl, ea, eb, sa, sb = slice_and_pack(a, b, base, strict=strict)
+    # int8 occupancy: the count products are exact and the upload 4x
+    # smaller than f32 slabs
+    a_occ = base.a3_occ.astype(np.int8)
+    b_occ = base.b3_occ.astype(np.int8)
+    base.a3_occ = base.b3_occ = None
+    # the pair order sorted by destination segment and its boundaries
+    # (padding pairs sort past bounds[nt_c]): the JAX package's
+    # scatter-free combine runs on them; kept so both plans hold the same
+    # arrays
+    perm = np.argsort(base.seg, kind="stable").astype(np.int32)
+    bounds = np.searchsorted(
+        base.seg[perm], np.arange(base.nt_c + 1)).astype(np.int32)
+
+    prep_ms = (time.perf_counter() - t_prep) * 1e3
+    return OzakiPlan(
+        base=base, a_occ=a_occ, b_occ=b_occ, a_sl=a_sl, b_sl=b_sl,
+        ea=ea, eb=eb, perm=perm, bounds=bounds, sa=sa, sb=sb,
+        prep_ms=prep_ms + base.prep_ms, symbolic_ms=base.symbolic_ms)
+
+
+def slice_and_pack(a: TileMat, b: TileMat, base: GustavsonPlan,
+                   strict: bool = False):
+    """Value-dependent half of the plan build: scales, adaptive slice
+    counts, int8 slicing, slab packing and the feasibility checks; also
+    OzakiExecutor.update_values' refresh. Returns (a_sl, b_sl, ea, eb,
+    sa, sb)."""
+    gk, max_a, max_b = base.gk, base.max_a, base.max_b
+    tm, tk, tn = base.tm, base.tk, base.tn
+
+    _check_f32_products(tk)
+    # geometry-only feasibility first, before the f64 dense tile cubes
+    slab_bytes = gk * max_a * max_b * tm * tn * 4
+    dense_bytes = (a.nt * tm * tk + b.nt * tk * tn) * 8
+    slice_ub = MAX_SLICES * (gk * max_a * tm * tk + gk * max_b * tk * tn)
+    if (slab_bytes > (4 << 30) or dense_bytes > (4 << 30)
+            or slice_ub > (8 << 30)):
+        raise OzakiOverflow(
+            f"slab padding explodes (pair buffer {slab_bytes/1e9:.1f} GB, "
+            f"dense cubes {dense_bytes/1e9:.1f} GB): unstructured pattern; "
+            "use the double-double scan route")
+
+    ad, bd, ea, eb, sa, sb, _span = _scales_and_slices_prep(
+        a, b, strict=strict)
+
+    # int32 accumulation bound (per C element, per pair group)
+    seg_real = base.seg[base.seg < base.nt_c]
+    max_pairs = int(np.bincount(seg_real).max()) if seg_real.size else 1
+    _check_int32_bound(max_pairs, tk, sa, sb)
+    exp_a = ea.reshape(a.gm, tm)[a.trow.astype(np.int64)][:, :, None]
+    exp_b = eb.reshape(b.gn, tn)[b.tcol.astype(np.int64)][:, None, :]
+    a_slices = _slice_int8(ad, exp_a, sa)                   # (Sa, nt, tm, tk)
+    b_slices = _slice_int8(bd, exp_b, sb)                   # (Sb, nt, tk, tn)
+
+    # the slab layout, with build_gustavson_plan's slot formulas
+    acsc_ptr, acsc_perm = a.csc_view()
+    cnt_a = np.diff(acsc_ptr).astype(np.int64)
+    rank_a = np.arange(a.nt, dtype=np.int64) - np.repeat(
+        acsc_ptr[:-1].astype(np.int64), cnt_a)
+    slot_a = np.repeat(np.arange(gk, dtype=np.int64), cnt_a) * max_a + rank_a
+    a_sl = np.zeros((sa, gk * max_a, tm, tk), np.int8)
+    a_sl[:, slot_a] = a_slices[:, acsc_perm]
+    a_sl = a_sl.reshape(sa, gk, max_a * tm, tk)
+
+    bptr = b.tptr.astype(np.int64)
+    cnt_b = np.diff(bptr)
+    rank_b = np.arange(b.nt, dtype=np.int64) - np.repeat(bptr[:-1], cnt_b)
+    slot_b = np.repeat(np.arange(gk, dtype=np.int64), cnt_b) * max_b + rank_b
+    b_pack = np.zeros((sb, gk * max_b, tk, tn), np.int8)
+    b_pack[:, slot_b] = b_slices
+    b_sl = np.ascontiguousarray(b_pack.reshape(sb, gk, max_b, tk, tn)
+                                .transpose(0, 1, 3, 2, 4)
+                                .reshape(sb, gk, tk, max_b * tn))
+    return a_sl, b_sl, ea, eb, sa, sb
+
+
+# --- slab engine: numeric step and epilogue -----------------------------------
+
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)
+    return s, err
+
+
+def _acc3(h, m, l, x):
+    """Add the exact f32 term x into the triple-float accumulator
+    (h, m, l) by cascaded TwoSum: only l's own sum rounds, so the triple
+    carries ~70 significand bits and every <= 53-bit result reconstructs
+    exactly in f64. Eager elementwise ops, one kernel each: nothing may
+    fuse them into FMAs or reorder them, or TwoSum stops being exact."""
+    h, e = _two_sum(h, x)
+    m, e2 = _two_sum(m, e)
+    return h, m, l + e2
+
+
+def ozaki_core(a_sl, b_sl, a3_occ, b3_occ, seg, *, gk: int, max_a: int,
+               max_b: int, tm: int, tn: int, nt_c: int, sa: int, sb: int):
+    """The slab engine on the operands' device: for each pair group
+    p = s + t, the Sa*Sb slice-pair slab products as f32 `bmm`s of the
+    int8 planes widened to f32 (exact, see _check_f32_products), cast to
+    int32 and summed, one int32 `index_add_` into the C tiles, then the
+    triple-float combine. Returns (c_h, c_m, c_l, c_cnt), each (nt_c, tm,
+    tn): (h, m, l) f32 are the unscaled sums sum_p M_p * 2^(-7p) (the
+    host applies the 2^(Ea_r + Eb_c - 14) scales in f64), c_cnt int32."""
+    dev = a_sl.device
+    stride = nt_c + 1
+    seg = seg.long()
+
+    def seg_sum(prod):  # int32 slab products -> per-C-tile int32 sums
+        acc = torch.zeros(stride, tm, tn, dtype=torch.int32, device=dev)
+        acc.index_add_(0, seg, to_pairs(prod, gk, max_a, max_b, tm, tn)
+                       .reshape(-1, tm, tn))
+        return acc[:nt_c]
+
+    c_h = torch.zeros(nt_c, tm, tn, dtype=torch.float32, device=dev)
+    c_m = torch.zeros_like(c_h)
+    c_l = torch.zeros_like(c_h)
+    with full_fp32():
+        af = a_sl.to(torch.float32)
+        bf = b_sl.to(torch.float32)
+        for p in range(sa + sb - 1):
+            m = None
+            for s in range(max(0, p - sb + 1), min(sa - 1, p) + 1):
+                d = torch.bmm(af[s], bf[p - s]).to(torch.int32)
+                m = d if m is None else m.add_(d)
+            mp = seg_sum(m)
+            del m
+            # exact int32 -> double-float split, scaled by 2^(-7p) (exact:
+            # a power-of-two multiply), then triple-float accumulate
+            mh = mp.to(torch.float32)
+            ml = (mp - mh.to(torch.int32)).to(torch.float32)
+            scale = 2.0 ** (-7 * p)
+            c_h, c_m, c_l = _acc3(c_h, c_m, c_l, mh * scale)
+            c_h, c_m, c_l = _acc3(c_h, c_m, c_l, ml * scale)
+        del af, bf
+        cnt = seg_sum(torch.bmm(a3_occ.to(torch.float32),
+                                b3_occ.to(torch.float32)).to(torch.int32))
+    return c_h, c_m, c_l, cnt
+
+
+def ozaki_numeric(plan: OzakiPlan, device=None, sync: bool = True):
+    """Upload the plan and run ozaki_core on `device` (None means CUDA).
+    Returns device (c_h, c_m, c_l, c_cnt) and a timing dict."""
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    ops = plan.to_device(device)
+    _sync(device)
+    timings = {"upload_ms": (time.perf_counter() - t0) * 1e3}
+    t0 = time.perf_counter()
+    out = ozaki_core(*ops, **plan.core_kwargs())
+    if sync:
+        _sync(device)
+    timings["numeric_ms"] = (time.perf_counter() - t0) * 1e3
+    return out, timings
+
+
+def time_ozaki(plan: OzakiPlan, *, warmup: int = 3, iters: int = 20,
+               device=None) -> float:
+    """Median device milliseconds of one ozaki_core call on the uploaded
+    plan (CUDA events around each call after `warmup` untimed ones)."""
+    ops = plan.to_device(resolve_device(device))
+    kw = plan.core_kwargs()
+    return cuda_event_ms(lambda: ozaki_core(*ops, **kw), warmup=warmup,
+                         iters=iters)
+
+
+def ozaki_assemble(plan: OzakiPlan, c_h, c_m, c_l, c_cnt,
+                   shape: tuple[int, int]) -> np.ndarray:
+    """Host epilogue on the full candidate cube: f64 = (h + m + l) *
+    2^(Ea_r + Eb_c - 14) by np.ldexp (exact, full f64 exponent range).
+    Returns the (nt_c, tm, tn) f64 values; ozaki_compact scales only the
+    kept nonzeros."""
+    base = plan.base
+    h, m, l = _host((c_h, c_m, c_l))
+    v = h.astype(np.float64) + m + l
+    er = plan.ea.reshape(-1, base.tm)[np.asarray(base.ctrow, np.int64)]
+    ec = plan.eb.reshape(-1, base.tn)[np.asarray(base.ctcol, np.int64)]
+    return np.ldexp(v, (er[:, :, None] + ec[:, None, :] - 14).astype(np.int64))
+
+
+def ozaki_compact(plan: OzakiPlan, c_h, c_m, c_l, c_cnt,
+                  shape: tuple[int, int]) -> TileMat:
+    """Download the planes and run the host epilogue: select the
+    structural nonzeros, then scale only those (_ozaki_compact_arrays)."""
+    base = plan.base
+    return _ozaki_compact_arrays(base.ctrow, base.ctcol, base.tm, base.tn,
+                                 plan.ea, plan.eb,
+                                 *_host((c_h, c_m, c_l, c_cnt)), shape)
+
+
+# --- entry point -------------------------------------------------------------
+
+def spgemm_ozaki(a: TileMat, b: TileMat, *, device=None, sync: bool = True,
+                 strict: bool = False, note: str = ""):
+    """Full f64 multiply C = A @ B through the Ozaki-slice engine on
+    `device` (None means CUDA); returns a SpGEMMResult (TileMat C, f64
+    values) shaped like the other tiled routes. The fused strip kernel
+    runs where it can; where the pattern has no windowed strip plan or, on
+    CUDA, the kernel has no instantiation for the tiles, the slab engine
+    runs (stats["backend"] "ozaki(S=AxB)(xla-fallback)", the JAX
+    package's name). Raises OzakiOverflow when the int32 accumulation
+    bound fails (or, with strict, on extreme multi-scale data): callers
+    then run the double-double scan route."""
+    from spgemm_tpu_torch.ops.spgemm import SpGEMMResult, _compact_to_tilemat
+
+    device = resolve_device(device)
+    if a.n != b.m or a.tn != b.tm:
+        raise ValueError(f"operands do not chain: A {a.shape} in {a.tm}x"
+                         f"{a.tn} tiles, B {b.shape} in {b.tm}x{b.tn} tiles")
+    if strip_kernel_takes(a.tm, a.tn, b.tn, device):
+        try:
+            return _spgemm_ozaki_strip(a, b, device=device, sync=sync,
+                                       strict=strict, note=note)
+        except WindowInfeasible:
+            pass
+    note = (note + "+" if note else "") + "xla-fallback"
+
+    timings: dict[str, float] = {}
+    t0 = time.perf_counter()
+    plan = build_ozaki_plan(a, b, strict=strict)
+    timings["symbolic_ms"] = max(
+        0.0, (time.perf_counter() - t0) * 1e3 - plan.prep_ms)
+    timings["prep_ms"] = plan.prep_ms
+    base = plan.base
+
+    if base.nt_c == 0:
+        c = _compact_to_tilemat(
+            base.ctrow, base.ctcol, np.zeros((0, base.tm, base.tn)),
+            np.zeros((0, base.tm, base.tn), np.float32), (a.m, b.n),
+            a.tm, b.tn)
+        return SpGEMMResult(c=c, schedule=plan,
+                            timings_ms={**timings, "upload_ms": 0.0,
+                                        "numeric_ms": 0.0,
+                                        "compact_ms": 0.0},
+                            stats={"backend": "ozaki", "num_pairs": 0.0,
+                                   "numblkC_candidate": 0.0,
+                                   "numblkC": 0.0, "nnzC": 0.0})
+
+    (c_h, c_m, c_l, c_cnt), t_num = ozaki_numeric(plan, device=device,
+                                                  sync=sync)
+    timings.update(t_num)
+
+    t0 = time.perf_counter()
+    c = ozaki_compact(plan, c_h, c_m, c_l, c_cnt, (a.m, b.n))
+    timings["compact_ms"] = (time.perf_counter() - t0) * 1e3
+
+    stats = {
+        "num_pairs": float(base.num_pairs),
+        "numblkC_candidate": float(base.nt_c),
+        "numblkC": float(c.nt),
+        "nnzC": float(c.nnz),
+        "backend": f"ozaki(S={plan.sa}x{plan.sb})({note})",
+        "padding_ratio": base.padding_ratio(),
         "slices": float(plan.sa * plan.sb),
     }
     return SpGEMMResult(c=c, schedule=plan, timings_ms=timings, stats=stats)

@@ -1,5 +1,5 @@
 """The port's CLI and package boundary on the CPU: same stdout contract
-and verdict as the JAX package's CLI, unported options refused, and no
+and verdict as the JAX package's CLI, for every backend it takes, and no
 JAX loaded by `import spgemm_tpu_torch`."""
 
 import os
@@ -71,8 +71,27 @@ def test_cli_refuses_f64_and_nonsquare(mtx_file, tmp_path, make_random_csr,
     # the pair kernel is float32 only, as the JAX package's is
     assert p_main(["-d", "cpu", str(pb), "--backend", "pallas", "--dtype",
                    "f64"]) == 2
+    # the JAX CLI's backend list: an unknown name is refused by argparse
     with pytest.raises(SystemExit):
-        p_main(["-d", "cpu", mtx_file, "--backend", "gustavson"])
+        p_main(["-d", "cpu", mtx_file, "--backend", "nope"])
+
+
+@pytest.mark.parametrize("backend", ["gustavson", "dense"])
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_cli_fallback_backends_match_jax(mtx_file, capsys, backend, dtype):
+    """--backend gustavson|dense at TileSpGEMM's 16x16 tiles: the JAX
+    CLI's lines and C (f64 on non-integer values runs the route in
+    float64 in both)."""
+    args = [mtx_file, "16", "16", "--backend", backend, "--dtype", dtype]
+    assert j_main(args) == 0
+    j_out = capsys.readouterr().out
+    assert p_main(["-d", "cpu"] + args) == 0
+    p_out = capsys.readouterr().out
+    assert "[PASSED]" in p_out
+    assert _line_heads(p_out) == _line_heads(j_out)
+    pick = lambda out: [ln for ln in out.splitlines()
+                        if ln.startswith(("nnz(C)", "numtile(C)", "nnzCub"))]
+    assert pick(p_out) == pick(j_out)
 
 
 @pytest.mark.parametrize("extra", [["--backend", "esc"], ["--dtype", "f64"],

@@ -21,6 +21,13 @@ bit-equal to them on any values. So must the Ozaki kernel: its int32
 group sums are exact and its TwoSum reduce follows the plain version's
 order. `spgemm(backend="esc")` on tiles runs the scan kernels and must
 give the CPU's C exactly.
+
+The routes without a hand kernel (gustavson slab, dense, the f64 slab
+engine) take every tile shape the kernels do not. They are torch ops and
+must give the CPU's C: exactly on integer values, within rtol 1e-5 on
+Gaussian values (atomic scatter order), and bit-equal (h, m, l, counts)
+in the slab engine, whose int32 sums are exact. They run in full FP32
+even with TF32 switched on globally, and restore the caller's flag.
 """
 
 import numpy as np
@@ -33,7 +40,8 @@ from spgemm_tpu_torch.ops import (golden, kernels, ozaki_kernels, pair_kernels,
 from spgemm_tpu_torch.ops import spmm as pspmm
 from spgemm_tpu_torch.ops.esc import gather_planes, scan_dd_planes
 from spgemm_tpu_torch.ops.gustavson import build_strip_args
-from spgemm_tpu_torch.ops.ozaki import build_ozaki_strip
+from spgemm_tpu_torch.ops.ozaki import (OzakiOverflow, build_ozaki_plan,
+                                        build_ozaki_strip, ozaki_core)
 from spgemm_tpu_torch.ops.symbolic import build_pair_schedule
 from spgemm_tpu_torch.utils.generators import banded, cantlike, random_uniform
 
@@ -128,8 +136,13 @@ def test_kernel_rejects_tk_not_multiple_of_8(card):
     args = build_strip_args(at, bt)
     with pytest.raises(ValueError, match="tk a multiple of 8"):
         kernels.strip_numeric(*args.to_device(card), **args.kernel_kwargs())
-    with pytest.raises(NotImplementedError, match="Orchestrator fallbacks"):
-        pt.spgemm(at, bt, device=card)
+    # the router takes the dense route instead of the strip kernel
+    before = kernels.strip_numeric.kernel_launches
+    res = pt.spgemm(at, bt, device=card)
+    assert res.stats["backend"] == "dense"
+    assert kernels.strip_numeric.kernel_launches == before
+    got, exp = res.c.to_csr(), pt.spgemm(at, bt, device="cpu").c.to_csr()
+    assert got.pattern_equal(exp) and np.array_equal(got.data, exp.data)
 
 
 def test_strip_kernel_registers(card):
@@ -147,8 +160,11 @@ def test_kernel_rejects_unsupported_tiles(card):
     args = build_strip_args(pt.csr_to_tiles(a, 8, 16), pt.csr_to_tiles(a, 16, 16))
     with pytest.raises(ValueError, match="strip kernel takes"):
         kernels.strip_numeric(*args.to_device(card), **args.kernel_kwargs())
-    with pytest.raises(NotImplementedError, match="Orchestrator fallbacks"):
-        pt.spgemm_csr(a, tm=8, tn=16, backend="strip", device=card)
+    got, res = pt.spgemm_csr(a, tm=8, tn=16, backend="strip", device=card)
+    assert res.stats["backend"] == \
+        "dense(strip-fallback: no strip kernel for 8x16 tiles with tk 16)"
+    exp, _ = pt.spgemm_csr(a, tm=8, tn=16, backend="strip", device="cpu")
+    assert got.pattern_equal(exp) and np.array_equal(got.data, exp.data)
 
 
 def test_spgemm_csr_and_executor_on_card_match_cpu(card):
@@ -511,8 +527,18 @@ def test_ozaki_entry_points_on_card_match_cpu(card):
 def test_ozaki_rejects_unsupported_tiles(card):
     a = cantlike(600, 16).with_data(
         np.random.default_rng(1).standard_normal(cantlike(600, 16).nnz))
-    with pytest.raises(NotImplementedError, match="Ozaki kernel tiles"):
-        pt.spgemm_csr(a, tm=64, compute_dtype=torch.float64, device=card)
+    # no kernel instantiation at tm 64: the slab engine runs instead
+    w = ozaki_kernels.ozaki_strip_numeric
+    before = w.kernel_launches
+    got, res = pt.spgemm_csr(a, tm=64, compute_dtype=torch.float64,
+                             device=card)
+    assert res.stats["backend"] == "ozaki(S=8x8)(xla-fallback)"
+    assert w.kernel_launches == before
+    ref = golden.spgemm_scipy(a, a)
+    got = golden.drop_explicit_zeros(got)
+    assert got.pattern_equal(ref)
+    assert np.abs(got.data - ref.data).max() <= \
+        1e-12 * np.abs(ref.data).max()
     plan = build_ozaki_strip(pt.csr_to_tiles(a, 8, 128),
                              pt.csr_to_tiles(a, 128, 128))
     with pytest.raises(ValueError, match="Ozaki strip kernel takes"):
@@ -827,3 +853,157 @@ def test_cli_pair_backends_on_card(card, tmp_path, capsys):
                      backend]) == 0
         out = capsys.readouterr().out
         assert "check (values vs scipy oracle): [PASSED]" in out
+
+
+def _route_pair(values: str, n: int = 1500, band: int = 48):
+    a = cantlike(n, band)
+    if values == "gaussian":
+        a = a.with_data(np.random.default_rng(4).standard_normal(a.nnz))
+    return a
+
+
+def _assert_csr_close(got, exp, values):
+    assert got.pattern_equal(exp)
+    if values == "integer":
+        np.testing.assert_array_equal(got.data, exp.data)
+    else:
+        scale = np.abs(exp.data).max()
+        np.testing.assert_allclose(got.data, exp.data, rtol=1e-5,
+                                   atol=1e-6 * scale)
+
+
+@pytest.mark.parametrize("backend", ["gustavson", "dense", "auto"])
+@pytest.mark.parametrize("tiles", [(16, 16), (8, 16), (16, 128)])
+@pytest.mark.parametrize("values", ["integer", "gaussian"])
+def test_torch_op_routes_on_card_match_cpu(card, backend, tiles, values):
+    a = _route_pair(values)
+    at, bt = pt.csr_to_tiles(a, *tiles), pt.csr_to_tiles(a, tiles[1],
+                                                        tiles[1])
+    res = pt.spgemm(at, bt, backend=backend, device=card)
+    if backend == "auto":
+        assert res.stats["backend"] == (
+            "strip" if tiles == (16, 128) else "dense")
+    else:
+        assert res.stats["backend"] == backend
+    exp = pt.spgemm(at, bt, backend=backend, device="cpu").c.to_csr()
+    _assert_csr_close(res.c.to_csr(), exp, values)
+
+
+@pytest.mark.parametrize("backend", ["gustavson", "dense"])
+def test_torch_op_routes_f64_on_card(card, backend):
+    a = _route_pair("gaussian", 800)
+    at = pt.csr_to_tiles(a, 16, 16)
+    res = pt.spgemm(at, at, backend=backend, compute_dtype=torch.float64,
+                    device=card)
+    ref = golden.spgemm_scipy(a, a)
+    got = golden.drop_explicit_zeros(res.c.to_csr())
+    assert got.pattern_equal(ref)
+    assert np.abs(got.data - ref.data).max() <= \
+        1e-13 * np.abs(ref.data).max()
+
+
+@pytest.mark.parametrize("kind", ["integer", "gaussian", "wide-int"])
+@pytest.mark.parametrize("tiles", [(16, 16), (8, 16), (64, 128)])
+def test_slab_engine_bit_equal_to_cpu(card, kind, tiles):
+    rng = np.random.default_rng(6)
+    a = cantlike(1200, 40)
+    vals = {"integer": lambda: rng.integers(1, 10, a.nnz).astype(float),
+            "gaussian": lambda: rng.standard_normal(a.nnz),
+            "wide-int": lambda: rng.integers(-2 ** 20, 2 ** 20,
+                                             a.nnz).astype(float)}[kind]()
+    a = a.with_data(vals)
+    at, bt = pt.csr_to_tiles(a, *tiles), pt.csr_to_tiles(a, tiles[1],
+                                                        tiles[1])
+    plan = build_ozaki_plan(at, bt)
+    host = ozaki_core(*plan.to_device("cpu"), **plan.core_kwargs())
+    dev = ozaki_core(*plan.to_device(card), **plan.core_kwargs())
+    for h, d in zip(host, dev):
+        assert torch.equal(h, d.cpu())
+
+
+def test_ozaki_executor_on_card(card):
+    a = _route_pair("gaussian", 1200)
+    at = pt.csr_to_tiles(a, 16, 16)
+    plan = pt.build_ozaki_plan(at, at)
+    ex = pt.OzakiExecutor(plan, at, at, device=card)
+    host = pt.OzakiExecutor(pt.build_ozaki_plan(at, at), at, at,
+                            device="cpu")
+    np.testing.assert_array_equal(ex.assemble(ex.run()),
+                                  host.assemble(host.run()))
+    a2 = a.with_data(np.random.default_rng(9).standard_normal(a.nnz))
+    at2 = pt.csr_to_tiles(a2, 16, 16)
+    ex.update_values(at2, at2)
+    host.update_values(at2, at2)
+    np.testing.assert_array_equal(ex.assemble(ex.run()),
+                                  host.assemble(host.run()))
+    assert ex.time_numeric(warmup=1, iters=3) > 0
+
+
+@pytest.mark.parametrize("api", ["legacy", "fp32_precision"])
+def test_tf32_switched_on_globally_is_not_used(card, api):
+    """A caller's global TF32 switch must not reach the gustavson, dense,
+    slab and xla products (the JAX package multiplies at HIGHEST), and
+    must be back on after the call."""
+    a = _route_pair("gaussian", 1200, 64)
+    at = pt.csr_to_tiles(a, 16, 16)
+    exp = {b: pt.spgemm(at, at, backend=b, device="cpu").c.to_csr()
+           for b in ("gustavson", "dense", "xla")}
+    mm = torch.backends.cuda.matmul
+    prev = mm.fp32_precision
+    try:
+        if api == "legacy":
+            mm.allow_tf32 = True
+        else:
+            mm.fp32_precision = "tf32"
+        # the switch is live: a bare f32 matmul rounds its operands
+        x = torch.randn(512, 512, device=card)
+        tf32_err = (x @ x - (x.double() @ x.double()).float()).abs().max()
+        assert tf32_err.item() > 1e-3
+        for backend, ref in exp.items():
+            res = pt.spgemm(at, at, backend=backend, device=card)
+            _assert_csr_close(res.c.to_csr(), ref, "gaussian")
+        # the slab engine's f32 slice products stay exact too
+        plan = build_ozaki_plan(at, at)
+        host = ozaki_core(*plan.to_device("cpu"), **plan.core_kwargs())
+        dev = ozaki_core(*plan.to_device(card), **plan.core_kwargs())
+        assert all(torch.equal(h, d.cpu()) for h, d in zip(host, dev))
+        if api == "legacy":
+            assert mm.allow_tf32 is True
+        else:
+            assert mm.fp32_precision == "tf32"
+    finally:
+        mm.fp32_precision = prev
+
+
+def test_slab_engine_tk_gate_on_card(card):
+    """tk > 1040 past the f32 products' exact range: on CUDA there is no
+    Ozaki kernel for these tiles, the slab engine refuses the plan with
+    OzakiOverflow, and the auto f64 router runs the double-double scan."""
+    rng = np.random.default_rng(1)
+    a = pt.CSR.from_coo(rng.integers(0, 1100, 3000),
+                        rng.integers(0, 1100, 3000),
+                        rng.standard_normal(3000), (1100, 1100))
+    at, bt = pt.csr_to_tiles(a, 16, 1056), pt.csr_to_tiles(a, 1056, 1056)
+    with pytest.raises(OzakiOverflow, match="tk <= 1040"):
+        pt.spgemm(at, bt, backend="ozaki", device=card)
+    got, res = pt.spgemm_csr(a, tm=16, tn=1056, compute_dtype=torch.float64,
+                             device=card)
+    assert res.stats["backend"] == "esc"
+    ref = golden.spgemm_scipy(a, a)
+    got = golden.drop_explicit_zeros(got)
+    assert got.pattern_equal(ref)
+    np.testing.assert_allclose(got.data, ref.data, rtol=1e-10,
+                               atol=1e-11 * np.abs(ref.data).max())
+
+
+@pytest.mark.parametrize("backend", ["gustavson", "dense"])
+def test_cli_fallback_routes_on_card(card, tmp_path, capsys, backend):
+    from spgemm_tpu_torch.cli import main
+
+    a = cantlike(2000, 64)
+    p = tmp_path / "c.mtx"
+    _write_mtx(p, a)
+    assert main(["-d", "cuda:0", str(p), "16", "16", "--backend",
+                 backend]) == 0
+    out = capsys.readouterr().out
+    assert "check (values vs scipy oracle): [PASSED]" in out

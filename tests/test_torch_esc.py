@@ -455,15 +455,24 @@ def test_auto_router_agrees_with_jax():
 
 
 def test_structured_non_integer_f64_raises():
-    # auto f64 routing now runs the Ozaki route on this structured input;
-    # f64 through backend="strip" is still not ported
-    a = to_port(band_matrix("gaussian", n=300, half=20))
+    # auto f64 routing runs the Ozaki route on this structured input; f64
+    # through backend="strip" no longer raises: the port's strip route is
+    # float32, so the router falls back to the slab route in f64, which
+    # matches the JAX package's f64 product
+    ja = band_matrix("gaussian", n=300, half=20)
+    a = to_port(ja)
     assert pt.spgemm_csr(a, device="cpu")[1].stats["backend"] == "strip"
     _, res = pt.spgemm_csr(a, compute_dtype=torch.float64, device="cpu")
     assert res.stats["backend"] == "ozaki-strip(S=8x8)"
-    with pytest.raises(NotImplementedError, match="Queue 1: f64"):
-        pt.spgemm_csr(a, compute_dtype=torch.float64, backend="strip",
-                      device="cpu")
+    c, res = pt.spgemm_csr(a, compute_dtype=torch.float64, backend="strip",
+                           device="cpu")
+    assert res.stats["backend"] == "gustavson(strip-fallback: float64)"
+    exp, _ = spgemm_tpu.spgemm_csr(ja, compute_dtype=np.float64,
+                                   backend="strip")
+    assert c.pattern_equal(exp)
+    # f64 summed in another order: rtol 1e-12, atol 1e-13*max|C|
+    np.testing.assert_allclose(c.data, exp.data, rtol=1e-12,
+                               atol=1e-13 * np.abs(exp.data).max())
 
 
 def test_digit_mode_and_bad_plans_raise():

@@ -328,26 +328,44 @@ def test_53bit_results_exact():
 
 
 def test_arrow_pattern_raises_naming_the_slab_engine():
-    """The windowed geometry is infeasible on an arrow pattern; the JAX
-    package falls back to its XLA slab engine, which is not ported."""
+    """The windowed geometry is infeasible on an arrow pattern: both
+    packages fall back to the slab engine (it no longer raises) and give
+    the same C, through backend="ozaki" and the auto f64 router."""
     n = 4096
     r = np.concatenate([np.zeros(n // 8, np.int64),
                         np.arange(n, dtype=np.int64)])
     c = np.concatenate([np.arange(0, n, 8, dtype=np.int64),
                         np.arange(n, dtype=np.int64)])
-    a = pt.CSR.from_coo(r, c, ((r + c) % 7 + 1).astype(np.float64) + 0.5,
-                        (n, n))
+    vals = ((r + c) % 7 + 1).astype(np.float64) + 0.5
+    ja = spgemm_tpu.CSR.from_coo(r, c, vals, (n, n))
+    a = pt.CSR.from_coo(r, c, vals, (n, n))
     at, bt = pt.csr_to_tiles(a, 32, 128), pt.csr_to_tiles(a, 128, 128)
-    with pytest.raises(NotImplementedError, match="f64: XLA slab engine"):
-        pt.spgemm(at, bt, backend="ozaki", device="cpu")
-    with pytest.raises(NotImplementedError, match="f64: XLA slab engine"):
-        pt.spgemm_csr(a, tm=32, compute_dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError, match="windowed strip plan infeasible"):
+        po.build_ozaki_strip(at, bt)
+    res = pt.spgemm(at, bt, backend="ozaki", device="cpu")
+    jres = spgemm_tpu.spgemm(jtile.csr_to_tiles(ja, 32, 128),
+                             jtile.csr_to_tiles(ja, 128, 128),
+                             backend="ozaki")
+    assert res.stats["backend"] == jres.stats["backend"] \
+        == "ozaki(S=1x1)(xla-fallback)"
+    got, exp = res.c.to_csr(), jres.c.to_csr()
+    assert got.pattern_equal(exp) and np.array_equal(got.data, exp.data)
+    c64, res = pt.spgemm_csr(a, tm=32, compute_dtype=torch.float64,
+                             device="cpu")
+    # (r + c) % 7 + 1.5 is not an integer: no f32-exact shortcut
+    assert res.stats["backend"] == "ozaki(S=1x1)(xla-fallback)"
+    assert c64.pattern_equal(exp) and np.array_equal(c64.data, exp.data)
 
 
 def test_cuda_tile_gate_and_bad_operands():
-    with pytest.raises(NotImplementedError, match="Ozaki kernel tiles"):
-        po.check_ozaki_tiles(64, 128, torch.device("cuda"))
-    po.check_ozaki_tiles(64, 128, torch.device("cpu"))
+    # the strip kernel's tiles on CUDA; elsewhere the slab engine runs
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert po.strip_kernel_takes(32, 128, 128, cuda)
+    assert not po.strip_kernel_takes(64, 128, 128, cuda)
+    assert not po.strip_kernel_takes(16, 16, 16, cuda)
+    assert not po.strip_kernel_takes(16, 40, 128, cuda)   # tk % 16
+    assert po.strip_kernel_takes(64, 128, 128, cpu)
+    assert po.strip_kernel_takes(16, 16, 16, cpu)
     a, b = _pair("gaussian", "gaussian", n=100, band=4)
     _, (pa, pb) = _tiles(a, b, 16)
     plan = po.build_ozaki_strip(pa, pb)

@@ -1,6 +1,9 @@
-"""The port's strip slice as a whole against the JAX package on the CPU:
-spgemm_csr, spgemm and StripExecutor give the same C, and routes that are
-not ported raise NotImplementedError instead of running something else.
+"""The port's orchestrator as a whole against the JAX package on the CPU:
+spgemm_csr, spgemm and StripExecutor give the same C, the tiled router
+picks the JAX package's route (strip, dense, gustavson, xla) with the
+port's own strip gate, the reference's keywords pass through, and the one
+route that is not ported (the ESC digit mode) raises NotImplementedError
+instead of running something else.
 
 Tolerances as in test_torch_kernels.py: integer values exact, Gaussian
 values rtol 1e-5 / atol 1e-6*max|C| (summation order differs).
@@ -71,34 +74,210 @@ def test_spgemm_tiles_64x128_matches_jax():
     _assert_same_csr(pres.c.to_csr(), jres.c.to_csr(), "integer")
 
 
-def _arrow_tiles(n: int = 4096):
+def _arrow_coo(n: int = 4096):
     """One dense tile-row spanning every k: no windowed strip plan."""
     r = np.concatenate([np.zeros(n // 8, np.int64), np.arange(n)])
     c = np.concatenate([np.arange(0, n, 8), np.arange(n)])
-    a = pt.CSR.from_coo(r, c, np.full(r.size, 1.5), (n, n))
+    return r, c, np.full(r.size, 1.5), (n, n)
+
+
+def _arrow_tiles():
+    a = pt.CSR.from_coo(*_arrow_coo())
     return pt.csr_to_tiles(a, 32, 128), pt.csr_to_tiles(a, 128, 128)
 
 
+def _arrow_tiles_jax():
+    a = spgemm_tpu.CSR.from_coo(*_arrow_coo())
+    return jtile.csr_to_tiles(a, 32, 128), jtile.csr_to_tiles(a, 128, 128)
+
+
 @pytest.mark.parametrize("call,match", [
-    (lambda a: pt.spgemm_csr(a, backend="gustavson", device="cpu"),
-     "Orchestrator fallbacks"),
     (lambda a: pt.spgemm_esc(a, a, mode="digit", device="cpu"),
      "ESC unstructured route"),
-    (lambda a: pt.spgemm_csr(a.with_data(a.data + 0.5),
-                             compute_dtype=torch.float64, backend="strip",
-                             device="cpu"), "f64"),
-    # the Ozaki route runs; where its windowed geometry is infeasible (an
-    # arrow pattern) the JAX package's XLA slab engine is not ported
-    (lambda a: pt.spgemm(*_arrow_tiles(), backend="ozaki", device="cpu"),
-     "f64"),
-    (lambda a: pt.spgemm(pt.csr_to_tiles(a, 8, 16), pt.csr_to_tiles(a, 16, 16),
-                         backend="dense", device="cpu"),
-     "Orchestrator fallbacks"),
 ])
 def test_unported_routes_raise(make_random_csr, call, match):
     a = to_port(make_random_csr(64, 64, 0.1))
     with pytest.raises(NotImplementedError, match=match):
         call(a)
+
+
+def _former_refusals(a):
+    """The calls that raised NotImplementedError before the gustavson,
+    dense and slab routes were ported: (port result, JAX result, f64)."""
+    ja = a
+    pa = to_port(a)
+    jarrow = _arrow_tiles_jax()
+    return {
+        "gustavson": lambda: (
+            pt.spgemm_csr(pa, backend="gustavson", device="cpu")[0],
+            spgemm_tpu.spgemm_csr(ja, backend="gustavson")[0], False),
+        "f64-strip": lambda: (
+            pt.spgemm_csr(pa.with_data(pa.data + 0.5),
+                          compute_dtype=torch.float64, backend="strip",
+                          device="cpu")[0],
+            spgemm_tpu.spgemm_csr(ja.with_data(ja.data + 0.5),
+                                  compute_dtype=np.float64,
+                                  backend="strip")[0], True),
+        "arrow-ozaki": lambda: (
+            pt.spgemm(*_arrow_tiles(), backend="ozaki", device="cpu")
+            .c.to_csr(),
+            spgemm_tpu.spgemm(*jarrow, backend="ozaki").c.to_csr(), True),
+        "dense": lambda: (
+            pt.spgemm(pt.csr_to_tiles(pa, 8, 16), pt.csr_to_tiles(pa, 16, 16),
+                      backend="dense", device="cpu").c.to_csr(),
+            spgemm_tpu.spgemm(jtile.csr_to_tiles(ja, 8, 16),
+                              jtile.csr_to_tiles(ja, 16, 16),
+                              backend="dense").c.to_csr(), False),
+    }
+
+
+@pytest.mark.parametrize("case", ["gustavson", "f64-strip", "arrow-ozaki",
+                                  "dense"])
+def test_former_refusals_now_run(make_random_csr, case):
+    got, exp, f64 = _former_refusals(make_random_csr(64, 64, 0.1))[case]()
+    assert got.pattern_equal(exp)
+    if f64:
+        np.testing.assert_allclose(got.data, exp.data, rtol=1e-12,
+                                   atol=1e-13 * np.abs(exp.data).max())
+    else:
+        np.testing.assert_array_equal(got.data, exp.data)
+
+
+def _router_tiles(tm, tn, n=300):
+    a = cantlike(n, 16)
+    return pt.csr_to_tiles(a, tm, tn), pt.csr_to_tiles(a, tn, tn)
+
+
+CPU, CUDA = torch.device("cpu"), torch.device("cuda")
+
+
+@pytest.mark.parametrize("tiles,dtype,device,backend,expected", [
+    # the CPU's plain strip version takes any f32 tiles
+    ((16, 128), torch.float32, CPU, "auto", ("strip", "")),
+    ((16, 16), torch.float32, CPU, "auto", ("strip", "")),
+    # CUDA: only the strip kernel's instantiations
+    ((16, 128), torch.float32, CUDA, "auto", ("strip", "")),
+    ((64, 128), torch.float32, CUDA, "strip", ("strip", "")),
+    ((16, 16), torch.float32, CUDA, "auto", ("dense", "")),
+    ((8, 16), torch.float32, CUDA, "strip",
+     ("dense", "strip-fallback: no strip kernel for 8x16 tiles with tk 16")),
+    # f64: no strip and no dense route: the slab route
+    ((16, 128), torch.float64, CPU, "auto", ("gustavson", "")),
+    ((16, 128), torch.float64, CUDA, "strip",
+     ("gustavson", "strip-fallback: float64")),
+    ((16, 16), torch.float64, CUDA, "auto", ("gustavson", "")),
+    ((16, 16), torch.float32, CUDA, "gustavson", ("gustavson", "")),
+    ((16, 16), torch.float32, CPU, "dense", ("dense", "")),
+])
+def test_router_table(tiles, dtype, device, backend, expected):
+    from spgemm_tpu_torch.ops.spgemm import _resolve_backend
+
+    at, bt = _router_tiles(*tiles)
+    assert _resolve_backend(at, bt, backend, dtype, device) == expected
+
+
+def test_router_byte_budgets(monkeypatch):
+    """Past the dense budget the router takes the slab route, past the
+    slab budget the pair gather ("xla"), with the JAX package's notes."""
+    from spgemm_tpu_torch.ops import spgemm as ps
+
+    at, bt = _router_tiles(16, 16)
+    monkeypatch.setattr(ps, "DENSE_BYTES", 0)
+    assert ps._resolve_backend(at, bt, "auto", torch.float32, CUDA) == \
+        ("gustavson", "")
+    monkeypatch.setattr(ps, "SLAB_BYTES", 0)
+    assert ps._resolve_backend(at, bt, "auto", torch.float32, CUDA) == \
+        ("xla", "")
+    assert ps._resolve_backend(at, bt, "gustavson", torch.float32, CPU) == \
+        ("xla", "gustavson-fallback: pair products exceed HBM budget")
+    res = pt.spgemm(at, bt, backend="gustavson", device="cpu")
+    assert res.stats["backend"] == \
+        "xla(gustavson-fallback: pair products exceed HBM budget)"
+
+
+def test_router_agrees_with_jax_on_the_cpu():
+    """On the CPU both packages take the strip route for f32 at any
+    tiles, gustavson when asked for."""
+    a = _matrix("cantlike", "integer")
+    for tm, tn in ((16, 16), (16, 128)):
+        jat, jbt = jtile.csr_to_tiles(a, tm, tn), jtile.csr_to_tiles(a, tn, tn)
+        pat_, pbt = pt.csr_to_tiles(to_port(a), tm, tn), pt.csr_to_tiles(
+            to_port(a), tn, tn)
+        for backend in ("auto", "gustavson"):
+            jres = spgemm_tpu.spgemm(jat, jbt, backend=backend)
+            pres = pt.spgemm(pat_, pbt, backend=backend, device="cpu")
+            assert pres.stats["backend"] == jres.stats["backend"]
+            _assert_same_csr(pres.c.to_csr(), jres.c.to_csr(), "integer")
+
+
+def test_dense_backend_structural_zeros():
+    """Port of the JAX package's case: cancellation keeps the entry."""
+    a = pt.CSR.from_coo([0, 0], [0, 1], [1.0, -1.0], (2, 2))
+    b = pt.CSR.from_coo([0, 1], [0, 0], [1.0, 1.0], (2, 2))
+    res = pt.spgemm(pt.csr_to_tiles(a, 2, 2), pt.csr_to_tiles(b, 2, 2),
+                    backend="dense", device="cpu")
+    c = res.c.to_csr()
+    assert c.nnz == 1 and c.data[0] == 0.0
+
+
+@pytest.mark.parametrize("backend", ["strip", "gustavson", "dense", "xla"])
+def test_stored_zero_inputs_are_structural(backend):
+    """Port of the JAX package's case: a stored zero is a structural
+    nonzero on every backend."""
+    a = pt.CSR.from_coo([0, 1], [0, 0], [0.0, 2.0], (2, 2))
+    b = pt.CSR.from_coo([0], [0], [3.0], (2, 2))
+    res = pt.spgemm(pt.csr_to_tiles(a, 2, 2), pt.csr_to_tiles(b, 2, 2),
+                    backend=backend, device="cpu")
+    c = res.c.to_csr()
+    assert c.nnz == 2, backend
+    np.testing.assert_array_equal(c.data, [0.0, 6.0])
+
+
+@pytest.mark.parametrize("backend", ["gustavson", "dense", "xla"])
+def test_acc_dtype_matches_jax(backend):
+    """acc_dtype=float64 on f32 operands: the torch-op routes accumulate
+    f64 products, as the JAX package's preferred_element_type."""
+    a = _matrix("banded", "gaussian")
+    jat, jbt = jtile.csr_to_tiles(a, 16, 16), jtile.csr_to_tiles(a, 16, 16)
+    pat_, pbt = pt.csr_to_tiles(to_port(a), 16, 16), pt.csr_to_tiles(
+        to_port(a), 16, 16)
+    jres = spgemm_tpu.spgemm(jat, jbt, backend=backend,
+                             acc_dtype=np.float64)
+    pres = pt.spgemm(pat_, pbt, backend=backend, acc_dtype=torch.float64,
+                     device="cpu")
+    got, exp = pres.c.to_csr(), jres.c.to_csr()
+    assert got.pattern_equal(exp)
+    np.testing.assert_allclose(got.data, exp.data, rtol=1e-12,
+                               atol=1e-13 * np.abs(exp.data).max())
+    f32 = pt.spgemm(pat_, pbt, backend=backend, device="cpu").c.to_csr()
+    assert not np.array_equal(f32.data, got.data)
+
+
+@pytest.mark.parametrize("backend", ["strip", "pallas"])
+def test_acc_dtype_on_a_kernel_raises(backend):
+    a = to_port(_matrix("banded", "integer"))
+    at, bt = pt.csr_to_tiles(a, 16, 128), pt.csr_to_tiles(a, 128, 128)
+    kernel = "strip" if backend == "strip" else "pair"
+    with pytest.raises(ValueError, match=f"the {kernel} kernel"):
+        pt.spgemm(at, bt, backend=backend, acc_dtype=torch.float64,
+                  device="cpu")
+    pt.spgemm(at, bt, backend=backend, acc_dtype=torch.float32, device="cpu")
+
+
+def test_chunk_and_sync_pass_through():
+    """A call written for the JAX package runs: chunk reaches the xla
+    pair backend (any chunk gives the same C), sync=False skips only
+    the final synchronize."""
+    a = _matrix("cantlike", "integer")
+    jc, _ = spgemm_tpu.spgemm_csr(a, backend="xla", chunk=7, sync=True)
+    for kw in (dict(chunk=7), dict(chunk=7, sync=False), dict(sync=False)):
+        pc, res = pt.spgemm_csr(to_port(a), backend="xla", device="cpu",
+                                **kw)
+        _assert_same_csr(pc, jc, "integer")
+    for backend in ("gustavson", "dense", "ozaki", "strip"):
+        pc, _ = pt.spgemm_csr(to_port(a), backend=backend, sync=False,
+                              device="cpu")
+        _assert_same_csr(pc, jc, "integer")
 
 
 def test_auto_route_to_esc_raises_instead_of_running_strip(make_random_csr):
