@@ -32,7 +32,8 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      then time the kernel on the window=False plan and on the main plan
      with standard-normal values (the integer model's operands are TF32
      values and take one tensor-core product per k step; Gaussian values
-     take the 3xTF32 split), each checked against the plain version
+     take the exact three-way TF32 split, six products), each checked
+     against the plain version
      (Gaussian: rtol 1e-5, atol 1e-6*max|C|, counts equal);
   6. compare the three scan kernels (premul, mul, double-double) with
      their plain versions on a random 8192^2 and a full banded 2048^2
@@ -125,7 +126,31 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      moves over 3.35 TB/s beside its operations bound, torch.sparse.mm
      on the same product (f64 for the slab engine), and GFLOPS =
      2*nnzCub/(symbolic + numeric);
- 22. print the kernels JSON line (the nine hand kernels), then the
+ 22. the ESC digit mode (torch ops, no hand kernel) on the suite's
+     random65536: spgemm_esc(mode="digit") with integer values (equal to
+     scipy), standard-normal values in f32 (rtol 1e-5, atol
+     1e-6*max|C|) and in float64 (rtol 1e-10, atol 1e-11*max|C|); its
+     numeric ms (time_esc, CUDA events), device split by aten op, bound,
+     peak device memory against the unchunked temporaries, and
+     torch.sparse.mm on the same A;
+ 23-28. the example applications (spgemm_tpu_torch/examples), each run
+     once under torch.profiler (wall time, device time, host time), with
+     the launch counters zeroed just before; each phase fails if a plain
+     kernel version ran or a hand kernel of its route did not launch
+     (per spgemm_csr call, the kernel of the route it printed):
+     23 triangle_counting on random_graph(262144, 16), the count equal
+     to scipy's sum(A .* A^2)/6; 24 amg_galerkin at g = 1024, 2 levels,
+     its own check; 25 markov_clustering at n = 8192, each iteration's
+     expansion against scipy (rtol 1e-5, atol 1e-6*max|C|); 26 pagerank
+     on rmat(65536, 16), within L1 1e-5 of the same iteration count in
+     f64, and the two-hop pattern through spgemm_esc equal to scipy's
+     (the scan kernel launched); 27 power_method at n = 1,048,576, band
+     8: 150 narrow SpMM launches, lambda within 1e-5 of the f64 Rayleigh
+     quotient, the per-iteration ms; 28 serving_loop at n = 16,384
+     (SERVE_N says why not 65,536), every tick OK, the strip and the
+     premul scan kernels launched;
+ 29. entry() on the card equals the CPU's result;
+ 30. print the kernels JSON line (the nine hand kernels), then the
      contract line {"ok": true, "device": {...}} as the last line.
 
 Beside every kernel's time the script prints (phase bound) its bound_ms:
@@ -154,10 +179,6 @@ OZ_TM = 32                      # the tile height the JAX route was tuned at
 OZ_RTOL = 1e-12                 # tests/test_ozaki.py:306 (x max|C|)
 SPMM_TM = 16                    # tools/run_suite.py's SpMM128 tiles: 16x128
 SPMM_K = 128                    # the suite's SpMM128 width
-# H100 SXM published peaks (NVIDIA H100 datasheet): HBM bytes/s and
-# dense operations/s by type, for each kernel's bound_ms
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"tf32": 495e12, "bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 class SmokeFailure(Exception):
@@ -380,20 +401,31 @@ def _f32_mma_ops(products: float) -> list:
     return [(3 * 2.0 * products, "tf32")]
 
 
+def _h100():
+    """The H100 SXM's published peaks (spgemm_tpu_torch/utils/roofline.py:
+    HBM bytes/s and dense operations/s by type), for every bound_ms."""
+    from spgemm_tpu_torch.utils.roofline import ChipSpec
+
+    return ChipSpec.h100()
+
+
 def bound(label: str, inputs, outputs, ops=()) -> tuple:
     """(bound_ms, bound_by): the larger of the bytes of `inputs` and
     `outputs` (each read or written once) over the H100's HBM rate and the
     operations `ops` [(count, type)] over the card's peak rate for their
     type. Prints the numbers behind it."""
-    moved = _nbytes(inputs) + _nbytes(outputs)
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = sum(n / PEAK_OPS[kind] for n, kind in ops) * 1e3
-    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return bound_bytes(label, _nbytes(inputs) + _nbytes(outputs), ops)
+
+
+def bound_bytes(label: str, moved: int, ops=()) -> tuple:
+    """bound() for a byte count `moved` given directly."""
+    chip = _h100()
+    bytes_ms, ops_ms, ms, by = chip.bound(moved, ops)
     what = ", ".join(f"{n!r} {kind}" for n, kind in ops) or "none counted"
     print(f"phase bound: {label} bytes={moved} ({bytes_ms!r} ms at "
-          f"{HBM_BYTES_PER_S:.3g} B/s) ops=[{what}] ({ops_ms!r} ms at peak) "
-          f"bound_ms={max(bytes_ms, ops_ms)!r} bound_by={by}")
-    return max(bytes_ms, ops_ms), by
+          f"{chip.peak_hbm_bw:.3g} B/s) ops=[{what}] ({ops_ms!r} ms at peak) "
+          f"bound_ms={ms!r} bound_by={by}")
+    return ms, by
 
 
 def _torch_csr(a, dtype):
@@ -1278,7 +1310,7 @@ def _time_lines(label, res, wall, numeric_ms, split, moved, bnd, lib_ms,
           f"profiler, self device time by op): {shares}; sum {total!r} ms")
     print(f"{CARD} | phase {label}-time: compact_ms={tms['compact_ms']!r} "
           f"wall_s={wall!r}")
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    bytes_ms = _h100().bound(moved)[0]
     print(f"{CARD} | phase {label}-time: numeric bytes={moved} (inputs read "
           f"once, outputs written once) -> {bytes_ms!r} ms at 3.35 TB/s; "
           f"bound_ms={bnd[0]!r} (by {bnd[1]}, the products at their type's "
@@ -1522,6 +1554,426 @@ def run_slab_f64_route(ag, ref_g):
                 flop_count_spgemm(ag, ag), res.timings_ms["symbolic_ms"])
 
 
+# --- phases 22-29: the ESC digit mode and the example applications ----------
+DEV = "cuda"                    # every phase below runs on the card
+TRI_N, TRI_DEG = 262144, 16     # triangle_counting.random_graph: ~4.2 M edges
+AMG_G, AMG_LEVELS = 1024, 2     # 1,048,576-unknown 5-point Poisson
+MCL_N = 8192                    # markov_clustering, 12 iterations
+PR_N, PR_DEG = 65536, 16        # pagerank's rmat(default_rng(7), ...)
+PM_N, PM_BAND, PM_ITERS = 1 << 20, 8, 150  # power_method: ~17.8 M nnz
+# serving_loop: cut from 65,536. Its strip ticks are checked at rtol
+# 1e-4 and an absolute 1e-6, which f32 sums of 33 Gaussian products miss
+# on a few near-zero entries by chance; scipy's own f32 product misses it
+# at 65,536 (printed by the phase), and so did one tick of the strip
+# kernel at 65,536 and at 8,192, none at 16,384
+SERVE_N, SERVE_TICKS, SERVE_FULL_N = 16384, 3, 65536
+
+
+def _counts() -> dict:
+    return {w.__name__: (w.kernel_launches, w.plain_launches)
+            for w in _all_wrappers()}
+
+
+def _launched(label: str, required=()) -> None:
+    """Prints which hand kernels launched since the counters were zeroed;
+    fails if a plain version ran or a `required` kernel did not launch."""
+    ran = {k: v for k, v in _counts().items() if v != (0, 0)}
+    print(f"phase check: {label} hand-kernel launches (kernel, plain) since "
+          f"zeroed: {ran or 'none'}")
+    plain = {k: v for k, v in ran.items() if v[1]}
+    check(not plain, f"{label} ran a plain version: {plain}")
+    missing = [w.__name__ for w in required if w.kernel_launches == 0]
+    check(not missing, f"{label} did not launch {missing}")
+
+
+def _route_kernel(backend: str):
+    """The hand kernel of an f32 spgemm_csr route (None: torch ops only:
+    dense, gustavson, xla)."""
+    from spgemm_tpu_torch.ops import kernels, scan_kernels
+
+    return {"strip": kernels.strip_numeric,
+            "esc": scan_kernels.esc_scan}.get(backend.split("(")[0])
+
+
+class _CsrSpy:
+    """Wraps an example module's spgemm_csr: per call the route, its wall
+    time and the hand-kernel launches during it; keep=True also keeps A
+    and C for the oracle."""
+
+    def __init__(self, mod, keep: bool = False):
+        self.mod, self.keep, self.calls = mod, keep, []
+
+    def __enter__(self):
+        import torch
+
+        self.saved = self.mod.spgemm_csr
+
+        def spy(*args, **kw):
+            before = _counts()
+            t0 = time.perf_counter()
+            c, res = self.saved(*args, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            delta = {k: (v[0] - before[k][0], v[1] - before[k][1])
+                     for k, v in _counts().items() if v != before[k]}
+            self.calls.append(dict(
+                backend=res.stats["backend"], wall=wall, delta=delta,
+                a=args[0] if self.keep else None, c=c if self.keep else None))
+            return c, res
+
+        self.mod.spgemm_csr = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.spgemm_csr = self.saved
+
+    def check(self, label: str) -> None:
+        """Each call's route launched its hand kernel (where it has one)."""
+        for i, call in enumerate(self.calls):
+            w = _route_kernel(call["backend"])
+            print(f"phase {label}: spgemm_csr call {i} backend="
+                  f"{call['backend']} wall_s={call['wall']!r} hand-kernel "
+                  f"launches (kernel, plain)={call['delta'] or 'none'}")
+            check(w is None or call["delta"].get(w.__name__, (0, 0))[0] >= 1,
+                  f"{label} call {i} took {call['backend']} but its kernel "
+                  f"did not launch")
+
+
+def _example_run(label: str, fn):
+    """Runs `fn` (an example's entry point) once under torch.profiler
+    (device activity only), its printed lines re-printed with the card's
+    name; prints the wall time and its split: the device time of every
+    kernel, copy and memset, and the rest, the host's. Returns fn()."""
+    import contextlib
+    import io
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+                contextlib.redirect_stdout(buf):
+            out = fn()
+            torch.cuda.synchronize()
+    finally:
+        for line in buf.getvalue().splitlines():
+            print(f"{CARD} | phase {label}: {line}")
+    wall = time.perf_counter() - t0
+    dev = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            dev[e.key] = e.self_device_time_total / 1e3
+    dev_ms = sum(dev.values())
+    top = ", ".join(f"{k[:48]} {v!r} ms" for k, v in
+                    sorted(dev.items(), key=lambda kv: -kv[1])[:5])
+    print(f"{CARD} | phase {label}-time: wall_s={wall!r} device_ms="
+          f"{dev_ms!r} (torch.profiler: kernels, copies, memsets) host_ms="
+          f"{wall * 1e3 - dev_ms!r}; device busy {dev_ms / (wall * 1e3):.1%};"
+          f" top device work: {top or 'none'}")
+    return out
+
+
+def run_digit_phase(a0) -> None:
+    """Phase 22: spgemm_esc(mode="digit") on random65536 three ways
+    (integer values: equal to scipy; Gaussian f32: rtol 1e-5; f64: rtol
+    1e-10), no hand kernel; then its timings."""
+    import torch
+
+    from spgemm_tpu_torch.ops import golden
+    from spgemm_tpu_torch.ops.esc import spgemm_esc
+
+    name = f"random{a0.m}"
+    _zero_counters(*_all_wrappers())
+    t0 = time.perf_counter()
+    c, tms, plan = spgemm_esc(a0, a0, mode="digit", device=DEV)
+    wall = time.perf_counter() - t0
+    slots = sum(cls["slot"].size for cls in plan.classes)
+    print(f"{CARD} | phase digit: {name} nnz={a0.nnz} F={plan.num_products} "
+          f"nnzC={plan.nnz_c} classes (W, G)="
+          f"{[(cls['w'], cls['slot'].shape[0]) for cls in plan.classes]} "
+          f"slots={slots} integer wall_s={wall!r} timings_ms={tms}")
+    t0 = time.perf_counter()
+    ref = golden.spgemm_scipy(a0, a0)
+    print(f"phase digit: scipy oracle {time.perf_counter() - t0!r} s")
+    _check_exact("digit integer", c, ref)
+    del c, ref
+    ag = a0.with_data(np.random.default_rng(23).standard_normal(a0.nnz))
+    t0 = time.perf_counter()
+    plan.refresh_values(ag.data, ag.data)
+    ref = golden.spgemm_scipy(ag, ag)
+    print(f"phase digit: refresh_values and scipy oracle "
+          f"{time.perf_counter() - t0!r} s")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    c, tms, _ = spgemm_esc(ag, ag, plan=plan, device=DEV)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{CARD} | phase digit: Gaussian f32 wall_s={wall!r} timings_ms="
+          f"{tms} peak device memory {peak!r} bytes ({held!r} held before)")
+    _check_close("digit f32 Gaussian", c, ref, rtol=GAUSS_RTOL,
+                 atol_rel=1e-6)
+    t0 = time.perf_counter()
+    c, tms, _ = spgemm_esc(ag, ag, plan=plan, dtype=torch.float64,
+                           device=DEV)
+    wall = time.perf_counter() - t0
+    print(f"{CARD} | phase digit: f64 wall_s={wall!r} timings_ms={tms}")
+    _check_close("digit f64", c, ref, rtol=F64_RTOL, atol_rel=F64_ATOL)
+    del c, ref
+    _check_no_kernel("digit")
+    digit_timings(plan, ag, peak)
+
+
+def digit_timings(plan, ag, peak: int) -> None:
+    """Phase 22's timing lines: the numeric phase by CUDA events, its
+    device split by aten op, the bound (the operand streams and C moved
+    once; the one-hot contraction's 2*G*64*W*32 FP32 operations), the
+    unchunked temporaries against the peak, torch.sparse.mm on A."""
+    import torch
+
+    from spgemm_tpu_torch.ops import esc as pesc
+
+    t0 = time.perf_counter()
+    ms = pesc.time_esc(plan, warmup=1, iters=5)
+    t1 = time.perf_counter()
+    ops = plan.to_device(DEV)
+    split = op_split(lambda: pesc.esc_numeric(plan, ops), iters=2)
+    print(f"phase digit-time: time_esc call {t1 - t0!r} s, op_split "
+          f"{time.perf_counter() - t1!r} s")
+    slots = sum(cls["slot"].size for cls in plan.classes)
+    moved = _nbytes(t for d in ops for t in d.values()) + plan.nnz_c * 4
+    flops = 2.0 * slots * pesc.HI_W * pesc.LO_W
+    b_ms, b_by = bound_bytes("digit mode numeric (f32)", moved,
+                             [(flops, "f32")])
+    del ops
+    a_t = _torch_csr(ag, torch.float32)
+    lib = library_ms("torch.sparse.mm(A_csr, A_csr) f32 at random65536 "
+                     "(digit)", lambda: torch.sparse.mm(a_t, a_t), iters=3)
+    del a_t
+    total = sum(split.values())
+    shares = ", ".join(f"{k} {v!r} ms ({v / total:.1%})"
+                       for k, v in split.items()) if total else "none"
+    unchunked = slots * ((pesc.HI_W + pesc.LO_W) * 5 + 8)
+    print(f"{CARD} | phase digit-time: numeric_ms={ms!r} (CUDA events, "
+          f"median of 5, every width class) bound_ms={b_ms!r} (by {b_by}; "
+          f"{flops!r} FP32 operations, {moved} bytes) share "
+          f"{b_ms / ms:.1%}; torch.sparse.mm library_ms={lib!r}")
+    print(f"{CARD} | phase digit-time: device split per call (torch."
+          f"profiler, self device time by op): {shares}; sum {total!r} ms")
+    print(f"{CARD} | phase digit-time: peak device memory {peak!r} bytes; "
+          f"the unchunked temporaries would take {unchunked!r} bytes, the "
+          f"chunk budget is {pesc.DIGIT_BYTES!r}")
+
+
+def run_triangle_phase(n: int = TRI_N, deg: int = TRI_DEG) -> None:
+    """Phase 23: triangle_counting on random_graph(n, deg); the count must
+    equal scipy's sum(A .* A^2) / 6."""
+    from spgemm_tpu_torch.examples import triangle_counting as tc
+
+    adj = tc.random_graph(n, deg)
+    print(f"{CARD} | phase triangle: random_graph({n}, {deg}) "
+          f"{adj.nnz} directed edges")
+    _zero_counters(*_all_wrappers())
+    with _CsrSpy(tc) as spy:
+        t = _example_run("triangle",
+                         lambda: tc.count_triangles(adj, device=DEV))
+    spy.check("triangle")
+    _launched("triangle")
+    sa = _sp(adj)
+    sa.data[:] = 1.0
+    ref = int(round(sa.multiply(sa @ sa).sum() / 6))
+    print(f"phase check: triangle count={t} scipy={ref}")
+    check(t == ref, f"triangle count {t} differs from scipy's {ref}")
+
+
+def run_amg_phase(g: int = AMG_G, levels: int = AMG_LEVELS) -> None:
+    """Phase 24: amg_galerkin.coarsen; its own check (pattern equal, rtol
+    1e-5 against scipy) must pass at every level."""
+    from spgemm_tpu_torch.examples import amg_galerkin as am
+
+    _zero_counters(*_all_wrappers())
+    with _CsrSpy(am) as spy:
+        try:
+            coarse = _example_run("amg",
+                                  lambda: am.coarsen(g, levels, device=DEV))
+        except SystemExit as e:
+            raise SmokeFailure(f"amg_galerkin's check failed ({e})") from e
+    spy.check("amg")
+    _launched("amg")
+    print(f"phase check: amg {levels} levels from {g * g} unknowns verified "
+          f"by the example; coarsest {coarse[-1].shape} nnz "
+          f"{coarse[-1].nnz}")
+
+
+def run_mcl_phase(n: int = MCL_N) -> None:
+    """Phase 25: markov_clustering.mcl; each iteration's expansion against
+    scipy on the same M (pattern equal after dropping explicit zeros, rtol
+    1e-5, atol 1e-6*max|C|)."""
+    from spgemm_tpu_torch.examples import markov_clustering as mc
+    from spgemm_tpu_torch.ops import golden
+
+    adj = mc.clustered_graph(n)
+    _zero_counters(*_all_wrappers())
+    with _CsrSpy(mc, keep=True) as spy:
+        labels = _example_run("mcl", lambda: mc.mcl(adj, device=DEV))
+    spy.check("mcl")
+    _launched("mcl")
+    for i, call in enumerate(spy.calls):
+        _check_close(f"mcl iteration {i} expansion", call["c"],
+                     golden.spgemm_scipy(call["a"], call["a"]),
+                     rtol=GAUSS_RTOL, atol_rel=1e-6)
+    n_found = np.unique(labels[labels >= 0]).size
+    print(f"phase mcl: {n} nodes, {adj.nnz} edges: clusters found "
+          f"{n_found}; routes {[c['backend'] for c in spy.calls]}")
+
+
+def run_pagerank_phase(n: int = PR_N, deg: int = PR_DEG) -> None:
+    """Phase 26: pagerank's iteration, within L1 1e-5 of the same
+    iteration count in f64 with scipy, summing to 1 within 1e-3; then the
+    two-hop pattern through spgemm_esc, equal to scipy's A^2 pattern."""
+    from spgemm_tpu_torch.examples import pagerank as pr
+    from spgemm_tpu_torch.ops import scan_kernels
+    from spgemm_tpu_torch.utils.generators import rmat
+
+    g = rmat(np.random.default_rng(7), n, deg, values="ones")
+    print(f"{CARD} | phase pagerank: R-MAT n={n} edges={g.nnz}")
+    _zero_counters(*_all_wrappers())
+    x, iters = _example_run("pagerank", lambda: pr.pagerank(g, device=DEV))
+    p, dangling = pr.transition(g)
+    sp_p, d = _sp(p), pr.DAMPING
+    xr = np.full(n, 1.0 / n)
+    for _ in range(iters):
+        xr = d * (sp_p @ xr) + (d * xr[dangling].sum() + 1 - d) / n
+    l1 = float(np.abs(x[:, 0] - xr).sum())
+    total = float(x.sum())
+    print(f"phase check: pagerank {iters} iterations L1 to the f64 scipy "
+          f"iteration {l1!r} (limit 1e-5) sum {total!r}")
+    check(l1 <= 1e-5 and abs(total - 1.0) < 1e-3,
+          f"pagerank differs from scipy's: L1 {l1}, sum {total}")
+    c2, tms, plan = _example_run("pagerank-two-hop",
+                                 lambda: pr.spgemm_esc(g, g, device=DEV))
+    _launched("pagerank", required=(scan_kernels.esc_scan,))
+    s2 = (_sp(g) @ _sp(g)).tocsr()
+    s2.sort_indices()
+    same = (np.array_equal(c2.indptr, s2.indptr)
+            and np.array_equal(c2.indices, s2.indices))
+    print(f"phase check: pagerank two-hop pairs {c2.nnz} (F "
+          f"{plan.num_products}) scipy {s2.nnz} pattern_equal={same} "
+          f"timings_ms={tms}")
+    check(same, "the two-hop pattern differs from scipy's A^2")
+
+
+def run_power_phase(n: int = PM_N, band: int = PM_BAND,
+                    iters: int = PM_ITERS) -> None:
+    """Phase 27: power_method with x resident: the narrow SpMM kernel
+    launches once per iteration, lambda within 1e-5 relative of the f64
+    Rayleigh quotient of the final x."""
+    from spgemm_tpu_torch.examples import power_method as pm
+    from spgemm_tpu_torch.ops import spmm_kernels
+    from spgemm_tpu_torch.utils.timing import cuda_event_ms
+
+    a = pm.banded_spd(n, band)
+    print(f"{CARD} | phase power: banded_spd({n}, {band}) nnz={a.nnz}")
+    w = spmm_kernels.spmm_strip
+    _zero_counters(*_all_wrappers())
+    lam, x, ps = _example_run(
+        "power", lambda: pm.power_iteration(a, iters, device=DEV))
+    _launched("power", required=(w,))
+    print(f"phase check: power narrow-form launches {w.narrow_launches} of "
+          f"{w.kernel_launches} (expected {iters})")
+    check(w.kernel_launches == w.narrow_launches == iters,
+          f"power_method launched {w.kernel_launches} SpMM kernels, "
+          f"{w.narrow_launches} narrow, not {iters}")
+    xd = x.double().cpu().numpy()
+    ax = _sp(a) @ xd
+    rq = float(xd @ ax / (xd @ xd))
+    resid = float(np.linalg.norm(ax - lam * xd) / abs(lam))
+    print(f"phase check: power lambda={lam!r} f64 Rayleigh quotient {rq!r} "
+          f"rel diff {abs(lam - rq) / abs(rq)!r} (limit 1e-5) "
+          f"|Ax - lambda x|/|lambda| {resid!r}")
+    check(abs(lam - rq) <= 1e-5 * abs(rq),
+          f"power_method's lambda {lam} differs from the Rayleigh quotient")
+    step_ms = cuda_event_ms(lambda: ps.step(x), warmup=3, iters=20)
+    print(f"{CARD} | phase power-time: per-iteration ms {step_ms!r} (CUDA "
+          f"events, median of 20: pack x, one narrow SpMM launch, norm, "
+          f"dot)")
+
+
+def run_serving_phase(n: int = SERVE_N, ticks: int = SERVE_TICKS) -> None:
+    """Phase 28: serving_loop.serve: every tick of the three executors
+    must print OK; the strip and the premul scan kernel must launch."""
+    from spgemm_tpu_torch.examples import serving_loop as sl
+    from spgemm_tpu_torch.ops import kernels, scan_kernels
+
+    _zero_counters(*_all_wrappers())
+    ok = _example_run("serving", lambda: sl.serve(n, ticks, device=DEV))
+    _launched("serving", required=(kernels.strip_numeric,
+                                   scan_kernels.esc_scan))
+    print(f"phase check: serving {n} x {ticks} ticks all OK: {ok}")
+    check(ok, "a serving_loop tick printed MISMATCH")
+    serving_f32_yardstick(SERVE_FULL_N, ticks)
+
+
+def serving_f32_yardstick(n: int, ticks: int) -> None:
+    """The serving loop's strip check (rtol 1e-4, atol 1e-6) applied to
+    scipy's own f32 product on the example's tick values at n: the worst
+    |C - C64| / (atol + rtol |C64|) per tick; above 1 is a MISMATCH."""
+    from spgemm_tpu_torch.examples import serving_loop as sl
+
+    rng = np.random.default_rng(42)   # serve()'s tick values, in order
+    a = sl.banded(n, 16)
+    sb = _sp(a)
+    worst = []
+    for _ in range(ticks):
+        sa = _sp(a.with_data(rng.standard_normal(a.nnz)))
+        ref = (sa @ sb).tocsr()
+        c32 = (sa.astype(np.float32) @ sb.astype(np.float32)).tocsr()
+        ref.sort_indices()
+        c32.sort_indices()
+        check(np.array_equal(c32.indices, ref.indices), "f32 pattern")
+        worst.append(float((np.abs(c32.data - ref.data)
+                            / (1e-6 + 1e-4 * np.abs(ref.data))).max()))
+    print(f"phase serving: the strip ticks' check on scipy's f32 product "
+          f"at n={n}: worst error / tolerance per tick {worst}")
+
+
+def run_entry_phase() -> None:
+    """Phase 29: entry() on the card equals the CPU's (integer values)."""
+    import torch
+
+    from spgemm_tpu_torch.entry import entry
+
+    _zero_counters(*_all_wrappers())
+    fn, args = entry(device=DEV)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    fn_c, args_c = entry(device="cpu")
+    same = all(torch.equal(x.cpu(), y) for x, y in zip(got, fn_c(*args_c)))
+    print(f"phase entry: {len(args)} tensors on {args[0].device}, c_val "
+          f"{tuple(got[0].shape)} equal to the CPU's: {same}")
+    check(same, "entry() on the card differs from the CPU")
+    _check_no_kernel("entry")
+
+
+def run_example_phases(rnd) -> None:
+    """Phases 22-29, with their total wall time."""
+    t0 = time.perf_counter()
+    run_digit_phase(rnd)
+    run_triangle_phase()
+    run_amg_phase()
+    run_mcl_phase()
+    run_pagerank_phase()
+    run_power_phase()
+    run_serving_phase()
+    run_entry_phase()
+    print(f"{CARD} | phase examples: phases 22-29 took "
+          f"{time.perf_counter() - t0!r} s")
+
+
 def run() -> dict:
     import torch
 
@@ -1650,7 +2102,7 @@ def run() -> dict:
           f"plain_ms={nw_plain_ms!r}, equal to the plain version")
     del nw_ops
     # the same plan with Gaussian values: no operand is a TF32 value, so
-    # every k step takes the 3xTF32 split (three products, not one)
+    # every k step takes the exact three-way split (six products, not one)
     ag = a.with_data(np.random.default_rng(0).standard_normal(a.nnz))
     gs = build_strip_args(csr_to_tiles(ag, TM, TN), csr_to_tiles(ag, TN, TN))
     g_ops = gs.to_device("cuda")
@@ -1668,8 +2120,9 @@ def run() -> dict:
     g_ms = cuda_event_ms(lambda: kernels.strip_numeric(*g_ops, **g_kw),
                          warmup=5, iters=50)
     print(f"phase time: Gaussian values on the main plan (kwin={gs.kwin} "
-          f"pairs={gs.num_pairs}) kernel_ms={g_ms!r} (3xTF32 on every k "
-          f"step) max_abs_err={g_err!r} max_abs={g_scale!r}, counts equal")
+          f"pairs={gs.num_pairs}) kernel_ms={g_ms!r} (the three-way split "
+          f"on every k step) max_abs_err={g_err!r} max_abs={g_scale!r}, "
+          f"counts equal")
     del g_ops
     print(f"phase time: peak device memory "
           f"{torch.cuda.max_memory_allocated()!r} bytes")
@@ -1686,6 +2139,7 @@ def run() -> dict:
     torch.cuda.empty_cache()
     compare_spmm_plans()
     spmm_entries = run_spmm_path(suite)
+    rnd = suite[f"random{SUITE_N}"]
     del suite
     torch.cuda.empty_cache()
 
@@ -1700,6 +2154,9 @@ def run() -> dict:
     ag, ref_g = run_gustavson_route(a, ref)
     run_dense_route()
     run_slab_f64_route(ag, ref_g)
+    del ag, ref_g, a, ref
+    torch.cuda.empty_cache()
+    run_example_phases(rnd)
 
     return {
         "kernels": [{

@@ -11,7 +11,9 @@ the main plans of `chip_smoke.py`: the cant-like 62,451^2 A^2 with
 standard-normal values at 32x128 tiles (the Ozaki kernel), the suite's
 rmat65536 A^2 (premul and mul), random65536 with standard-normal values
 (double-double), the cant-like A^2 at 64x128 with integer values (the
-strip kernel, and the pair kernel on the pair schedule), and the suite's
+strip kernel, and the pair kernel on the pair schedule; the strip kernel
+also with standard-normal values, and each side's worst error on long
+sums of positive products against scipy's f64 product), and the suite's
 banded65536 at 16x128 tiles with standard-normal X at k = 128 (resident
 form) and k = 256 (window form; the SpMM kernel's 128-column form). Where
 both sides share a C interface the port's wrapper drives either library;
@@ -183,6 +185,33 @@ def _ab(label, calls, plain, close=False):
     return times
 
 
+def _strip_long_sums(libs) -> None:
+    """Prints each strip library's worst error on long sums of positive
+    products, C = A (256 x 4096) times B (4096 x 256) at 30% density with
+    uniform values (about 370 products over 512 mma steps per entry),
+    against scipy's f64 product: max |C - C64| / (1e-5 |C64| + 1e-6
+    max|C64|), so above 1 misses rtol 1e-5."""
+    import spgemm_tpu_torch as pt
+    from spgemm_tpu_torch.ops import golden, kernels
+
+    rng = np.random.default_rng(21)
+    mk = lambda m, n: pt.CSR.from_dense(
+        rng.random((m, n)) * (rng.random((m, n)) < 0.3))
+    a, b = mk(256, 4096), mk(4096, 256)
+    ref = golden.spgemm_scipy(a, b)
+    at, bt = pt.csr_to_tiles(a, 16, 128), pt.csr_to_tiles(b, 128, 128)
+    lim = 1e-5 * np.abs(ref.data) + 1e-6 * np.abs(ref.data).max()
+    for side, lib in libs.items():
+        kernels._lib = lib
+        got = golden.drop_explicit_zeros(
+            pt.spgemm(at, bt, backend="strip", device="cuda").c.to_csr())
+        if not got.pattern_equal(ref):
+            raise SystemExit(f"long positive sums: {side} pattern differs")
+        worst = float((np.abs(got.data - ref.data) / lim).max())
+        print(f"strip_numeric long positive sums: {side} worst error / "
+              f"(1e-5|C| + 1e-6 max|C|) = {worst!r}")
+
+
 def main(base_dir: str) -> int:
     import torch
 
@@ -284,6 +313,21 @@ def main(base_dir: str) -> int:
          for side, lib in sides("strip_numeric").items()},
         lambda: kernels.strip_numeric_plain(*ops, **kw))
     del ops, args, run
+    # the same plan with standard-normal values: every k step takes the
+    # 3xTF32 branch
+    ag = a0.with_data(np.random.default_rng(0).standard_normal(a0.nnz))
+    gargs = build_strip_args(csr_to_tiles(ag, 64, 128),
+                             csr_to_tiles(ag, 128, 128))
+    gops = gargs.to_device("cuda")
+    gkw = gargs.kernel_kwargs()
+    grun = lambda: kernels.strip_numeric(*gops, **gkw)
+    out["strip_numeric_gaussian"] = _ab(
+        "strip_numeric cant-like tm 64 Gaussian",
+        {side: _swap(kernels, lib, grun)
+         for side, lib in sides("strip_numeric").items()},
+        lambda: kernels.strip_numeric_plain(*gops, **gkw), close=True)
+    del gops, gargs, grun, ag
+    _strip_long_sums(sides("strip_numeric"))
     torch.cuda.empty_cache()
     sched = build_pair_schedule(at, bt)
     up = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to("cuda")

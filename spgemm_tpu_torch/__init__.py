@@ -22,9 +22,15 @@ Layout mirrors the JAX package:
               with its plain version (pair_kernels.py, source in
               csrc/pair_accumulate.cu), orchestrator (spgemm.py), resident
               executors (executor.py), scipy oracle (golden.py).
-  * io/     — Matrix Market reader.
+              The ESC route's digit mode (esc.py: EscPlan, a one-hot
+              `bmm`) has no hand kernel, as the reference's is XLA.
+  * io/     — Matrix Market reader and writer, .npz checkpoints.
   * utils/  — native C++ host layer (g++-built `native/csr2tile.cpp`),
-              generators, CUDA-event timing, CSV sinks.
+              generators, CUDA-event timing and the torch.profiler trace,
+              the H100 roofline, CSV sinks.
+  * entry.py, examples/ — the compile-check entry point and the six
+              example applications (`python -m
+              spgemm_tpu_torch.examples.<name>`).
 
 Public functions take `device`: None means CUDA and raises without a
 card; "cpu" runs the plain PyTorch versions (the tests use it).
@@ -32,13 +38,18 @@ card; "cpu" runs the plain PyTorch versions (the tests use it).
 
 from spgemm_tpu_torch.models.csr import CSR
 from spgemm_tpu_torch.models.tile import TileMat, csr_to_tiles, tiles_to_csr
-from spgemm_tpu_torch.ops.esc import ScanPlan, build_esc_scan_plan, spgemm_esc
+from spgemm_tpu_torch.ops.esc import (EscPlan, ScanPlan, build_esc_plan,
+                                      build_esc_scan_plan, esc_scan_dd,
+                                      spgemm_esc)
 from spgemm_tpu_torch.ops.ozaki import build_ozaki_plan, spgemm_ozaki
 from spgemm_tpu_torch.ops.spmm import spmm, spmm_gather, spmv
 from spgemm_tpu_torch.ops.spgemm import SpGEMMResult, spgemm, spgemm_csr
 from spgemm_tpu_torch.ops.executor import (EscExecutor, OzakiExecutor,
                                            StripExecutor)
-from spgemm_tpu_torch.io.mmio import read_mtx
+from spgemm_tpu_torch.io.mmio import read_mtx, write_mtx
+from spgemm_tpu_torch.io import checkpoint
+
+__version__ = "0.1.0"
 
 __all__ = [
     "CSR",
@@ -58,6 +69,12 @@ __all__ = [
     "spmm_gather",
     "build_esc_scan_plan",
     "ScanPlan",
+    "esc_scan_dd",
+    "build_esc_plan",
+    "EscPlan",
     "EscExecutor",
     "read_mtx",
+    "write_mtx",
+    "checkpoint",
+    "__version__",
 ]

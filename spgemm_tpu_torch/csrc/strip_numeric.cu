@@ -32,16 +32,27 @@
 // host re-bucketing.
 //
 // Arithmetic on the tensor cores.
-//   Values: 3xTF32. Each f32 operand x splits as hi = cvt.rna.tf32(x),
-//   lo = cvt.rna.tf32(x - hi), and mma.sync.m16n8k8 (tf32 in, f32
-//   accumulate) adds lo_a.hi_b + hi_a.lo_b + hi_a.hi_b. That keeps f32
-//   accuracy (the JAX reference multiplies at Precision.HIGHEST; TF32
-//   alone misses by about 1e-3). Where every operand of a warp's k step is
-//   already a TF32 value (its low 13 mantissa bits zero: integers below
-//   2^11, the bench's value model), lo would be zero: the step runs one
-//   product on the raw bits, with no split. With integer values every
-//   product and partial sum is an integer below 2^24, so C equals the
-//   plain f32 version bit for bit.
+//   Values: TF32 mma.sync.m16n8k8 (tf32 in, f32 accumulate) on an exact
+//   three-way split. Each f32 operand x is hi + mid + lo, three TF32
+//   values (hi = cvt.rna.tf32(x), mid = cvt.rna.tf32(x - hi), lo the at
+//   most 3 bits left), and the six partial products larger than 2^-33
+//   |a.b| (lo.hi, hi.lo, mid.mid, mid.hi, hi.mid, hi.hi) go, smallest
+//   first, into a zeroed partial sum that is then added to the
+//   accumulator with an ordinary (round-to-nearest) f32 add. So every
+//   product is exact to far below f32 rounding, and the sum is as
+//   accurate as a sequential f32 sum, which the reference's
+//   Precision.HIGHEST is. Two cheaper schemes were measured short of it:
+//   3xTF32 (hi, lo = cvt.rna.tf32(x - hi), three products) leaves about
+//   2^-22 |a.b| per product, four times an f32 product's rounding; and
+//   accumulating the products in place lets the mma's truncating
+//   alignment lose up to an ulp of the running sum per product, always
+//   downward (1.6x rtol 1e-5 on sums of ~370 positive products, where
+//   this kernel now stays at 0.1x; kernel_ab.py).
+//   Where every operand of a warp's k step is already a TF32 value (its
+//   low 13 mantissa bits zero: integers below 2^11, the bench's value
+//   model), the split is not needed: the step runs one product on the raw
+//   bits. With integer values every product and partial sum is an integer
+//   below 2^24, so C equals the plain f32 version bit for bit.
 //   Counts: the occupancy planes are already bf16 0/1, so they go
 //   straight into mma.sync.m16n8k16 (bf16 in, f32 accumulate), loaded
 //   with ldmatrix (.trans for the N-major B slab): exact counts, no
@@ -67,9 +78,10 @@
 // What bounds it on the card. At the cant-like headline (64x128 A tiles,
 // 5,844 pairs, 3,968 padded slots) the bytes each read or written once
 // are 503 MB: A planes 97 MB, B slab 144 MB, C planes 260 MB, so 0.150 ms
-// at 3.35 TB/s. The operations (3 x 12.3 GFLOP of TF32 at 495 TFLOP/s and
-// 12.3 GFLOP of bf16 at 989) need 0.087 ms. So the bytes bound it, and
-// the C planes' block padding is the largest part of them.
+// at 3.35 TB/s. The operations (12.3 GFLOP of TF32 on the integer model,
+// six times that with split values, at 495 TFLOP/s, and 12.3 GFLOP of
+// bf16 at 989) need 0.037-0.162 ms. So the bytes bound it on integer
+// values, and the C planes' block padding is the largest part of them.
 //
 // Limits (checked by the caller, spgemm_tpu_torch/ops/kernels.py):
 //   (tm, tn) in {(8,128), (16,128), (32,128), (64,128)} (tm 8 runs
@@ -122,6 +134,17 @@ struct Cfg {
   static_assert(AV % 16 == 0 && AO % 16 == 0 && BV % 16 == 0,
                 "stage parts must stay 16-byte aligned");
 };
+
+// x = hi + mid + lo exactly, each a TF32 value: hi and mid carry 11
+// significant bits each, and lo the at most 3 that remain of f32's 24
+__device__ __forceinline__ void split3_tf32(float x, uint32_t& hi,
+                                            uint32_t& mid, uint32_t& lo) {
+  uint32_t m;
+  split_tf32(x, hi, m);  // m = rna(x - hi)
+  mid = m;
+  const float rest = x - __uint_as_float(hi) - __uint_as_float(mid);
+  lo = __float_as_uint(rest);  // exact in f32, and TF32-exact
+}
 
 template <int TM>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -268,7 +291,7 @@ strip_numeric_kernel(const float* __restrict__ a_val,
         b[nt][1] = bp[nt * 8 + 4 * kBvStride];
         low |= __float_as_uint(b[nt][0]) | __float_as_uint(b[nt][1]);
       }
-      if (!__any_sync(0xffffffffu, (low & 0x1fffu) != 0u)) {
+      if (!__any_sync(0xffffffffu, (low & kTf32Low) != 0u)) {
         // every operand is a TF32 value (integers below 2^11 are): one
         // product each, exact, on the raw bits
         const uint32_t ah[4] = {__float_as_uint(a[0]), __float_as_uint(a[1]),
@@ -279,18 +302,28 @@ strip_numeric_kernel(const float* __restrict__ a_val,
                    __float_as_uint(b[nt][1]));
         }
       } else {
-        // 3xTF32: lo_a.hi_b + hi_a.lo_b + hi_a.hi_b
-        uint32_t ah[4], al[4];
+        // B is read from shared memory again below instead of held in
+        // b[][]: the split needs those registers at tm 64
+        asm volatile("" ::: "memory");
+        uint32_t ah[4], am[4], al[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) split_tf32(a[q], ah[q], al[q]);
+        for (int q = 0; q < 4; ++q) split3_tf32(a[q], ah[q], am[q], al[q]);
 #pragma unroll
         for (int nt = 0; nt < C::NT; ++nt) {
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(b[nt][0], bh0, bl0);
-          split_tf32(b[nt][1], bh1, bl1);
-          mma_tf32(acc_v[nt], al, bh0, bh1);
-          mma_tf32(acc_v[nt], ah, bl0, bl1);
-          mma_tf32(acc_v[nt], ah, bh0, bh1);
+          uint32_t bh[2], bm[2], bl[2];
+          split3_tf32(bp[nt * 8], bh[0], bm[0], bl[0]);
+          split3_tf32(bp[nt * 8 + 4 * kBvStride], bh[1], bm[1], bl[1]);
+          // the six partial products above 2^-33 |a.b|, smallest first,
+          // into a zeroed partial sum; then one round-to-nearest add
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(part, al, bh[0], bh[1]);
+          mma_tf32(part, ah, bl[0], bl[1]);
+          mma_tf32(part, am, bm[0], bm[1]);
+          mma_tf32(part, am, bh[0], bh[1]);
+          mma_tf32(part, ah, bm[0], bm[1]);
+          mma_tf32(part, ah, bh[0], bh[1]);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc_v[nt][q] += part[q];
         }
       }
     }

@@ -1,5 +1,5 @@
-"""Matrix Market (.mtx) reader producing CSR (port of
-`spgemm_tpu/io/mmio.py:read_mtx`).
+"""Matrix Market (.mtx) reader producing CSR, and writer (port of
+`spgemm_tpu/io/mmio.py:read_mtx, write_mtx`).
 
 Parses the MatrixMarket banner, handles real / integer / pattern /
 complex fields, expands symmetric / skew-symmetric / hermitian storage to
@@ -152,3 +152,17 @@ def read_mtx(
 
     csr = CSR.from_coo(rows, cols, vals.astype(dtype), (m, n))
     return csr, is_symmetric
+
+
+def write_mtx(path: str | os.PathLike, csr: CSR, comment: str = "") -> None:
+    """Write a CSR matrix in coordinate-real-general form (1-based)."""
+    with open(os.fspath(path), "w") as f:
+        f.write("%%MatrixMarket matrix coordinate real general\n")
+        if comment:
+            for line in comment.splitlines():
+                f.write(f"% {line}\n")
+        f.write(f"{csr.m} {csr.n} {csr.nnz}\n")
+        rows = csr.rows_expanded() + 1
+        cols = csr.indices.astype(np.int64) + 1
+        for r, c, v in zip(rows, cols, csr.data):
+            f.write(f"{r} {c} {v:.17g}\n")

@@ -94,6 +94,13 @@ class CSR:
         np.cumsum(np.bincount(self.indices, minlength=n), out=t_indptr[1:])
         return CSR(t_indptr, t_indices, t_data, (n, m))
 
+    def to_dense(self) -> np.ndarray:
+        """Dense (m, n) array; duplicate entries (possible before
+        canonicalization) are summed."""
+        dense = np.zeros(self.shape, dtype=self.data.dtype)
+        np.add.at(dense, (self.rows_expanded(), self.indices), self.data)
+        return dense
+
     def with_data(self, data: np.ndarray) -> "CSR":
         if data.shape != self.data.shape:
             raise ValueError(f"data shape {data.shape} != {self.data.shape}")
@@ -105,6 +112,12 @@ class CSR:
         integer-exact in f32."""
         return self.with_data(
             (np.arange(self.nnz, dtype=np.int64) % modulus).astype(np.float64)
+        )
+
+    def sorted_dedup(self) -> "CSR":
+        """Canonicalize: sort column indices within rows, sum duplicates."""
+        return CSR.from_coo(
+            self.rows_expanded(), self.indices, self.data, self.shape
         )
 
     def __eq__(self, other: object) -> bool:  # structural + value equality

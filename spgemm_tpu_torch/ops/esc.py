@@ -12,11 +12,19 @@ window combine as torch ops (row gathers plus reshape-sums), then a small
 host epilogue that finishes windows taller than COMBINE_K rows in f64.
 
 f64 runs the double-double kernel on (hi, lo) f32 planes of the exact
-products. The digit mode (`EscPlan`, `esc_digit_reduce`) is not ported:
-`spgemm_esc(mode="digit")` raises NotImplementedError naming its
-ROADMAP.md item. The JAX package's SPGEMM_META16 and
-SPGEMM_DEVICE_COMBINE switches are not carried: the device always gets
-the int16 meta plane and the combine always runs on the device.
+products. The JAX package's SPGEMM_META16 and SPGEMM_DEVICE_COMBINE
+switches are not carried: the device always gets the int16 meta plane and
+the combine always runs on the device.
+
+The digit mode (`EscPlan`, `build_esc_plan`, `esc_digit_reduce`) is the
+portable formulation: C's value array is cut into groups of S_SLOTS = 2048
+slots, each group's products are laid out as padded (G, W) operand
+streams with a slot id each, and the device contracts
+``out[g, h, a] = sum_w (hi==h) * (lo==a) * av*bv`` as a batched one-hot
+matmul (hi = slot >> 5, lo = slot & 31). The reference runs it as an XLA
+`dot_general`, so here it is torch ops (`bmm` in full FP32, or float64),
+with no hand kernel. Padding products carry av = 0 and add exactly 0.
+`spgemm_esc` runs it for mode="digit" or an EscPlan.
 """
 
 from __future__ import annotations
@@ -29,11 +37,20 @@ import torch
 
 from spgemm_tpu_torch.models.csr import CSR, INDEX_DTYPE
 from spgemm_tpu_torch.ops import scan_kernels
-from spgemm_tpu_torch.utils.timing import resolve_device
+from spgemm_tpu_torch.ops.gustavson import full_fp32
+from spgemm_tpu_torch.utils.timing import cuda_event_ms, resolve_device
 
 SCAN_WIN = 128
 SCAN_BLK = 2048   # plans pad R to a multiple of this many rows
 COMBINE_K = 32    # windows taller than this (in output rows) take the tail
+
+S_SLOTS = 2048            # digit mode: slot positions per group (64 * 32)
+HI_W, LO_W = 64, 32
+W_MIN, W_MAX = 256, 4096  # product-stream width classes
+# device bytes the digit contraction's temporaries may take per chunk of
+# groups: the (G, W, 32) masked products, the (G, W, 64) one-hot and their
+# masks take ~9 GB at random65536 unchunked
+DIGIT_BYTES = 1 << 30
 
 
 def _expand_products(a: CSR, b: CSR):
@@ -67,6 +84,160 @@ def _structural_pattern(a: CSR, b: CSR) -> tuple[np.ndarray, np.ndarray]:
     sc = (sa @ sb).tocsr()
     sc.sort_indices()
     return sc.indptr.astype(np.int64), sc.indices.astype(np.int64)
+
+
+# --- digit mode: host symbolic ------------------------------------------------
+
+@dataclasses.dataclass
+class EscPlan:
+    """Pattern-static plan of the digit mode: everything the numeric phase
+    needs except the input values. `refresh_values` rebuilds the value
+    streams for new values under the same pattern (a host gather)."""
+
+    shape: tuple[int, int]
+    c_indptr: np.ndarray          # C pattern (structural, sorted cols)
+    c_indices: np.ndarray
+    nnz_c: int
+    num_products: int             # nnzCub
+    # per width class: {w, av, bv, slot, base, glen}, streams (G, W)
+    classes: list[dict]
+    # per class: (G*W,) int32 gather indices into a.data (-1 pad) / b.data
+    a_src: list[np.ndarray]
+    b_src: list[np.ndarray]
+    s_slots: int = S_SLOTS
+    symbolic_ms: float = 0.0
+
+    def to_device(self, device, dtype=torch.float32) -> list[dict]:
+        """Per class, the operand streams on `device`: av and bv in
+        `dtype` (float32 or float64), slot int32, each (G, W)."""
+        np_dt = np.float64 if is_f64(dtype) else np.float32
+        return [dict(av=torch.from_numpy(cls["av"].astype(np_dt)).to(device),
+                     bv=torch.from_numpy(cls["bv"].astype(np_dt)).to(device),
+                     slot=torch.from_numpy(cls["slot"]).to(device))
+                for cls in self.classes]
+
+    def refresh_values(self, a_data: np.ndarray, b_data: np.ndarray):
+        """Rebuild the value streams for new input values under the same
+        pattern (host gather, vectorized)."""
+        for cls, asrc, bsrc in zip(self.classes, self.a_src, self.b_src):
+            g, w = cls["slot"].shape
+            av = np.zeros(g * w, np.float64)
+            bv = np.zeros(g * w, np.float64)
+            ok = asrc >= 0
+            av[ok] = a_data[asrc[ok]]
+            bv[ok] = b_data[bsrc[ok]]
+            cls["av"] = av.reshape(g, w)
+            cls["bv"] = bv.reshape(g, w)
+
+
+def _sibling_layout(prod_cnt: np.ndarray, nnz_c: int, s_slots: int,
+                    f_max: int, w_min: int = W_MIN) -> dict:
+    """Group layout over fixed S-slot intervals of C's value array.
+    Interval g (slots [g*S, (g+1)*S)) receives prod_cnt[g] products; past
+    f_max it splits into sibling groups over the same interval (esc_trim
+    sums them). Each sibling lands in a width class at 256 granularity;
+    returns the flat offsets for the operand-stream fill."""
+    n_int = prod_cnt.size
+    n_sib = np.maximum(1, -(-prod_cnt // f_max)).astype(np.int64)
+    sib_ptr = np.zeros(n_int + 1, np.int64)
+    np.cumsum(n_sib, out=sib_ptr[1:])
+    total = int(sib_ptr[-1])
+    sib_int = np.repeat(np.arange(n_int, dtype=np.int64), n_sib)
+    sib_rank = np.arange(total, dtype=np.int64) - sib_ptr[sib_int]
+    sib_cnt = np.maximum(
+        np.minimum(prod_cnt[sib_int] - sib_rank * f_max, f_max), 1)
+    # 256-granular classes: pow2 classes would waste up to 2x padding
+    # where an interval's product count sits just above a power of two
+    w = np.maximum(w_min, -(-sib_cnt // 256) * 256)
+    sib_base = np.zeros(total, np.int64)
+    classes = []
+    flat_total = 0
+    for wv in sorted(set(w.tolist())):
+        ids = np.flatnonzero(w == wv)
+        sib_base[ids] = flat_total + np.arange(ids.size, dtype=np.int64) * wv
+        base = sib_int[ids] * s_slots
+        glen = np.minimum(s_slots, nnz_c - base)
+        classes.append(dict(w=int(wv), g=int(ids.size),
+                            flat_ofs=int(flat_total), base=base, glen=glen))
+        flat_total += ids.size * int(wv)
+    return dict(classes=classes, sib_ptr=sib_ptr, sib_base=sib_base,
+                flat_total=int(flat_total))
+
+
+def _esc_symbolic_numpy(a: CSR, b: CSR, s_slots: int, f_max: int):
+    """NumPy digit-mode symbolic (the same outputs as
+    utils/native.py:esc_symbolic_native): pattern via scipy, destinations
+    via one global searchsorted, a counting sort into the padded layout."""
+    c_indptr, c_indices = _structural_pattern(a, b)
+    nnz_c = int(c_indptr[-1])
+    n = b.n
+    a_idx, b_idx, rows, cols = _expand_products(a, b)
+    total = a_idx.size
+    n_int = max(1, -(-nnz_c // s_slots))
+    prod_cnt = np.zeros(n_int, np.int64)
+    dest = gidx = None
+    if total:
+        c_rows = np.repeat(np.arange(a.m, dtype=np.int64),
+                           np.diff(c_indptr).astype(np.int64))
+        c_keys = c_rows * n + c_indices
+        dest = np.searchsorted(c_keys, rows * n + cols)
+        del c_keys, c_rows, rows, cols
+        gidx = dest // s_slots
+        prod_cnt = np.bincount(gidx, minlength=n_int).astype(np.int64)
+    layout = _sibling_layout(prod_cnt, nnz_c, s_slots, f_max)
+    asrc = np.full(layout["flat_total"], -1, np.int32)
+    bsrc = np.zeros(layout["flat_total"], np.int32)
+    slot = np.zeros(layout["flat_total"], np.int32)
+    av = np.zeros(layout["flat_total"], np.float64)
+    bv = np.zeros(layout["flat_total"], np.float64)
+    if total:
+        order = np.argsort(gidx, kind="stable")
+        gs = gidx[order]
+        start = np.zeros(n_int + 1, np.int64)
+        np.cumsum(prod_cnt, out=start[1:])
+        rank = np.arange(total, dtype=np.int64) - start[gs]
+        sib = layout["sib_ptr"][gs] + rank // f_max
+        off = layout["sib_base"][sib] + rank % f_max
+        asrc[off] = a_idx[order]
+        bsrc[off] = b_idx[order]
+        slot[off] = (dest[order] - gs * s_slots).astype(np.int32)
+        av[off] = a.data[a_idx[order]]
+        bv[off] = b.data[b_idx[order]]
+    return (c_indptr, c_indices.astype(np.int32), total, prod_cnt,
+            asrc, bsrc, slot, layout, av, bv)
+
+
+def build_esc_plan(a: CSR, b: CSR, *, s_slots: int = S_SLOTS,
+                   f_max: int = W_MAX) -> EscPlan:
+    """Host symbolic of the digit mode: products -> (group, slot). Native
+    C++ (native/csr2tile.cpp esc_* passes) with a NumPy fallback."""
+    t0 = time.perf_counter()
+    if a.n != b.m:
+        raise ValueError(f"dimension mismatch: {a.shape} @ {b.shape}")
+    from spgemm_tpu_torch.utils.native import esc_symbolic_native
+
+    res = esc_symbolic_native(a, b, s_slots, f_max, W_MIN)
+    if res is None:
+        res = _esc_symbolic_numpy(a, b, s_slots, f_max)
+    (c_indptr, c_indices, total, _, asrc, bsrc, slot, layout, av, bv) = res
+    plan = EscPlan(
+        shape=(a.m, b.n), c_indptr=np.asarray(c_indptr, np.int64),
+        c_indices=c_indices.astype(INDEX_DTYPE, copy=False),
+        nnz_c=int(c_indptr[-1]), num_products=int(total), classes=[],
+        a_src=[], b_src=[], s_slots=s_slots,
+    )
+    for cls in layout["classes"]:
+        g, w, o = cls["g"], cls["w"], cls["flat_ofs"]
+        plan.classes.append(dict(
+            w=w, av=av[o : o + g * w].reshape(g, w),
+            bv=bv[o : o + g * w].reshape(g, w),
+            slot=slot[o : o + g * w].reshape(g, w),
+            base=cls["base"], glen=cls["glen"],
+        ))
+        plan.a_src.append(asrc[o : o + g * w])
+        plan.b_src.append(bsrc[o : o + g * w])
+    plan.symbolic_ms = (time.perf_counter() - t0) * 1e3
+    return plan
 
 
 def meta16_plane(meta: np.ndarray) -> np.ndarray:
@@ -508,6 +679,100 @@ def esc_scan_dd(plan: ScanPlan, a_data: np.ndarray, b_data: np.ndarray,
     return esc_scan_trim_combined_dd(plan, res, tail)
 
 
+# --- digit mode: numeric ---------------------------------------------------------
+
+def esc_digit_reduce(av: torch.Tensor, bv: torch.Tensor, slot: torch.Tensor,
+                     *, s_slots: int = S_SLOTS,
+                     budget_bytes: int = DIGIT_BYTES) -> torch.Tensor:
+    """The digit contraction: out[g, slot] = sum over products w of
+    av*bv where slot matches, for (G, W) streams; returns (G, s_slots) in
+    av's dtype. A batched one-hot `bmm` (hi digit one-hot against the
+    lo-masked products) in full FP32 (TF32 off) or float64, over chunks of
+    groups whose temporaries fit `budget_bytes`; each group's sum is
+    independent of the chunking."""
+    lo_w = min(LO_W, s_slots)
+    hi_w = s_slots // lo_w
+    shift = lo_w.bit_length() - 1
+    g_n, w = av.shape
+    out = torch.empty(g_n, hi_w, lo_w, dtype=av.dtype, device=av.device)
+    # per product: the masked products, the one-hot and their bool masks
+    per_group = w * ((hi_w + lo_w) * (av.element_size() + 1)
+                     + 2 * av.element_size())
+    chunk = max(1, budget_bytes // max(1, per_group))
+    lo_iota = torch.arange(lo_w, dtype=slot.dtype, device=slot.device)
+    hi_iota = torch.arange(hi_w, dtype=slot.dtype, device=slot.device)
+    with full_fp32():
+        for g0 in range(0, g_n, chunk):
+            sl = slice(g0, g0 + chunk)
+            q = av[sl] * bv[sl]                                  # (g, W)
+            s = slot[sl]
+            u = torch.where((s & (lo_w - 1))[:, :, None] == lo_iota,
+                            q[:, :, None], 0.0)                  # (g, W, lo)
+            ohh = ((s >> shift)[:, :, None] == hi_iota).to(av.dtype)
+            torch.bmm(ohh.transpose(1, 2), u, out=out[sl])       # (g, hi, lo)
+            del q, u, ohh
+    return out.view(g_n, s_slots)
+
+
+def esc_numeric(plan: EscPlan, dev_arrays: list[dict] | None = None, *,
+                dtype=torch.float32, device=None,
+                budget_bytes: int = DIGIT_BYTES) -> list[torch.Tensor]:
+    """The digit mode's numeric phase on the plan's streams (uploaded to
+    `device` unless `dev_arrays` holds them): the list of padded
+    per-class (G, s_slots) outputs, in final CSR slot order."""
+    if dev_arrays is None:
+        dev_arrays = plan.to_device(resolve_device(device), dtype)
+    return [esc_digit_reduce(d["av"], d["bv"], d["slot"],
+                             s_slots=plan.s_slots, budget_bytes=budget_bytes)
+            for d in dev_arrays]
+
+
+def esc_trim(plan: EscPlan, outs) -> CSR:
+    """C from the padded group outputs: each group's [0, len) slots go to
+    its contiguous interval of C's value array; sibling groups over the
+    same interval (flop splits) accumulate, in f64."""
+    c_val = np.zeros(plan.nnz_c, np.float64)
+    for cls, out in zip(plan.classes, outs):
+        arr = _host_f64(out)
+        base, glen = cls["base"], cls["glen"]
+        for gi in range(base.size):
+            lo, ln = int(base[gi]), int(glen[gi])
+            c_val[lo : lo + ln] += arr[gi, :ln]
+    return CSR(plan.c_indptr.astype(INDEX_DTYPE), plan.c_indices,
+               c_val, plan.shape)
+
+
+def time_esc(plan: EscPlan, *, dtype=torch.float32, warmup: int = 2,
+             iters: int = 10, device=None) -> float:
+    """Median device ms of the digit mode's numeric phase (every width
+    class) on resident streams, by CUDA events. Raises without a card."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("time_esc needs a CUDA device")
+    ops = plan.to_device(dev, dtype)
+    return cuda_event_ms(lambda: esc_numeric(plan, ops), warmup=warmup,
+                         iters=iters)
+
+
+def time_esc_scan(plan: ScanPlan, *, warmup: int = 3, iters: int = 20,
+                  device=None) -> float:
+    """Median device ms of one scan-kernel launch on resident planes, by
+    CUDA events. Raises without a card."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("time_esc_scan needs a CUDA device")
+    ops = plan.to_device(dev)
+    return cuda_event_ms(lambda: esc_scan_numeric(plan, ops),
+                         warmup=warmup, iters=iters)
+
+
+def time_esc_any(plan, **kw) -> float:
+    """Device ms of the numeric phase, dispatched on the plan's type."""
+    if isinstance(plan, ScanPlan):
+        return time_esc_scan(plan, **kw)
+    return time_esc(plan, **kw)
+
+
 # --- entry point ---------------------------------------------------------------
 
 def is_f64(dtype) -> bool:
@@ -520,23 +785,32 @@ def is_f64(dtype) -> bool:
 
 
 def spgemm_esc(a: CSR, b: CSR, *, dtype=torch.float32,
-               plan: ScanPlan | None = None, mode: str = "auto",
+               plan: ScanPlan | EscPlan | None = None, mode: str = "auto",
                device=None):
-    """Unstructured C = A @ B through the ESC scan engine on `device` (None
+    """Unstructured C = A @ B through the ESC engine on `device` (None
     means CUDA). Returns (CSR, timings dict, plan); the plan is reusable
-    for new values of the same pattern. f32 runs the scan kernel, f64 the
-    double-double kernel. mode "auto" and "scan" are the scan engine;
-    "digit" is not ported."""
+    for new values of the same pattern. mode "scan" (what "auto" runs
+    without a plan): f32 runs the scan kernel, f64 the double-double
+    kernel. mode "digit": the one-hot digit contraction (torch ops, f32
+    or f64). A plan decides the mode ("auto" follows it; a mismatched
+    mode raises)."""
     f64 = is_f64(dtype)
-    if mode == "digit":
-        from spgemm_tpu_torch.ops.spgemm import _not_ported
-
-        raise _not_ported("spgemm_esc(mode='digit')", "digit")
-    if mode not in ("auto", "scan"):
+    if mode not in ("auto", "scan", "digit"):
         raise ValueError(f"mode must be 'auto', 'scan' or 'digit': {mode!r}")
-    if plan is not None and not isinstance(plan, ScanPlan):
-        raise TypeError(f"plan must be a ScanPlan, got {type(plan).__name__}")
+    if plan is not None:
+        if not isinstance(plan, (ScanPlan, EscPlan)):
+            raise TypeError(f"plan must be a ScanPlan or an EscPlan, got "
+                            f"{type(plan).__name__}")
+        plan_mode = "scan" if isinstance(plan, ScanPlan) else "digit"
+        if mode not in ("auto", plan_mode):
+            raise ValueError(
+                f"plan is a {type(plan).__name__} but mode={mode!r}")
+        mode = plan_mode
+    elif mode == "auto":
+        mode = "scan"
     dev = resolve_device(device)
+    if mode == "digit":
+        return _spgemm_esc_digit(a, b, plan, f64=f64, device=dev)
     timings: dict[str, float] = {}
     if plan is None:
         plan = build_esc_scan_plan(a, b, keep_sources=f64,
@@ -560,5 +834,28 @@ def spgemm_esc(a: CSR, b: CSR, *, dtype=torch.float32,
     del ops
     t0 = time.perf_counter()
     c = esc_scan_trim_combined(plan, res, tail)
+    timings["compact_ms"] = (time.perf_counter() - t0) * 1e3
+    return c, timings, plan
+
+
+def _spgemm_esc_digit(a: CSR, b: CSR, plan: EscPlan | None, *, f64: bool,
+                      device: torch.device):
+    """The digit branch of spgemm_esc: plan, upload, contraction, trim."""
+    timings: dict[str, float] = {}
+    if plan is None:
+        plan = build_esc_plan(a, b)
+    timings["symbolic_ms"] = plan.symbolic_ms
+    dtype = torch.float64 if f64 else torch.float32
+    t0 = time.perf_counter()
+    ops = plan.to_device(device, dtype)
+    _sync(device)
+    timings["upload_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    outs = esc_numeric(plan, ops)
+    _sync(device)
+    timings["numeric_ms"] = (time.perf_counter() - t0) * 1e3
+    del ops
+    t0 = time.perf_counter()
+    c = esc_trim(plan, outs)
     timings["compact_ms"] = (time.perf_counter() - t0) * 1e3
     return c, timings, plan

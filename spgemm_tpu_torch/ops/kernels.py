@@ -5,9 +5,10 @@ gustavson_strip_pallas` (:538), which reaches the two Pallas strip kernels
 `_strip_window_kernel_factory` (:406, windowed B) and
 `_strip_kernel_factory` (:219, cached B). One CUDA kernel,
 `csrc/strip_numeric.cu`, replaces both: they compute the same function
-from the same plan. It runs on the tensor cores: values as 3xTF32
-(f32-accurate split operands), counts as bf16 products of the 0/1
-occupancy planes. The source file's header says what bounds the kernel
+from the same plan. It runs on the tensor cores: values as TF32
+products of an exact three-way split of each f32 operand (products exact
+far below f32 rounding, summed as accurately as a sequential f32 sum),
+counts as bf16 products of the 0/1 occupancy planes. The source file's header says what bounds the kernel
 on an H100 and what its design does about it.
 
 For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA

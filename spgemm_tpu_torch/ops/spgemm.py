@@ -33,21 +33,14 @@ from spgemm_tpu_torch.ops.gustavson import (build_gustavson_plan,
                                             strip_numeric)
 from spgemm_tpu_torch.ops.ozaki import OzakiOverflow, spgemm_ozaki
 from spgemm_tpu_torch.ops.symbolic import build_pair_schedule
-from spgemm_tpu_torch.utils.timing import cuda_event_ms, resolve_device
+from spgemm_tpu_torch.utils.timing import (cuda_event_ms, device_trace,
+                                           resolve_device)
 
-# ROADMAP.md "Queue 1" items that port the routes the port refuses
-_ROADMAP_ITEM = {"digit": "ESC unstructured route: digit mode"}
 # pairs the XLA pair backend multiplies at once (bounds its gathered tiles)
 DEFAULT_CHUNK = 32768
 # byte budgets of the slab and dense routes, the JAX package's numbers
 SLAB_BYTES = 4 << 30
 DENSE_BYTES = 6 << 30
-
-
-def _not_ported(what: str, key: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to spgemm_tpu_torch yet (ROADMAP.md, "
-        f"Queue 1: {_ROADMAP_ITEM[key]})")
 
 
 @dataclasses.dataclass
@@ -322,7 +315,8 @@ def _spgemm_strip(a: TileMat, b: TileMat, *, device) -> SpGEMMResult:
 
     t0 = time.perf_counter()
     # upload + kernel + device compaction + download (syncs on download)
-    c_val, c_occ = strip_numeric(sargs, device)
+    with device_trace("spgemm-strip"):
+        c_val, c_occ = strip_numeric(sargs, device)
     timings["numeric_ms"] = (time.perf_counter() - t0) * 1e3
     timings["upload_ms"] = 0.0
 

@@ -1,5 +1,5 @@
 """Native (C++) host-format fast path, loaded via ctypes (port of
-`spgemm_tpu/utils/native.py:21-218,639-947`).
+`spgemm_tpu/utils/native.py:21-278,639-947`).
 
 Builds the shared source `native/csr2tile.cpp` with g++ into this
 package's own build directory (`spgemm_tpu_torch/_build/`, gitignored),
@@ -132,6 +132,9 @@ def get_lib():
         lib.csr2tile_count.restype = ctypes.c_int64
         lib.gustavson_symbolic_count.restype = ctypes.c_int64
         lib.esc_scan_build.restype = ctypes.c_int64
+        lib.esc_pattern_count.restype = ctypes.c_int64
+        lib.esc_products_count.restype = ctypes.c_int64
+        lib.esc_fill.restype = None
         for fn in (lib.esc_refresh_qv, lib.esc_refresh_dd,
                    lib.esc_gather_planes, lib.ozaki_absmax, lib.ozaki_span,
                    lib.ozaki_slice_a, lib.ozaki_slice_b):
@@ -393,6 +396,62 @@ def esc_scan_symbolic_native(a, b, keep_sources: bool = True,
         asrc = bsrc = None
     return (c_indptr.astype(np.int64), c_indices[:nnz_c], flops, qv, meta,
             win_rowptr, asrc, bsrc, max(1, int(stats[0])))
+
+
+def esc_symbolic_native(a, b, s_slots: int, f_max: int, w_min: int):
+    """Native symbolic of the ESC digit plan (ops/esc.py:EscPlan): C's
+    pattern, per-interval product counts, and the padded per-class
+    operand-stream fill (esc_pattern_count, esc_products_count, esc_fill).
+    Returns (c_indptr i64, c_indices i32, flops, prod_cnt i64, asrc, bsrc,
+    slot, layout, av, bv), `layout` being the ops/esc.py:_sibling_layout
+    the fill was written against, or None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    from spgemm_tpu_torch.ops.esc import _sibling_layout
+
+    m, n = a.m, b.n
+    ai = np.ascontiguousarray(a.indptr, np.int32)
+    aj = np.ascontiguousarray(a.indices, np.int32)
+    bi = np.ascontiguousarray(b.indptr, np.int32)
+    bj = np.ascontiguousarray(b.indices, np.int32)
+
+    c_indptr = np.zeros(m + 1, np.int32)
+    nnz_c = int(lib.esc_pattern_count(
+        _ptr(ai, I32), _ptr(aj, I32), _ptr(bi, I32), _ptr(bj, I32),
+        ctypes.c_int64(m), ctypes.c_int64(n), _ptr(c_indptr, I32)))
+
+    n_int = max(1, -(-nnz_c // s_slots))
+    c_indices = np.zeros(nnz_c, np.int32)
+    prod_cnt = np.zeros(n_int, np.int64)
+    flops = int(lib.esc_products_count(
+        _ptr(ai, I32), _ptr(aj, I32), _ptr(bi, I32), _ptr(bj, I32),
+        ctypes.c_int64(m), ctypes.c_int64(n), _ptr(c_indptr, I32),
+        _ptr(c_indices, I32), ctypes.c_int64(s_slots),
+        _ptr(prod_cnt, I64)))
+
+    layout = _sibling_layout(prod_cnt, nnz_c, s_slots, f_max, w_min)
+    flat = layout["flat_total"]
+    asrc = np.full(flat, -1, np.int32)
+    bsrc = np.zeros(flat, np.int32)
+    slot = np.zeros(flat, np.int32)
+    av = np.zeros(flat, np.float64)
+    bv = np.zeros(flat, np.float64)
+    if flops:
+        ad = np.ascontiguousarray(a.data, np.float64)
+        bd = np.ascontiguousarray(b.data, np.float64)
+        lib.esc_fill(
+            _ptr(ai, I32), _ptr(aj, I32), _ptr(bi, I32), _ptr(bj, I32),
+            _ptr(ad, F64), _ptr(bd, F64),
+            ctypes.c_int64(m), ctypes.c_int64(n), _ptr(c_indptr, I32),
+            _ptr(c_indices, I32), ctypes.c_int64(s_slots),
+            ctypes.c_int64(f_max),
+            _ptr(layout["sib_ptr"], I64), _ptr(layout["sib_base"], I64),
+            ctypes.c_int64(n_int),
+            _ptr(asrc, I32), _ptr(bsrc, I32), _ptr(slot, I32),
+            _ptr(av, F64), _ptr(bv, F64))
+    return (c_indptr.astype(np.int64), c_indices, flops, prod_cnt,
+            asrc, bsrc, slot, layout, av, bv)
 
 
 def _value_sources(asrc, bsrc, a_data, b_data):

@@ -1007,3 +1007,123 @@ def test_cli_fallback_routes_on_card(card, tmp_path, capsys, backend):
                  backend]) == 0
     out = capsys.readouterr().out
     assert "check (values vs scipy oracle): [PASSED]" in out
+
+
+def long_positive_sums(k=4096, n=256, density=0.3, seed=21):
+    """A (n x k) times B (k x n), positive uniform values at `density`:
+    each C entry sums ~k*density^2 (about 370) products spread over k/8
+    mma steps."""
+    rng = np.random.default_rng(seed)
+    mk = lambda m_, n_: pt.CSR.from_dense(
+        rng.random((m_, n_)) * (rng.random((m_, n_)) < density))
+    return mk(n, k), mk(k, n)
+
+
+@pytest.mark.parametrize("tm", [16, 64])
+def test_strip_kernel_long_positive_sums(card, tm):
+    """Long sums of positive products stay within rtol 1e-5, atol
+    1e-6*max|C| of the f64 sum, as a sequential f32 sum does: the mma
+    aligns its addends by truncation, so the 3xTF32 products go into a
+    fresh partial sum each k8 step and reach the accumulator by an
+    ordinary add (accumulating them in place biased such sums downward
+    by ~1e-5)."""
+    a, b = long_positive_sums()
+    res = pt.spgemm(pt.csr_to_tiles(a, tm, 128), pt.csr_to_tiles(b, 128, 128),
+                    backend="strip", device=card)
+    assert res.stats["backend"] == "strip"
+    got = golden.drop_explicit_zeros(res.c.to_csr())
+    ref = golden.spgemm_scipy(a, b)
+    assert got.pattern_equal(ref)
+    np.testing.assert_allclose(got.data, ref.data, rtol=1e-5,
+                               atol=1e-6 * np.abs(ref.data).max())
+
+
+# --- the ESC digit mode (torch ops, no hand kernel) -----------------------------
+
+@pytest.mark.parametrize("values", ["integer", "gaussian", "f64"])
+def test_digit_mode_matches_cpu(card, values):
+    """The one-hot contraction on the card against the CPU: its output is
+    identical whether the groups run in one chunk or in many (each
+    group's sum is independent of the chunking); C equals the CPU's
+    exactly on integer values, within rtol 1e-6 on Gaussian f32 values
+    (bmm sums in another order) and rtol 1e-12 in f64."""
+    from spgemm_tpu_torch.ops import esc as pesc
+
+    rng = np.random.default_rng(12)
+    a = random_uniform(rng, 3000, 24)
+    if values != "integer":
+        a = a.with_data(rng.standard_normal(a.nnz))
+    dtype = torch.float64 if values == "f64" else torch.float32
+    plan = pt.build_esc_plan(a, a)
+    ops = plan.to_device(card, dtype)
+    whole = pesc.esc_numeric(plan, ops)
+    per_group = max(c["w"] for c in plan.classes) * 96 * 9
+    chunked = pesc.esc_numeric(plan, ops, budget_bytes=3 * per_group)
+    assert all(torch.equal(x, y) for x, y in zip(whole, chunked))
+    assert (pesc.esc_trim(plan, whole).data
+            == pesc.esc_trim(plan, chunked).data).all()
+    _zero_all_counters()
+    got, _, _ = pt.spgemm_esc(a, a, mode="digit", dtype=dtype, device=card)
+    exp, _, _ = pt.spgemm_esc(a, a, mode="digit", dtype=dtype, device="cpu")
+    assert not _any_kernel_ran()
+    assert got.pattern_equal(exp)
+    if values == "integer":
+        np.testing.assert_array_equal(got.data, exp.data)
+    else:
+        rtol = 1e-12 if values == "f64" else 1e-6
+        np.testing.assert_allclose(got.data, exp.data, rtol=rtol,
+                                   atol=rtol * np.abs(exp.data).max())
+
+
+def _wrappers():
+    return (kernels.strip_numeric, scan_kernels.esc_scan,
+            scan_kernels.esc_scan_mul, scan_kernels.esc_scan_dd,
+            ozaki_kernels.ozaki_strip_numeric, spmm_kernels.spmm_strip,
+            pair_kernels.pair_accumulate_cuda)
+
+
+def _zero_all_counters():
+    for w in _wrappers():
+        w.kernel_launches = w.plain_launches = 0
+    spmm_kernels.spmm_strip.narrow_launches = 0
+
+
+def _any_kernel_ran():
+    return any(w.kernel_launches or w.plain_launches for w in _wrappers())
+
+
+# --- the example applications at their small sizes ------------------------------
+
+@pytest.mark.parametrize("name,argv", [
+    ("triangle_counting", []),
+    ("amg_galerkin", ["32", "2"]),
+    ("markov_clustering", ["512"]),
+    ("pagerank", ["2048", "8"]),
+    ("power_method", ["4096", "8"]),
+    ("serving_loop", ["512", "1"]),
+])
+def test_example_on_card(card, name, argv, capsys):
+    import importlib
+
+    mod = importlib.import_module(f"spgemm_tpu_torch.examples.{name}")
+    _zero_all_counters()
+    assert mod.main(argv + ["--device", "cuda"]) == 0
+    out = capsys.readouterr().out
+    assert "MISMATCH" not in out
+    # no plain kernel version ran on the card
+    assert all(w.plain_launches == 0 for w in _wrappers())
+    if name == "power_method":
+        assert spmm_kernels.spmm_strip.narrow_launches == 150
+    if name == "serving_loop":
+        assert kernels.strip_numeric.kernel_launches >= 1
+        assert scan_kernels.esc_scan.kernel_launches >= 1
+
+
+def test_entry_on_card(card):
+    from spgemm_tpu_torch.entry import entry
+
+    fn, args = entry()
+    assert all(t.device.type == "cuda" for t in args)
+    fn_c, args_c = entry(device="cpu")
+    for got, exp in zip(fn(*args), fn_c(*args_c)):
+        assert torch.equal(got.cpu(), exp)

@@ -476,9 +476,13 @@ def test_structured_non_integer_f64_raises():
 
 
 def test_digit_mode_and_bad_plans_raise():
-    a = to_port(_suite_like("random"))
-    with pytest.raises(NotImplementedError, match="digit mode"):
-        pt.spgemm_esc(a, a, mode="digit", device="cpu")
+    # digit mode runs and matches the JAX package's digit mode
+    ja = _suite_like("random")
+    a = to_port(ja)
+    c, _, plan = pt.spgemm_esc(a, a, mode="digit", device="cpu")
+    jc, _, _ = jesc.spgemm_esc(ja, ja, mode="digit")
+    assert isinstance(plan, pt.EscPlan) and c.pattern_equal(jc)
+    np.testing.assert_array_equal(c.data, jc.data)
     with pytest.raises(TypeError, match="ScanPlan"):
         pt.spgemm_esc(a, a, plan=object(), device="cpu")
     with pytest.raises(TypeError, match="ScanPlan"):

@@ -1,26 +1,30 @@
 """The tensor-core kernels' arithmetic, emulated in plain torch on the CPU.
 
-The strip and pair kernels run one tile pipeline (csrc/strip_numeric.cu,
-copied into csrc/pair_accumulate.cu), and the 128-column SpMM kernel
-(csrc/spmm_strip.cu) the same 3xTF32 products; the SpMM kernel splits each X chunk into hi/lo planes once, for
-all warps, and skips the products whose lo operand is zero throughout
-(lo_a.hi_b where A is made of TF32 values, hi_a.lo_b where X is). Adding
-those zero products changes no accumulator, so the skipped and the full
-sums agree bit for bit; the tests below hold both at the SpMM and pair
-shapes.
+The pair kernel (csrc/pair_accumulate.cu, a copy of the strip kernel's
+tile pipeline) and the 128-column SpMM kernel (csrc/spmm_strip.cu)
+multiply f32 values as 3xTF32: each operand x splits into hi =
+rna_tf32(x) and lo = rna_tf32(x - hi), and the f32 accumulator takes
+lo_a.hi_b + hi_a.lo_b + hi_a.hi_b. The SpMM kernel splits each X chunk
+into hi/lo planes once, for all warps, and skips the products whose lo
+operand is zero throughout (lo_a.hi_b where A is made of TF32 values,
+hi_a.lo_b where X is). Adding those zero products changes no
+accumulator, so the skipped and the full sums agree bit for bit; the
+tests below hold both at the SpMM and pair shapes. The emulation rounds
+to TF32 by bit masking (round to nearest, ties away from zero, as
+cvt.rna does), forms the products in f32 (each TF32 x TF32 product is
+exact in f32) and holds the result to the tolerance the kernels are
+checked at on the card: rtol 1e-5, atol 1e-6*max|C| of an f64 product,
+at tk = 128, on Gaussian values spanning 1e-3..1e3. TF32 alone must miss
+that tolerance, or the test would not tell the two apart. Integer values
+below 2^11 split with lo = 0, which is what lets the kernels skip the lo
+products and stay bit-equal to the plain f32 version on the integer
+value model.
 
-`csrc/strip_numeric.cu` multiplies f32 values on the tensor cores as
-3xTF32: each operand x splits into hi = rna_tf32(x) and lo =
-rna_tf32(x - hi), and the f32 accumulator takes lo_a.hi_b + hi_a.lo_b +
-hi_a.hi_b. The emulation here rounds to TF32 by bit masking (round to
-nearest, ties away from zero, as cvt.rna does), forms the three products
-in f32 (each TF32 x TF32 product is exact in f32) and holds the result to
-the tolerance the kernel is checked at on the card: rtol 1e-5, atol
-1e-6*max|C| of an f64 product, at tk = 128, on Gaussian values spanning
-1e-3..1e3. TF32 alone must miss that tolerance, or the test would not
-tell the two apart. Integer values below 2^11 split with lo = 0, which is
-what lets the kernel skip the lo products and stay bit-equal to the
-plain f32 version on the integer value model.
+`csrc/strip_numeric.cu` splits each operand exactly into three TF32
+values (hi, mid = rna_tf32(x - hi), lo = the rest) and sums the six
+partial products above 2^-33 |a.b|: every product is then exact to far
+below f32's rounding, where a 3xTF32 product carries up to about 2^-22
+|a.b| (the last tests below).
 """
 
 import numpy as np
@@ -181,3 +185,43 @@ def test_ptxas_usage_parses_registers_and_spills():
            "ptxas info    : Used 40 registers, 432 bytes cmem[0]\n")
     assert kernels.ptxas_usage(log) == {"_Z1fILi64EEvv": (128, 8, 4),
                                         "_Z1gv": (40, 0, 0)}
+
+
+def split3_tf32(x: torch.Tensor):
+    """The strip kernel's exact split: x = hi + mid + lo, three TF32
+    values."""
+    hi = rna_tf32(x)
+    mid = rna_tf32(x - hi)
+    return hi, mid, (x - hi) - mid
+
+
+def _is_tf32(x: torch.Tensor) -> bool:
+    return not (x.contiguous().view(torch.int32) & 0x1FFF).any()
+
+
+def test_split3_is_exact_in_tf32_pieces():
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(_wide_gaussian(rng, 100000))
+    hi, mid, lo = split3_tf32(x)
+    assert _is_tf32(hi) and _is_tf32(mid) and _is_tf32(lo)
+    total = hi.double() + mid.double() + lo.double()
+    assert torch.equal(total, x.double())
+
+
+def test_split3_products_are_exact_to_2_pow_minus_30():
+    """The strip kernel's six partial products (lo.hi, hi.lo, mid.mid,
+    mid.hi, hi.mid, hi.hi, each exact in f64) against the exact product:
+    within 2^-30 relative, where 3xTF32 errs by more than f32's own
+    rounding (2^-24)."""
+    rng = np.random.default_rng(8)
+    a = torch.from_numpy(_wide_gaussian(rng, 200000))
+    b = torch.from_numpy(_wide_gaussian(rng, 200000))
+    exact = a.double() * b.double()
+    ah, am, al = (t.double() for t in split3_tf32(a))
+    bh, bm, bl = (t.double() for t in split3_tf32(b))
+    six = al * bh + ah * bl + am * bm + am * bh + ah * bm + ah * bh
+    assert ((six - exact).abs() <= 2.0 ** -30 * exact.abs()).all()
+    (ah2, al2), (bh2, bl2) = split_tf32(a), split_tf32(b)
+    three = (al2.double() * bh2.double() + ah2.double() * bl2.double()
+             + ah2.double() * bh2.double())
+    assert ((three - exact).abs() > 2.0 ** -24 * exact.abs()).any()
