@@ -150,7 +150,27 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      (SERVE_N says why not 65,536), every tick OK, the strip and the
      premul scan kernels launched;
  29. entry() on the card equals the CPU's result;
- 30. print the kernels JSON line (the nine hand kernels), then the
+ 30. dist-1, the multi-device layer (spgemm_tpu_torch/parallel/dist.py)
+     in a one-rank NCCL process group on the card, every formulation at
+     full size with the counters zeroed before each: the strip shard on
+     the cant-like A^2 at 64x128 (C equal to scipy and to spgemm_csr's C,
+     the strip kernel launched, no plain version; Gaussian values at rtol
+     1e-5), ESC on rmat65536 (C exact, the scan kernel launched, no skew
+     fallback), gustavson, ring and pairs on the cant-like A^2 at 16x16
+     (exact, no hand kernel; their gathered bytes and temporaries printed
+     and held under 16 GiB), Ozaki f64 at 16x128 (integer values equal
+     to scipy, Gaussian within 1e-12*max|C|); each prints the card's name
+     and limit, then plan, upload, kernel (CUDA events), collective
+     (torch.profiler: the device time under the c10d ops) and assembly
+     ms and the wall;
+ 31. dist-2: two processes on the one card over gloo (GLOO_CUDA_FORMS:
+     the formulations whose collectives gloo carries on CUDA tensors, the
+     ring's not), each rank owning at least two strip blocks: every C
+     equal on both ranks, to the one-rank C and to the golden C, the
+     strip and scan kernels launched on each rank, no plain version;
+ 32. dryrun_multichip(1) in the one-rank group (its OK line), then the
+     group is destroyed;
+ 33. print the kernels JSON line (the nine hand kernels), then the
      contract line {"ok": true, "device": {...}} as the last line.
 
 Beside every kernel's time the script prints (phase bound) its bound_ms:
@@ -1186,7 +1206,7 @@ def run_pair_path(a, ref, lib_ms) -> dict:
           f"{torch.cuda.max_memory_allocated()!r} bytes")
     del ops
     # the same schedule with standard-normal values: every k step takes
-    # the 3xTF32 split
+    # the exact three-way split
     ag = a.with_data(np.random.default_rng(0).standard_normal(a.nnz))
     g_ops = _pair_operands(csr_to_tiles(ag, TM, TN), csr_to_tiles(ag, TN, TN),
                            sched, "cuda", torch.bfloat16)
@@ -1974,6 +1994,326 @@ def run_example_phases(rnd) -> None:
           f"{time.perf_counter() - t0!r} s")
 
 
+# --- the multi-device layer (spgemm_tpu_torch/parallel/dist.py) -------------
+# gloo's collectives on CUDA tensors (the probe of PERF.md, torch 2.11):
+# all_gather_into_tensor and all_gather run, batch_isend_irecv does not
+# (writev fails) and breaks the group, so two ranks on one card run every
+# formulation but the ring, which dist-1 (NCCL) and the CPU tests cover.
+GLOO_CUDA_FORMS = ("pairs", "gustavson", "strip", "esc", "ozaki")
+DIST_TEMP_LIMIT = 16 << 30      # cut a dist-1 matrix whose temporaries pass it
+
+
+def _dist_profiled(fn):
+    """fn() under torch.profiler: (result, wall s, collective ms: the
+    device time of the work the c10d collectives launched, NCCL kernels
+    and copies alike, with the ops counted)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cpu_ops = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU]
+    # the dispatcher's c10d ops, else the backend's own ranges (not both:
+    # one holds the other)
+    ops = ({e.key: e.device_time_total / 1e3 for e in cpu_ops
+            if e.key.startswith("c10d::")}
+           or {e.key: e.device_time_total / 1e3 for e in cpu_ops
+               if e.key.startswith("nccl:")})
+    print(f"phase dist: collective ops (device ms) {ops or 'none'}")
+    return out, wall, sum(ops.values())
+
+
+def _dist_line(label: str, timer, kernel_ms: float, coll_ms: float,
+               wall: float) -> None:
+    ms = timer.ms
+    print(f"{CARD} | phase {label}: plan_ms={ms.get('plan', 0.0)!r} "
+          f"upload_ms={ms.get('upload', 0.0)!r} kernel_ms={kernel_ms!r} "
+          f"(CUDA events, median; host numeric step "
+          f"{ms.get('numeric', 0.0)!r} ms) collective_ms={coll_ms!r} "
+          f"(torch.profiler, under the c10d ops; host collective step "
+          f"{ms.get('collective', 0.0)!r} ms) assemble_ms="
+          f"{ms.get('assemble', 0.0)!r} wall_s={wall!r}")
+
+
+def _dist_run(label: str, fn, kernel_ms_fn, required=(), torch_ops=False):
+    """One dist-1 formulation with the counters zeroed: fn(timer) under
+    the profiler, then its kernel time; checks the launches (`required`
+    hand kernels launched and no plain version ran, or with `torch_ops`
+    no hand kernel at all). Returns C."""
+    from spgemm_tpu_torch.utils.timing import StepTimer
+
+    _zero_counters(*_all_wrappers())
+    timer = StepTimer()
+    c, wall, coll = _dist_profiled(lambda: fn(timer))
+    if torch_ops:
+        _check_no_kernel(label)
+    else:
+        _launched(label, required)
+    _dist_line(label, timer, kernel_ms_fn(), coll, wall)
+    return c
+
+
+def run_dist_one_rank(rmat) -> None:
+    """Phase 30 (dist-1): a one-rank NCCL process group on the card, every
+    formulation at full size: (a) strip on the cant-like A^2 at 64x128 /
+    128x128 (C equal to scipy and to spgemm_csr's C on integer values;
+    Gaussian values at rtol 1e-5), (b) ESC on the suite's rmat65536 A^2
+    (C exact, no skew fallback), (c) gustavson, ring and pairs on the
+    cant-like A^2 at 16x16 (exact), after counting each one's gathered
+    bytes and temporaries, (d) Ozaki f64 on the cant-like at 16x128 /
+    128x128 (integer values bit-equal to scipy, Gaussian within
+    1e-12*max|C|). Leaves the group initialised for phases 31-32."""
+    import torch
+
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import golden, kernels, numeric, scan_kernels
+    from spgemm_tpu_torch.ops.esc import build_esc_scan_plan
+    from spgemm_tpu_torch.ops.gustavson import gustavson_core
+    from spgemm_tpu_torch.ops.ozaki import ozaki_core
+    from spgemm_tpu_torch.ops.spgemm import spgemm_csr
+    from spgemm_tpu_torch.parallel import dist as pdist
+    from spgemm_tpu_torch.utils.generators import cantlike
+    from spgemm_tpu_torch.utils.timing import cuda_event_ms
+
+    t_phase = time.perf_counter()
+    backend = "nccl" if DEV == "cuda" else "gloo"
+    pdist.init_multihost(f"127.0.0.1:{pdist._free_port()}", num_processes=1,
+                         process_id=0, backend=backend)
+    mesh = pdist.make_mesh(1, device=DEV)
+    print(f"phase dist-1: {backend} group of {mesh.size} rank on "
+          f"{mesh.device}")
+    up = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(DEV)
+
+    # (a) strip at the main path's tiles
+    a = cantlike(ROWS, BAND)
+    ref = golden.spgemm_scipy(a, a)
+    at, bt = csr_to_tiles(a, TM, TN), csr_to_tiles(a, TN, TN)
+    arrays, splan = pdist.place_strip_partition(at, bt, mesh)
+    strip_ms = lambda: cuda_event_ms(
+        lambda: kernels.strip_numeric(*arrays[:7], **splan.kernel_kwargs),
+        warmup=3, iters=20)
+    c = _dist_run("dist-1 strip", lambda t: pdist.spgemm_sharded_strip(
+        at, bt, mesh, timer=t), strip_ms, required=(kernels.strip_numeric,))
+    _check_exact("dist-1 strip", c.to_csr(), ref)
+    c1, _ = spgemm_csr(a, tm=TM, tn=TN, device=DEV)
+    same = golden.drop_explicit_zeros(c.to_csr()) == \
+        golden.drop_explicit_zeros(c1)
+    print(f"phase check: dist-1 strip equal to spgemm_csr's C: {same}")
+    check(same, "dist-1 strip differs from spgemm_csr")
+    del arrays, c1
+    ag = a.with_data(np.random.default_rng(0).standard_normal(a.nnz))
+    ref_g = golden.spgemm_scipy(ag, ag)
+    atg, btg = csr_to_tiles(ag, TM, TN), csr_to_tiles(ag, TN, TN)
+    arrays, splan = pdist.place_strip_partition(atg, btg, mesh)
+    c = _dist_run("dist-1 strip-gaussian",
+                  lambda t: pdist.spgemm_sharded_strip(atg, btg, mesh,
+                                                       timer=t),
+                  strip_ms, required=(kernels.strip_numeric,))
+    _check_close("dist-1 strip-gaussian", c.to_csr(), ref_g,
+                 rtol=GAUSS_RTOL, atol_rel=1e-6)
+    del atg, btg, c, arrays
+    torch.cuda.empty_cache()
+
+    # (b) ESC at rmat65536; the host plan is kept for the kernel's timing
+    before = pdist.spgemm_sharded_esc.single_device_fallbacks
+    held = {}
+
+    def esc(t):
+        with t.step("plan"):
+            held["plan"] = build_esc_scan_plan(rmat, rmat,
+                                               keep_sources=False)
+        return pdist.spgemm_sharded_esc(rmat, rmat, mesh, plan=held["plan"],
+                                        timer=t)
+
+    def esc_ms():
+        eplan = held["plan"]
+        dev = eplan.to_device(DEV)
+        return cuda_event_ms(lambda: scan_kernels.esc_scan(
+            dev["qv"], dev["meta"], passes=eplan.passes,
+            group_rows=eplan.group_rows), warmup=2, iters=10)
+
+    c = _dist_run("dist-1 esc", esc, esc_ms,
+                  required=(scan_kernels.esc_scan,))
+    check(pdist.spgemm_sharded_esc.single_device_fallbacks == before,
+          "dist-1 esc took the single-device skew fallback")
+    _check_exact("dist-1 esc", c, golden.spgemm_scipy(rmat, rmat))
+    del held, c
+    torch.cuda.empty_cache()
+
+    # (c) the torch-op formulations at TileSpGEMM's 16x16
+    a16 = csr_to_tiles(a, SLAB_T, SLAB_T)
+    gp = pdist.plan_gustavson_partition(a16, a16, 1)
+    rp = pdist.plan_row_partition(a16, a16, 1)
+    slab_tmp = 3 * gp.gk * gp.max_a * gp.max_b * SLAB_T * SLAB_T * 4
+    pair_tmp = 3 * 2 * min(32768, rp.pa.shape[1]) * SLAB_T * SLAB_T * 4
+    for name, gathered, tmp in (
+            ("gustavson", gp.b3_val.nbytes + gp.b3_occ.nbytes, slab_tmp),
+            ("ring", gp.b3_val.nbytes + gp.b3_occ.nbytes, slab_tmp),
+            ("pairs", rp.b_val.nbytes + rp.b_occ.nbytes, pair_tmp)):
+        print(f"phase dist-1 {name}: gathered bytes {gathered} "
+              f"(B shards), temporaries about {tmp} bytes (limit "
+              f"{DIST_TEMP_LIMIT}): no cut")
+        check(tmp <= DIST_TEMP_LIMIT, f"dist-1 {name} temporaries pass "
+                                      f"16 GiB: cut the matrix")
+    g_ops = [up(x[0]) for x in (gp.a3_val, gp.a3_occ, gp.b3_val, gp.b3_occ,
+                                gp.seg)]
+    slab_ms = lambda: cuda_event_ms(lambda: gustavson_core(
+        *g_ops, gk=gp.gk, max_a=gp.max_a, max_b=gp.max_b, tm=gp.tm,
+        tn=gp.tn, nt_c=gp.s_max), warmup=2, iters=10)
+    p_ops = [up(x[0]) for x in (rp.a_val, rp.a_occ, rp.b_val, rp.b_occ,
+                                rp.pa, rp.pb, rp.seg)]
+    pair_ms = lambda: cuda_event_ms(lambda: numeric.pair_accumulate(
+        *p_ops, num_segments=rp.s_max), warmup=2, iters=10)
+    for name, fn, kms in (("gustavson", pdist.spgemm_sharded, slab_ms),
+                          ("ring", pdist.spgemm_sharded_ring, slab_ms),
+                          ("pairs", pdist.spgemm_sharded_pairs, pair_ms)):
+        c = _dist_run(f"dist-1 {name}",
+                      lambda t, fn=fn: fn(a16, a16, mesh, timer=t), kms,
+                      torch_ops=True)
+        _check_exact(f"dist-1 {name}", c.to_csr(), ref)
+    del g_ops, p_ops, gp, rp, a16, c
+    torch.cuda.empty_cache()
+
+    # (d) exact f64 through the Ozaki slab engine at 16x128 / 128x128
+    for label, m, r in (("ozaki-integer", a, ref),
+                        ("ozaki-gaussian", ag, ref_g)):
+        ao, bo = csr_to_tiles(m, 16, TN), csr_to_tiles(m, TN, TN)
+        op = pdist.plan_ozaki_partition(ao, bo, 1)
+        o_ops = [up(x[0]) for x in (op.a_sl, op.b_sl, op.a_occ, op.b_occ,
+                                    op.seg)]
+        oz_ms = lambda: cuda_event_ms(lambda: ozaki_core(
+            *o_ops, gk=op.gk, max_a=op.max_a, max_b=op.max_b, tm=op.tm,
+            tn=op.tn, nt_c=op.s_max, sa=op.sa, sb=op.sb), warmup=1,
+            iters=5)
+        print(f"phase dist-1 {label}: S={op.sa}x{op.sb} gk={op.gk} "
+              f"max_a={op.max_a} max_b={op.max_b} C tiles={op.s_max}")
+        c = _dist_run(f"dist-1 {label}", lambda t: pdist.spgemm_sharded_ozaki(
+            ao, bo, mesh, timer=t), oz_ms, torch_ops=True)
+        if m is a:
+            _check_exact(f"dist-1 {label}", c.to_csr(), r)
+        else:
+            _check_close(f"dist-1 {label}", c.to_csr(), r, rtol=0.0,
+                         atol_rel=OZ_RTOL)
+        del o_ops, op, c
+        torch.cuda.empty_cache()
+    print(f"{CARD} | phase dist-1: took {time.perf_counter() - t_phase!r} s")
+
+
+def _dist_problem(n_ranks: int):
+    """dryrun_multichip's problem at n_ranks (every rank owns several
+    strip blocks at block_rows 2): its CSR and golden C."""
+    from spgemm_tpu_torch.entry import _example_problem
+    from spgemm_tpu_torch.models.tile import tiles_to_csr
+    from spgemm_tpu_torch.ops import golden
+
+    m = max(96, n_ranks * 2 * 2 * 16 * 2)
+    a = tiles_to_csr(_example_problem(m=m, density=600 / (m * m), seed=1))
+    return a, golden.spgemm_dense_row(a, a)
+
+
+def _dist_forms(mesh, a) -> dict:
+    """GLOO_CUDA_FORMS on `mesh` for C = A^2 (strip and Ozaki at 16x128 /
+    128x128, strip at block_rows 2; the others at 16x16): name -> C as
+    (indptr, indices, data), explicit zeros dropped."""
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import golden
+    from spgemm_tpu_torch.parallel import dist as pdist
+
+    t16 = csr_to_tiles(a, 16, 16)
+    tw, bw = csr_to_tiles(a, 16, TN), csr_to_tiles(a, TN, TN)
+    runs = {"pairs": lambda: pdist.spgemm_sharded_pairs(t16, t16, mesh),
+            "gustavson": lambda: pdist.spgemm_sharded(t16, t16, mesh),
+            "strip": lambda: pdist.spgemm_sharded_strip(tw, bw, mesh,
+                                                        block_rows=2),
+            "esc": lambda: pdist.spgemm_sharded_esc(a, a, mesh),
+            "ozaki": lambda: pdist.spgemm_sharded_ozaki(tw, bw, mesh)}
+    out = {}
+    for name in GLOO_CUDA_FORMS:
+        c = runs[name]()
+        c = golden.drop_explicit_zeros(c if name == "esc" else c.to_csr())
+        out[name] = (c.indptr, c.indices, c.data)
+    return out
+
+
+def _dist2_rank(device: str):
+    """One rank of phase 31: two ranks on the one card over gloo."""
+    from spgemm_tpu_torch.parallel import dist as pdist
+
+    mesh = pdist.make_mesh(2, device=device)
+    a, _ = _dist_problem(2)
+    _zero_counters(*_all_wrappers())
+    t0 = time.perf_counter()
+    out = _dist_forms(mesh, a)
+    return out, _counts(), str(mesh.device), time.perf_counter() - t0
+
+
+def run_dist_two_ranks() -> None:
+    """Phase 31 (dist-2): two processes, both on the card, over gloo,
+    at a size where each rank owns at least two strip blocks: every
+    formulation gloo carries on CUDA tensors (GLOO_CUDA_FORMS); each
+    rank's C equals the other's, the one-rank C of this process and the
+    golden C; each rank launched the strip and scan kernels and ran no
+    plain version."""
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import kernels, scan_kernels
+    from spgemm_tpu_torch.parallel import dist as pdist
+
+    t0 = time.perf_counter()
+    a, ref = _dist_problem(2)
+    sp = pdist.plan_strip_partition(csr_to_tiles(a, 16, TN),
+                                    csr_to_tiles(a, TN, TN), 2, block_rows=2)
+    blocks = [-(-int(sp.row_lo[d + 1] - sp.row_lo[d]) // 2) for d in (0, 1)]
+    print(f"phase dist-2: {a.m}^2, nnz={a.nnz}, strip blocks per rank "
+          f"{blocks}; formulations {GLOO_CUDA_FORMS} (the ring's "
+          f"batch_isend_irecv does not run over gloo on CUDA tensors)")
+    check(min(blocks) >= 2, f"dist-2: a rank owns fewer than two strip "
+                            f"blocks: {blocks}")
+    one = _dist_forms(pdist.make_mesh(1, device=DEV), a)
+    ranks = pdist.spawn_ranks(_dist2_rank, 2, backend="gloo", args=(DEV,),
+                              timeout=600)
+    for r, (out, counts, dev, secs) in enumerate(ranks):
+        print(f"{CARD} | phase dist-2: rank {r} on {dev}: {secs!r} s; "
+              f"hand-kernel launches (kernel, plain) {counts}")
+        check(not any(v[1] for v in counts.values()),
+              f"dist-2 rank {r} ran a plain version")
+        for w in (kernels.strip_numeric, scan_kernels.esc_scan):
+            check(counts[w.__name__][0] >= 1,
+                  f"dist-2 rank {r} did not launch {w.__name__}")
+        for name in GLOO_CUDA_FORMS:
+            got = out[name]
+            same = all(np.array_equal(x, y) for x, y in zip(got, one[name]))
+            gold = (np.array_equal(got[0], ref.indptr)
+                    and np.array_equal(got[1], ref.indices)
+                    and np.array_equal(got[2], ref.data))
+            print(f"phase check: dist-2 rank {r} {name}: nnzC="
+                  f"{got[2].size} equal to the one-rank C {same}, to "
+                  f"golden {gold}")
+            check(same and gold, f"dist-2 rank {r} {name} differs")
+    print(f"{CARD} | phase dist-2: took {time.perf_counter() - t0!r} s")
+
+
+def run_dryrun_phase() -> None:
+    """Phase 32: dryrun_multichip(1) in this process's one-rank group;
+    then the group is destroyed."""
+    import torch.distributed as dist
+
+    from spgemm_tpu_torch.entry import dryrun_multichip
+
+    t0 = time.perf_counter()
+    _zero_counters(*_all_wrappers())
+    dryrun_multichip(1, device=None if DEV == "cuda" else DEV)
+    _launched("dryrun")
+    dist.destroy_process_group()
+    print(f"{CARD} | phase dryrun: took {time.perf_counter() - t0!r} s")
+
+
 def run() -> dict:
     import torch
 
@@ -2140,6 +2480,7 @@ def run() -> dict:
     compare_spmm_plans()
     spmm_entries = run_spmm_path(suite)
     rnd = suite[f"random{SUITE_N}"]
+    rmat = suite[f"rmat{SUITE_N}"]
     del suite
     torch.cuda.empty_cache()
 
@@ -2157,6 +2498,12 @@ def run() -> dict:
     del ag, ref_g, a, ref
     torch.cuda.empty_cache()
     run_example_phases(rnd)
+    del rnd
+    torch.cuda.empty_cache()
+    run_dist_one_rank(rmat)
+    del rmat
+    run_dist_two_ranks()
+    run_dryrun_phase()
 
     return {
         "kernels": [{

@@ -11,22 +11,20 @@ the main plans of `chip_smoke.py`: the cant-like 62,451^2 A^2 with
 standard-normal values at 32x128 tiles (the Ozaki kernel), the suite's
 rmat65536 A^2 (premul and mul), random65536 with standard-normal values
 (double-double), the cant-like A^2 at 64x128 with integer values (the
-strip kernel, and the pair kernel on the pair schedule; the strip kernel
-also with standard-normal values, and each side's worst error on long
-sums of positive products against scipy's f64 product), and the suite's
-banded65536 at 16x128 tiles with standard-normal X at k = 128 (resident
-form) and k = 256 (window form; the SpMM kernel's 128-column form). Where
-both sides share a C interface the port's wrapper drives either library;
-the pair kernel's changed with its tensor-core redesign (bf16 occupancy
-and a row stride `lda`), so an older pair library is called through its
-own interface with float32 occupancy, a newer one through the wrapper
-with the bfloat16 occupancy the pair backend uploads (told apart by the
-`pair_accumulate_abi` symbol the newer library exports). Each kernel is
-first checked
-against its plain version (bit-equal with torch.equal, or for SpMM with
-Gaussian X within rtol 1e-5, atol 1e-6*max|Y|), then timed with CUDA
-events (median of 20 calls after 3 warm-up calls) in the order base, new,
-new, base, base, new, so that both sides see the same card in turns.
+strip kernel, and the pair kernel on the pair schedule with the bfloat16
+occupancy the pair backend uploads; both also with standard-normal
+values), and the suite's banded65536 at 16x128 tiles with standard-normal
+X, then with integer A and X, at k = 128 (resident form) and k = 256
+(window form; the SpMM kernel's 128-column form). The port's wrapper
+drives either side's library (both share a C interface; the pair
+kernel's is the one since its tensor-core redesign, which exports
+`pair_accumulate_abi`). For the strip, pair and 128-column SpMM kernels
+it also prints each side's worst error on long sums of positive products
+against the f64 product. Each kernel is first checked against its plain
+version (bit-equal with torch.equal, or with standard-normal values
+within rtol 1e-5, atol 1e-6*max|C|), then timed with CUDA events (median
+of 20 calls after 3 warm-up calls) in the order base, new, new, base,
+base, new, so that both sides see the same card in turns.
 Prints the card's name and power limit, each build's ptxas registers and
 spills, every timing, and last one JSON line {"<kernel>": {"base": [...],
 "new": [...]}}. Exits 1 without CUDA or on any disagreement.
@@ -99,40 +97,11 @@ def _bind_spmm(lib):
     lib.spmm_strip_f32.restype = ctypes.c_int
 
 
-def _pair_abi(lib):
-    """The pair library's interface version: 2 (bf16 occupancy and an A row
-    stride `lda`) where it exports `pair_accumulate_abi`, else 1 (f32
-    occupancy, no row stride: before the tensor-core redesign)."""
-    return lib.pair_accumulate_abi() if hasattr(lib, "pair_accumulate_abi") \
-        else 1
-
-
 def _bind_pair(lib):
-    n_int = 5 if _pair_abi(lib) == 2 else 4
     lib.pair_accumulate_f32.argtypes = ([ctypes.c_void_p] * 9
-                                        + [ctypes.c_int64] * n_int
+                                        + [ctypes.c_int64] * 5
                                         + [ctypes.c_void_p])
     lib.pair_accumulate_f32.restype = ctypes.c_int
-
-
-def _pair_base_call(lib, ops, num_segments):
-    """The older pair library on f32-occupancy operands, through its own
-    C interface (allocating C as the wrapper does)."""
-    import torch
-
-    a_val, _, b_val = ops[:3]
-    tm, tk = a_val.shape[1:]
-    tn = b_val.shape[2]
-    c_val = torch.empty(num_segments, tm, tn, dtype=torch.float32,
-                        device=a_val.device)
-    c_cnt = torch.empty_like(c_val)
-    stream = torch.cuda.current_stream().cuda_stream
-    err = lib.pair_accumulate_f32(*(t.data_ptr() for t in ops),
-                                  c_val.data_ptr(), c_cnt.data_ptr(),
-                                  num_segments, tm, tk, tn, stream)
-    if err != 0:
-        raise SystemExit(f"base pair kernel launch failed: CUDA error {err}")
-    return c_val, c_cnt
 
 
 def _tuple(x):
@@ -185,31 +154,54 @@ def _ab(label, calls, plain, close=False):
     return times
 
 
-def _strip_long_sums(libs) -> None:
-    """Prints each strip library's worst error on long sums of positive
-    products, C = A (256 x 4096) times B (4096 x 256) at 30% density with
-    uniform values (about 370 products over 512 mma steps per entry),
-    against scipy's f64 product: max |C - C64| / (1e-5 |C64| + 1e-6
-    max|C64|), so above 1 misses rtol 1e-5."""
+def _long_sums(libs) -> None:
+    """Prints each side's worst error on long sums of positive products,
+    max |C - C64| / (1e-5 |C64| + 1e-6 max|C64|) against the f64 product
+    of the f32-rounded operands (above 1 misses rtol 1e-5), for the strip
+    and pair kernels on C = A (256 x 4096) times B (4096 x 256) at 30%
+    density with uniform values (about 370 products over 512 mma steps per
+    entry), and for SpMM's 128-column form on Y = A X with a uniform X at
+    k = 128, resident, and 256, windowed (about 1,230 products per
+    entry). `libs` maps (kernel, side) to a library."""
+    import torch
+
     import spgemm_tpu_torch as pt
-    from spgemm_tpu_torch.ops import golden, kernels
+    from spgemm_tpu_torch.ops import kernels
+    from spgemm_tpu_torch.ops import pair_kernels as pk
+    from spgemm_tpu_torch.ops import spmm as pspmm
+    from spgemm_tpu_torch.ops import spmm_kernels as smk
 
     rng = np.random.default_rng(21)
-    mk = lambda m, n: pt.CSR.from_dense(
-        rng.random((m, n)) * (rng.random((m, n)) < 0.3))
+    mk = lambda m, n: rng.random((m, n)) * (rng.random((m, n)) < 0.3)
+    f32 = lambda v: v.astype(np.float32).astype(np.float64)
     a, b = mk(256, 4096), mk(4096, 256)
-    ref = golden.spgemm_scipy(a, b)
-    at, bt = pt.csr_to_tiles(a, 16, 128), pt.csr_to_tiles(b, 128, 128)
-    lim = 1e-5 * np.abs(ref.data) + 1e-6 * np.abs(ref.data).max()
-    for side, lib in libs.items():
-        kernels._lib = lib
-        got = golden.drop_explicit_zeros(
-            pt.spgemm(at, bt, backend="strip", device="cuda").c.to_csr())
-        if not got.pattern_equal(ref):
-            raise SystemExit(f"long positive sums: {side} pattern differs")
-        worst = float((np.abs(got.data - ref.data) / lim).max())
-        print(f"strip_numeric long positive sums: {side} worst error / "
-              f"(1e-5|C| + 1e-6 max|C|) = {worst!r}")
+    a_csr, b_csr = pt.CSR.from_dense(a), pt.CSR.from_dense(b)
+    worst = lambda got, ref: float((np.abs(got - ref) / (
+        1e-5 * np.abs(ref) + 1e-6 * np.abs(ref).max())).max())
+    ref = f32(a) @ f32(b)
+    at, bt = pt.csr_to_tiles(a_csr, 16, 128), pt.csr_to_tiles(b_csr, 128, 128)
+    for name, mod, backend in (("strip_numeric", kernels, "strip"),
+                               ("pair_accumulate", pk, "pallas")):
+        for side in ("base", "new"):
+            mod._lib = libs[name, side]
+            got = pt.spgemm(at, bt, backend=backend, device="cuda").c
+            print(f"{name} long positive sums: {side} worst error / "
+                  f"(1e-5|C| + 1e-6 max|C|) = "
+                  f"{worst(got.to_csr().to_dense(), ref)!r}")
+    t = pt.csr_to_tiles(a_csr, 16, 128)
+    stats = pspmm._spmm_block_stats(t, 8)
+    km = torch.from_numpy(pspmm._window_kmin(t, stats)).to("cuda")
+    for k, form in ((128, None), (256, km)):
+        x = np.random.default_rng(22).random((4096, k))
+        ops = pspmm._pack_spmm_operands(t, x, k, torch.float32,
+                                        8).to_device("cuda")
+        ref = f32(a) @ f32(x)
+        for side in ("base", "new"):
+            smk._lib = libs["spmm_strip", side]
+            y = smk.spmm_strip(*ops, form, gm=t.gm, block_rows=8)
+            got = y.reshape(-1, k)[:256].double().cpu().numpy()
+            print(f"spmm_strip k {k} long positive sums: {side} worst error"
+                  f" / (1e-5|Y| + 1e-6 max|Y|) = {worst(got, ref)!r}")
 
 
 def main(base_dir: str) -> int:
@@ -326,8 +318,7 @@ def main(base_dir: str) -> int:
         {side: _swap(kernels, lib, grun)
          for side, lib in sides("strip_numeric").items()},
         lambda: kernels.strip_numeric_plain(*gops, **gkw), close=True)
-    del gops, gargs, grun, ag
-    _strip_long_sums(sides("strip_numeric"))
+    del gops, gargs, grun
     torch.cuda.empty_cache()
     sched = build_pair_schedule(at, bt)
     up = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to("cuda")
@@ -338,38 +329,55 @@ def main(base_dir: str) -> int:
                 f32_ops[3].to(torch.bfloat16)) + f32_ops[4:]
     nseg = sched.nt_c
     run = lambda: pk.pair_accumulate_cuda(*bf16_ops, num_segments=nseg)
-    calls = {side: _swap(pk, lib, run)
-             for side, lib in sides("pair_accumulate").items()}
-    if _pair_abi(libs["pair_accumulate", "base"]) == 1:
-        calls["base"] = lambda: _pair_base_call(
-            libs["pair_accumulate", "base"], f32_ops, nseg)
     out["pair_accumulate"] = _ab(
-        f"pair_accumulate cant-like tm 64 ({sched.num_pairs} pairs)", calls,
+        f"pair_accumulate cant-like tm 64 ({sched.num_pairs} pairs)",
+        {side: _swap(pk, lib, run)
+         for side, lib in sides("pair_accumulate").items()},
         lambda: pk.pair_accumulate_plain(*f32_ops, num_segments=nseg))
-    del f32_ops, bf16_ops
+    # the same schedule with standard-normal values: the split branch
+    gat, gbt = csr_to_tiles(ag, 64, 128), csr_to_tiles(ag, 128, 128)
+    g_ops = (up(gat.dense(np.float32)),) + bf16_ops[1:2] + (
+        up(gbt.dense(np.float32)),) + bf16_ops[3:]
+    grun = lambda: pk.pair_accumulate_cuda(*g_ops, num_segments=nseg)
+    out["pair_accumulate_gaussian"] = _ab(
+        "pair_accumulate cant-like tm 64 Gaussian",
+        {side: _swap(pk, lib, grun)
+         for side, lib in sides("pair_accumulate").items()},
+        lambda: pk.pair_accumulate_plain(*g_ops, num_segments=nseg),
+        close=True)
+    del f32_ops, bf16_ops, g_ops, grun, ag
+    torch.cuda.empty_cache()
+    _long_sums(libs)
     torch.cuda.empty_cache()
 
-    # banded65536 at 16x128, Gaussian X: k 128 (resident) and 256 (window)
+    # banded65536 at 16x128: k 128 (resident) and 256 (window), with the
+    # suite's values and standard-normal X, then integer A and X (the
+    # one-product path, bit-equal)
     band = mats["banded65536"]
     t = csr_to_tiles(band, 16, 128)
+    t_int = csr_to_tiles(band.with_data(np.random.default_rng(42).integers(
+        1, 10, band.nnz).astype(np.float64)), 16, 128)
     block_rows = 64
     stats = pspmm._spmm_block_stats(t, block_rows)
     rng = np.random.default_rng(41)
-    for k, form in ((128, "resident"), (256, "window")):
-        x = rng.standard_normal((band.n, k)).astype(np.float32)
-        ops = pspmm._pack_spmm_operands(t, x, k, torch.float32,
-                                        block_rows).to_device("cuda")
-        km = (torch.from_numpy(pspmm._window_kmin(t, stats)).to("cuda")
-              if form == "window" else None)
-        kw = dict(gm=t.gm, block_rows=block_rows)
-        run = lambda: smk.spmm_strip(*ops, km, **kw)
-        out[f"spmm_strip_k{k}"] = _ab(
-            f"spmm_strip banded65536 16x128 k {k} {form}",
-            {side: _swap(smk, lib, run)
-             for side, lib in sides("spmm_strip").items()},
-            lambda: smk.spmm_strip_plain(*ops, km, **kw), close=True)
-        del ops, run
-        torch.cuda.empty_cache()
+    for values, tiles in (("", t), (" integer", t_int)):
+        for k, form in ((128, "resident"), (256, "window")):
+            x = (rng.standard_normal((band.n, k)) if not values else
+                 rng.integers(-4, 5, (band.n, k))).astype(np.float32)
+            ops = pspmm._pack_spmm_operands(tiles, x, k, torch.float32,
+                                            block_rows).to_device("cuda")
+            km = (torch.from_numpy(pspmm._window_kmin(t, stats)).to("cuda")
+                  if form == "window" else None)
+            kw = dict(gm=t.gm, block_rows=block_rows)
+            run = lambda: smk.spmm_strip(*ops, km, **kw)
+            out[f"spmm_strip_k{k}{values.replace(' ', '_')}"] = _ab(
+                f"spmm_strip banded65536 16x128 k {k} {form}{values}",
+                {side: _swap(smk, lib, run)
+                 for side, lib in sides("spmm_strip").items()},
+                lambda: smk.spmm_strip_plain(*ops, km, **kw),
+                close=not values)
+            del ops, run
+            torch.cuda.empty_cache()
     print(json.dumps(out))
     return 0
 

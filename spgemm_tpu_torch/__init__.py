@@ -24,13 +24,18 @@ Layout mirrors the JAX package:
               executors (executor.py), scipy oracle (golden.py).
               The ESC route's digit mode (esc.py: EscPlan, a one-hot
               `bmm`) has no hand kernel, as the reference's is XLA.
+  * parallel/ — multi-device execution over torch.distributed (dist.py):
+              the six sharded formulations of the JAX package's
+              parallel/dist.py (pairs, Gustavson slabs, strip kernel, ESC
+              scan kernel, ring, Ozaki f64), make_mesh, init_multihost;
+              one process per device, NCCL on CUDA, gloo on the CPU.
   * io/     — Matrix Market reader and writer, .npz checkpoints.
   * utils/  — native C++ host layer (g++-built `native/csr2tile.cpp`),
               generators, CUDA-event timing and the torch.profiler trace,
               the H100 roofline, CSV sinks.
-  * entry.py, examples/ — the compile-check entry point and the six
-              example applications (`python -m
-              spgemm_tpu_torch.examples.<name>`).
+  * entry.py, examples/ — the compile-check entry point, the
+              multi-device dry run (dryrun_multichip) and the six example
+              applications (`python -m spgemm_tpu_torch.examples.<name>`).
 
 Public functions take `device`: None means CUDA and raises without a
 card; "cpu" runs the plain PyTorch versions (the tests use it).

@@ -25,9 +25,14 @@
 // stream of steps through a cp.async ring in dynamic shared memory (2
 // stages at tm 64, 3 below; rows padded against bank conflicts), so the
 // next pair's first chunk is in flight under this pair's last products;
-// values multiply as 3xTF32 on mma.sync.m16n8k8 (one product on the raw
-// bits where a warp's k step is TF32-exact, which keeps the integer model
-// bit-equal to the plain f32 version), counts as bf16 mma.sync.m16n8k16
+// values multiply on mma.sync.m16n8k8 as the strip kernel's exact
+// three-way TF32 split (hi + mid + lo per operand, the six partial
+// products above 2^-33 |a.b| into a zeroed partial sum that one
+// round-to-nearest add folds into the accumulator; in-place 3xTF32 biased
+// long positive sums downward through the mma's truncating alignment and
+// left about 2^-22 |a.b| per product), with one product on the raw bits
+// where a warp's k step is TF32-exact, which keeps the integer model
+// bit-equal to the plain f32 version; counts as bf16 mma.sync.m16n8k16
 // on the 0/1 planes. The tm x 128 accumulators live in registers (at most
 // 128 a thread, two CTAs per SM) and the tile is written once. No
 // atomics, a fixed accumulation order. The strip kernel differs only in
@@ -44,8 +49,9 @@
 // read or written once, are 575 MB: A 2 x 64 MB, B 2 x 96 MB, C 2 x 128
 // MB, 0.172 ms at 3.35 TB/s. With bf16 occupancy the kernel's own inputs
 // and outputs are 495 MB. The operations (5,844 dense 64x128x128
-// products: 3 x 12.3 GFLOP of TF32 at 495 TFLOP/s and 12.3 GFLOP of bf16
-// at 989) need 0.087 ms. So the bytes bound it, the C planes most.
+// products: 12.3 GFLOP of TF32 at 495 TFLOP/s on the integer model, six
+// times that with split values, and 12.3 GFLOP of bf16 at 989) need
+// 0.037-0.162 ms. So the bytes bound it, the C planes most.
 //
 // Limits (checked by the caller, spgemm_tpu_torch/ops/pair_kernels.py):
 //   (tm, tn) in {(8,128), (16,128), (32,128), (64,128)} (tm 8 runs
@@ -207,18 +213,28 @@ __device__ __forceinline__ void mma_stage(const unsigned char* st,
                  __float_as_uint(b[nt][1]));
       }
     } else {
-      // 3xTF32: lo_a.hi_b + hi_a.lo_b + hi_a.hi_b
-      uint32_t ah[4], al[4];
+      // B is read from shared memory again below instead of held in
+      // b[][]: the split needs those registers at tm 64
+      asm volatile("" ::: "memory");
+      uint32_t ah[4], am[4], al[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) split_tf32(a[q], ah[q], al[q]);
+      for (int q = 0; q < 4; ++q) split3_tf32(a[q], ah[q], am[q], al[q]);
 #pragma unroll
       for (int nt = 0; nt < C::NT; ++nt) {
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(b[nt][0], bh0, bl0);
-        split_tf32(b[nt][1], bh1, bl1);
-        mma_tf32(acc_v[nt], al, bh0, bh1);
-        mma_tf32(acc_v[nt], ah, bl0, bl1);
-        mma_tf32(acc_v[nt], ah, bh0, bh1);
+        uint32_t bh[2], bm[2], bl[2];
+        split3_tf32(bp[nt * 8], bh[0], bm[0], bl[0]);
+        split3_tf32(bp[nt * 8 + 4 * kBvStride], bh[1], bm[1], bl[1]);
+        // the six partial products above 2^-33 |a.b|, smallest first,
+        // into a zeroed partial sum; then one round-to-nearest add
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(part, al, bh[0], bh[1]);
+        mma_tf32(part, ah, bl[0], bl[1]);
+        mma_tf32(part, am, bm[0], bm[1]);
+        mma_tf32(part, am, bh[0], bh[1]);
+        mma_tf32(part, ah, bm[0], bm[1]);
+        mma_tf32(part, ah, bh[0], bh[1]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc_v[nt][q] += part[q];
       }
     }
   }

@@ -2,7 +2,8 @@
 // (strip_numeric.cu, pair_accumulate.cu, spmm_strip.cu), for sm_90a.
 //
 //   cp.async copies into shared memory, with zero fill for the ragged edge;
-//   the 3xTF32 split of an f32 value and the TF32-exactness test;
+//   the TF32 splits of an f32 value (hi/lo, and the exact hi/mid/lo) and
+//   the TF32-exactness test;
 //   mma.sync.m16n8k8 (tf32) and m16n8k16 (bf16) with f32 accumulation;
 //   ldmatrix (plain and .trans) for 16-bit fragments;
 //   a host helper that sets a kernel's shared-memory attributes once per
@@ -56,6 +57,17 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
   const float rest = x - __uint_as_float(hi);  // exact in f32
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+// x = hi + mid + lo exactly, each a TF32 value: hi and mid carry 11
+// significant bits each, and lo the at most 3 that remain of f32's 24
+__device__ __forceinline__ void split3_tf32(float x, uint32_t& hi,
+                                            uint32_t& mid, uint32_t& lo) {
+  uint32_t m;
+  split_tf32(x, hi, m);  // m = rna(x - hi)
+  mid = m;
+  const float rest = x - __uint_as_float(hi) - __uint_as_float(mid);
+  lo = __float_as_uint(rest);  // exact in f32, and TF32-exact
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],

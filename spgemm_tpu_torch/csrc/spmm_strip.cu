@@ -36,14 +36,21 @@
 //   - the (slab, 16-deep k chunk) steps stream X (16 x 128) and the rows'
 //     A chunks (128 x 16; a row without a tile on the slab is zero-filled)
 //     through a 4-stage cp.async ring, one barrier per step;
-//   - values multiply as 3xTF32 on mma.sync.m16n8k8 with f32 accumulation.
-//     X is the operand all eight warps read, so it is split into hi/lo
-//     once per chunk, in shared memory, by the whole CTA (hi in place, lo
-//     into one of two lo buffers), one step ahead of its products; A is
-//     split by the warp that owns its rows. The products skip the terms
-//     whose lo is all zero (lo_a.hi_b where the warp's A fragments are
-//     TF32 values, hi_a.lo_b where the chunk's X is), which adds exact
-//     zeros only: the integer model stays bit-equal to the plain version.
+//   - values multiply on mma.sync.m16n8k8 with f32 accumulation, as the
+//     strip kernel's exact three-way TF32 split: each operand is hi + mid
+//     + lo, and the six partial products above 2^-33 |a.b| go into a
+//     zeroed partial sum that one round-to-nearest add folds into the
+//     accumulator (in-place 3xTF32 biased long positive sums downward
+//     through the mma's truncating alignment and left about 2^-22 |a.b|
+//     per product). X is the operand all eight warps read, so it is split
+//     once per chunk, in shared memory, by the whole CTA (hi in place, mid
+//     and lo into one of two buffers each), one step ahead of its
+//     products; A is split by the warp that owns its rows. The products
+//     skip the terms whose mid and lo are all zero (those of A where the
+//     warp's A fragments are TF32 values, those of X where the chunk's X
+//     is), which adds exact zeros only; where both are TF32 values one
+//     product on the raw bits goes straight into the accumulator, so the
+//     integer model stays bit-equal to the plain version.
 // The tm x 128 accumulators (64 registers) stay in registers and each Y
 // row is written once. No atomics, a fixed accumulation order.
 //
@@ -51,7 +58,8 @@
 // tiles and k = 128 (8,184 A tiles, gm 4,096, gn 512) the bytes each read
 // or written once are A 67 MB, X 33.5 MB and Y 33.5 MB: 40 us at 3.35
 // TB/s. The dense-tile work is 2*8,184*16*128*128 = 4.3 GFLOP (the useful
-// 2*nnz*k is 1.09 GFLOP): as 3xTF32, 12.9 GFLOP at 495 TFLOP/s, 26 us.
+// 2*nnz*k is 1.09 GFLOP): as six split products, 25.8 GFLOP at 495
+// TFLOP/s, 52 us (one product on the integer model, 9 us).
 // So bytes bound it; the L2 -> shared stream of X slabs (about 3 slabs of
 // 64 KB per 128-row group on the band, against one 64 KB slab per A tile
 // when each tile row restaged its own) is what the row groups cut.
@@ -93,7 +101,8 @@ constexpr int kNT = kCols / 8;        // n8 column tiles per warp
 constexpr int kGroupRows = 128;       // Y rows per CTA: one m16 per warp
 constexpr int kXK = 16;               // k depth of one step
 constexpr int kStages = 4;            // cp.async ring depth
-constexpr int kLoBufs = 2;            // X lo planes: this step and the next
+constexpr int kRestBufs = 2;          // X mid and lo planes: this step and
+                                      // the next
 constexpr int kXStride = kCols + 8;   // X rows, words: no bank conflicts
 constexpr int kAStride = kXK + 4;     // A rows, words: no bank conflicts
 constexpr int kSchedCap = 64;         // slabs merged per pass
@@ -104,7 +113,7 @@ struct SpmmCfg {
   static constexpr int XB = kXK * kXStride * 4;    // stage layout, bytes
   static constexpr int AB = kGroupRows * kAStride * 4;
   static constexpr int STAGE = XB + AB;
-  static constexpr int SMEM = kStages * STAGE + kLoBufs * XB;
+  static constexpr int SMEM = kStages * STAGE + 2 * kRestBufs * XB;
   static_assert(R * TM == kGroupRows && R <= 32, "rows must fill a group");
   static_assert(XB % 16 == 0 && AB % 16 == 0, "16-byte aligned parts");
 };
@@ -135,7 +144,7 @@ spmm_strip_kernel(const float* __restrict__ a,
   // the warp's m16 rows 16*warp .. +15 of the group are tile rows r_lo
   // (and r_lo + 1 at tm 8)
   const int r_lo = 16 * warp / TM;
-  float* lo_buf = reinterpret_cast<float*>(smem + kStages * C::STAGE);
+  float* rest_buf = reinterpret_cast<float*>(smem + kStages * C::STAGE);
 
   // merge cursors: lane r < R of warp 0 walks tile row row0 + r
   int cur = 0;
@@ -204,32 +213,39 @@ spmm_strip_kernel(const float* __restrict__ a,
     }
   };
 
-  // splits the X chunk of stage `buf` into hi (in place) and lo (lo
-  // buffer `lb`); true if any of this thread's values is not a TF32 value
+  // splits the X chunk of stage `buf` exactly into hi (in place), mid
+  // and lo (mid/lo buffer pair `lb`); true if any of this thread's
+  // values is not a TF32 value
   auto split_x = [&](int buf, int lb) {
     uint32_t* xs = reinterpret_cast<uint32_t*>(smem + buf * C::STAGE);
-    uint32_t* xl = reinterpret_cast<uint32_t*>(lo_buf) + lb * (C::XB / 4);
+    uint32_t* xm = reinterpret_cast<uint32_t*>(rest_buf) + lb * (C::XB / 4);
+    uint32_t* xl = xm + kRestBufs * (C::XB / 4);
     uint32_t low = 0u;
-#pragma unroll
+    // both values a thread splits in flight at tm 64, one at a time
+    // below: so each instantiation stays within 128 registers without a
+    // spill (ptxas: the unrolled loop spilled at tm 16, the rolled one at
+    // tm 64)
+#pragma unroll(TM == 64 ? 2 : 1)
     for (int j = 0; j < kXK * kCols / 4 / kThreads; ++j) {
       const int i = tid + j * kThreads;
       const int off = (i / (kCols / 4)) * kXStride + (i % (kCols / 4)) * 4;
       uint4 v = *reinterpret_cast<uint4*>(xs + off);
-      uint4 h, l;
+      uint4 h, m, l;
       low |= v.x | v.y | v.z | v.w;
-      split_tf32(__uint_as_float(v.x), h.x, l.x);
-      split_tf32(__uint_as_float(v.y), h.y, l.y);
-      split_tf32(__uint_as_float(v.z), h.z, l.z);
-      split_tf32(__uint_as_float(v.w), h.w, l.w);
+      split3_tf32(__uint_as_float(v.x), h.x, m.x, l.x);
+      split3_tf32(__uint_as_float(v.y), h.y, m.y, l.y);
+      split3_tf32(__uint_as_float(v.z), h.z, m.z, l.z);
+      split3_tf32(__uint_as_float(v.w), h.w, m.w, l.w);
       *reinterpret_cast<uint4*>(xs + off) = h;
+      *reinterpret_cast<uint4*>(xm + off) = m;
       *reinterpret_cast<uint4*>(xl + off) = l;
     }
     return (low & kTf32Low) != 0u;
   };
 
-  // the warp's products over stage `buf` (schedule entry d); x_lo: some
-  // X value of the chunk has a nonzero lo
-  auto compute_step = [&](int buf, int lb, int d, bool x_lo) {
+  // the warp's products over stage `buf` (schedule entry d); x_rest: some
+  // X value of the chunk is not a TF32 value (has a nonzero mid or lo)
+  auto compute_step = [&](int buf, int lb, int d, bool x_rest) {
     const int32_t* gs = sched_g + d * C::R;
     const bool has = gs[r_lo] >= 0 || (TM < 16 && gs[r_lo + 1] >= 0);
     if (!has) return;  // warp-uniform: no tile of the warp's rows here
@@ -237,32 +253,54 @@ spmm_strip_kernel(const float* __restrict__ a,
                                                      C::XB);
     const uint32_t* xh =
         reinterpret_cast<const uint32_t*>(smem + buf * C::STAGE);
-    const uint32_t* xl = reinterpret_cast<const uint32_t*>(lo_buf) +
+    const uint32_t* xm = reinterpret_cast<const uint32_t*>(rest_buf) +
                          lb * (C::XB / 4);
-#pragma unroll
+    const uint32_t* xl = xm + kRestBufs * (C::XB / 4);
+    // two k8 steps, not unrolled: one step's fragments live at a time,
+    // within the 128-register budget
+#pragma unroll 1
     for (int kk = 0; kk < kXK; kk += 8) {
       const float* ap = as + (16 * warp + gid) * kAStride + kk + tig;
       const float af[4] = {ap[0], ap[8 * kAStride], ap[4],
                            ap[8 * kAStride + 4]};
-      uint32_t ah[4], al[4];
       uint32_t low = 0u;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        low |= __float_as_uint(af[q]);
-        split_tf32(af[q], ah[q], al[q]);
+      for (int q = 0; q < 4; ++q) low |= __float_as_uint(af[q]);
+      const bool a_rest = __any_sync(0xffffffffu, (low & kTf32Low) != 0u);
+      const int b0 = (kk + tig) * kXStride + gid;
+      const int b1 = b0 + 4 * kXStride;
+      if (!a_rest && !x_rest) {
+        // every operand is a TF32 value (integers below 2^11 are): one
+        // product each, exact, on the raw bits
+        const uint32_t ah[4] = {__float_as_uint(af[0]), __float_as_uint(af[1]),
+                                __float_as_uint(af[2]), __float_as_uint(af[3])};
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          mma_tf32(acc[nt], ah, xh[b0 + nt * 8], xh[b1 + nt * 8]);
+        }
+        continue;
       }
-      const bool a_lo = __any_sync(0xffffffffu, (low & kTf32Low) != 0u);
-      const uint32_t* bh = xh + (kk + tig) * kXStride + gid;
-      const uint32_t* bl = xl + (kk + tig) * kXStride + gid;
+      uint32_t ah[4], am[4], al[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split3_tf32(af[q], ah[q], am[q], al[q]);
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) {
-        // 3xTF32 in the order lo_a.hi_b + hi_a.lo_b + hi_a.hi_b, without
-        // the terms whose lo is zero throughout
-        const uint32_t h0 = bh[nt * 8];
-        const uint32_t h1 = bh[nt * 8 + 4 * kXStride];
-        if (a_lo) mma_tf32(acc[nt], al, h0, h1);
-        if (x_lo) mma_tf32(acc[nt], ah, bl[nt * 8], bl[nt * 8 + 4 * kXStride]);
-        mma_tf32(acc[nt], ah, h0, h1);
+        // the strip kernel's six partial products, smallest first, into a
+        // zeroed partial sum, without the terms whose mid or lo is zero
+        // throughout; then one round-to-nearest add
+        const uint32_t h0 = xh[b0 + nt * 8];
+        const uint32_t h1 = xh[b1 + nt * 8];
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        if (a_rest) mma_tf32(part, al, h0, h1);
+        if (x_rest) mma_tf32(part, ah, xl[b0 + nt * 8], xl[b1 + nt * 8]);
+        if (a_rest && x_rest) {
+          mma_tf32(part, am, xm[b0 + nt * 8], xm[b1 + nt * 8]);
+        }
+        if (a_rest) mma_tf32(part, am, h0, h1);
+        if (x_rest) mma_tf32(part, ah, xm[b0 + nt * 8], xm[b1 + nt * 8]);
+        mma_tf32(part, ah, h0, h1);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[nt][q] += part[q];
       }
     }
   };
@@ -296,18 +334,18 @@ spmm_strip_kernel(const float* __restrict__ a,
     }
     cp_async_wait<kStages - 2>();
     __syncthreads();  // chunk 0 is visible
-    bool x_lo_mine = split_x(0, 0);
+    bool x_rest_mine = split_x(0, 0);
     for (int step = 0; step < steps; ++step) {
       cp_async_wait<kStages - 3>();
       // chunk step+1 is visible, the split of chunk step too; the buffers
       // the copies and the split below overwrite are no longer read
-      const bool x_lo = __syncthreads_or(x_lo_mine) != 0;
-      if (step + 1 < steps) x_lo_mine = split_x((step + 1) % kStages,
-                                                (step + 1) % kLoBufs);
+      const bool x_rest = __syncthreads_or(x_rest_mine) != 0;
+      if (step + 1 < steps) x_rest_mine = split_x((step + 1) % kStages,
+                                                  (step + 1) % kRestBufs);
       const int next = step + kStages - 1;
       if (next < steps) load_step(next % kStages, next);
       cp_async_commit();
-      compute_step(step % kStages, step % kLoBufs, step / nch, x_lo);
+      compute_step(step % kStages, step % kRestBufs, step / nch, x_rest);
     }
     cp_async_wait<0>();
     __syncthreads();  // stages and schedule are free for the next pass

@@ -135,17 +135,6 @@ struct Cfg {
                 "stage parts must stay 16-byte aligned");
 };
 
-// x = hi + mid + lo exactly, each a TF32 value: hi and mid carry 11
-// significant bits each, and lo the at most 3 that remain of f32's 24
-__device__ __forceinline__ void split3_tf32(float x, uint32_t& hi,
-                                            uint32_t& mid, uint32_t& lo) {
-  uint32_t m;
-  split_tf32(x, hi, m);  // m = rna(x - hi)
-  mid = m;
-  const float rest = x - __uint_as_float(hi) - __uint_as_float(mid);
-  lo = __float_as_uint(rest);  // exact in f32, and TF32-exact
-}
-
 template <int TM>
 __global__ void __launch_bounds__(kThreads, 2)
 strip_numeric_kernel(const float* __restrict__ a_val,

@@ -165,6 +165,27 @@ class TileMat:
             gn=self.gm,
         )
 
+    def slice_tile_rows(self, r0: int, r1: int) -> "TileMat":
+        """Sub-matrix of tile-rows [r0, r1), rebased to tile-row 0: the
+        tile-row slab of A that one rank owns in the row-partitioned
+        multi-device formulations (parallel/dist.py)."""
+        lo, hi = int(self.tptr[r0]), int(self.tptr[r1])
+        nlo, nhi = int(self.tnnz_ptr[lo]), int(self.tnnz_ptr[hi])
+        rows = min((r1 - r0) * self.tm, self.m - r0 * self.tm)
+        return TileMat(
+            shape=(max(rows, 0), self.n),
+            tm=self.tm,
+            tn=self.tn,
+            trow=self.trow[lo:hi] - r0,
+            tcol=self.tcol[lo:hi],
+            tptr=(self.tptr[r0 : r1 + 1] - self.tptr[r0]).astype(INDEX_DTYPE),
+            tnnz_ptr=(self.tnnz_ptr[lo : hi + 1] - nlo).astype(INDEX_DTYPE),
+            rc=self.rc[nlo:nhi],
+            val=self.val[nlo:nhi],
+            mask=self.mask[lo:hi],
+            rowptr=self.rowptr[lo:hi],
+        )
+
     def to_csr(self) -> CSR:
         return tiles_to_csr(self)
 

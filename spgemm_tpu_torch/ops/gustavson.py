@@ -334,7 +334,8 @@ def check_strip_feasible(args: StripArgs, device: torch.device) -> None:
                          "slot-scan ranges")
 
 
-def _numpy_strip_symbolic(a, b, block_rows, max_b, max_ablock):
+def _numpy_strip_symbolic(a, b, block_rows, max_b, max_ablock,
+                          max_cblock_min=1):
     """NumPy fallback for the native symbolic phase. Returns the same
     tuple as utils.native.gustavson_symbolic_native."""
     gk, c_gn = a.gn, b.gn
@@ -367,7 +368,8 @@ def _numpy_strip_symbolic(a, b, block_rows, max_b, max_ablock):
     block_starts = np.minimum(
         np.append(np.arange(0, a.gm, block_rows), a.gm), a.gm)
     per_block_c = np.diff(c_tptr[block_starts])
-    max_cblock = max(1, int(per_block_c.max()) if per_block_c.size else 1)
+    max_cblock = max(max_cblock_min,
+                     int(per_block_c.max()) if per_block_c.size else 1)
 
     # block-local C slot per (A tile, y) pair; padded -> max_cblock
     jpos = np.zeros(gk * max_b, dtype=np.int64)
@@ -420,16 +422,35 @@ def block_k_stats(a: TileMat, block_rows: int):
 
 
 def run_strip_symbolic(a: TileMat, b: TileMat, block_rows: int, max_b: int,
-                       max_ablock: int):
+                       max_ablock: int, max_cblock_min: int = 1):
     """The per-run symbolic phase alone (native C++ with NumPy fallback):
-    C tile dictionary + per-pair slot table + gather map."""
+    C tile dictionary + per-pair slot table + gather map. `max_cblock_min`
+    forces a larger block-padded C geometry (the multi-device plans unify
+    it across shards)."""
     from spgemm_tpu_torch.utils.native import gustavson_symbolic_native
 
     sym = gustavson_symbolic_native(a, b, block_rows, max_b,
-                                    a.nt + max_ablock)
+                                    a.nt + max_ablock,
+                                    max_cblock_min=max_cblock_min)
     if sym is None:
-        sym = _numpy_strip_symbolic(a, b, block_rows, max_b, max_ablock)
+        sym = _numpy_strip_symbolic(a, b, block_rows, max_b, max_ablock,
+                                    max_cblock_min=max_cblock_min)
     return sym
+
+
+def _pack_a(a: TileMat, max_ablock: int):
+    """(a_val, a_occ): A's dense tiles and their bfloat16 0/1 bits, padded
+    by max_ablock zero tiles; native packing, else NumPy."""
+    from spgemm_tpu_torch.utils.native import pack_a_tiles_native
+
+    packed = pack_a_tiles_native(a, max_ablock)
+    if packed is not None:
+        return packed
+    a_val = np.zeros((a.nt + max_ablock, a.tm, a.tn), dtype=np.float32)
+    a_val[: a.nt] = a.dense(np.float32)
+    a_occ = np.zeros((a.nt + max_ablock, a.tm, a.tn), dtype=np.uint16)
+    a_occ[: a.nt] = a.occ() * BF16_ONE
+    return a_val, a_occ
 
 
 def _pack_operands(a: TileMat, b: TileMat, max_ablock: int, max_b: int):
@@ -439,11 +460,8 @@ def _pack_operands(a: TileMat, b: TileMat, max_ablock: int, max_b: int):
     packed = pack_strip_operands_native(a, b, max_ablock, max_b)
     if packed is not None:
         return packed
-    tm, tk, tn, gk = a.tm, a.tn, b.tn, a.gn
-    a_val = np.zeros((a.nt + max_ablock, tm, tk), dtype=np.float32)
-    a_val[: a.nt] = a.dense(np.float32)
-    a_occ = np.zeros((a.nt + max_ablock, tm, tk), dtype=np.uint16)
-    a_occ[: a.nt] = a.occ() * BF16_ONE
+    tk, tn, gk = a.tn, b.tn, a.gn
+    a_val, a_occ = _pack_a(a, max_ablock)
     bptr = b.tptr.astype(np.int64)
     cnt_b = np.diff(bptr)
     rank_b = np.arange(b.nt, dtype=np.int64) - np.repeat(bptr[:-1], cnt_b)
@@ -461,14 +479,22 @@ def _pack_operands(a: TileMat, b: TileMat, max_ablock: int, max_b: int):
 
 
 def build_strip_args(a: TileMat, b: TileMat, block_rows: int = 32,
-                     window: bool | None = None) -> StripArgs:
+                     window: bool | None = None,
+                     b_packed: tuple | None = None,
+                     min_geometry: dict | None = None) -> StripArgs:
     """Build the complete strip plan: one-time format prep (A packing +
     stacked B slabs) and the per-run symbolic phase.
 
     `window` picks the plan shape: None = windowed when every block's B
     k-span is contiguous enough (the JAX plan's refetch rule, so both
     packages pick the same shape), True = windowed or raise, False =
-    never windowed (the shape the distributed path uses)."""
+    never windowed.
+
+    `b_packed` supplies pre-packed (b_val, b_occ) slabs, so the
+    multi-device plans (parallel/dist.py) pack B once for every shard, and
+    `min_geometry` forces lower bounds on {"max_ablock", "max_cblock",
+    "kwin"}, so the shards' plans share one geometry."""
+    mg = min_geometry or {}
     if a.n != b.m:
         raise ValueError(f"dimension mismatch: {a.shape} @ {b.shape}")
     if a.tn != b.tm:
@@ -482,17 +508,23 @@ def build_strip_args(a: TileMat, b: TileMat, block_rows: int = 32,
     block_starts = np.minimum(
         np.append(np.arange(0, a.gm, block_rows), a.gm), a.gm)
     per_block = np.diff(aptr64[block_starts])
-    max_ablock = max(1, int(per_block.max()) if per_block.size else 1)
+    max_ablock = max(mg.get("max_ablock", 1),
+                     int(per_block.max()) if per_block.size else 1)
     ak = np.zeros(a.nt + max_ablock, dtype=INDEX_DTYPE)
     ak[: a.nt] = a.tcol
     cnt_b = np.diff(b.tptr.astype(np.int64))
     max_b = max(1, int(cnt_b.max()) if b.nt else 1)
-    a_val, a_occ, b_val, b_occ = _pack_operands(a, b, max_ablock, max_b)
+    if b_packed is not None:
+        a_val, a_occ = _pack_a(a, max_ablock)
+        b_val, b_occ = b_packed
+    else:
+        a_val, a_occ, b_val, b_occ = _pack_operands(a, b, max_ablock, max_b)
     prep_ms = (time.perf_counter() - t_prep) * 1e3
 
     t_sym = time.perf_counter()
     c_tptr, ctrow, ctcol, slots, gather_idx, max_cblock, nt_c = \
-        run_strip_symbolic(a, b, block_rows, max_b, max_ablock)
+        run_strip_symbolic(a, b, block_rows, max_b, max_ablock,
+                           max_cblock_min=mg.get("max_cblock", 1))
     num_pairs = int(cnt_b[a.tcol].sum()) if a.nt else 0
     symbolic_ms = (time.perf_counter() - t_sym) * 1e3
 
@@ -502,7 +534,7 @@ def build_strip_args(a: TileMat, b: TileMat, block_rows: int = 32,
         nb_blocks = max(1, -(-a.gm // block_rows))
         # windows of adjacent blocks overlap; cap the refetch overhead
         if nb_blocks * span <= 2 * gk + 16:
-            kwin = span
+            kwin = max(span, mg.get("kwin", 1))
             if b_val.shape[0] < kwin:  # B padded to the window, as the JAX plan
                 pad = ((0, kwin - b_val.shape[0]), (0, 0), (0, 0))
                 b_val = np.pad(b_val, pad)

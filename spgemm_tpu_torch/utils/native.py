@@ -219,10 +219,11 @@ def tiles_to_csr_native(t):
 
 
 def gustavson_symbolic_native(a, b, block_rows: int, max_b: int,
-                              nt_a_pad: int):
+                              nt_a_pad: int, max_cblock_min: int = 1):
     """Native symbolic phase of the strip plan. Returns
     (c_tptr, ctrow, ctcol, slots, gather_idx, max_cblock, nt_c) or None
-    if the library is unavailable.
+    if the library is unavailable. `max_cblock_min` forces a larger
+    block-padded C geometry (the multi-device plans unify it).
 
     slots is sized nt_a_pad*max_b and prefilled with max_cblock (the
     garbage slot); only real (tile, y < cnt_b) pairs are written."""
@@ -246,7 +247,7 @@ def gustavson_symbolic_native(a, b, block_rows: int, max_b: int,
     starts = np.minimum(
         np.append(np.arange(0, gm, block_rows), gm), gm).astype(np.int64)
     per_c = np.diff(c_tptr.astype(np.int64)[starts])
-    max_cblock = max(1, int(per_c.max()) if per_c.size else 1)
+    max_cblock = max(max_cblock_min, int(per_c.max()) if per_c.size else 1)
 
     ctrow = np.zeros(nt_c, dtype=np.int32)
     ctcol = np.zeros(nt_c, dtype=np.int32)

@@ -2,8 +2,10 @@
 ESC scan kernels, the Ozaki strip kernel, the SpMM strip kernel (both its
 128-column and its narrow form) and the pair kernel against their plain
 PyTorch versions, the register budgets of the strip, Ozaki, pair and
-128-column SpMM kernels, the wrappers' refusals, and the public entry
-points on a CUDA device.
+128-column SpMM kernels, the wrappers' refusals, the public entry
+points on a CUDA device, long sums of positive products through the
+strip, pair and 128-column SpMM kernels, and the six multi-device
+formulations on a one-rank mesh of the card.
 
 Every test here needs a CUDA card and skips without one. The file imports
 no JAX, so it also runs on a machine that has only torch:
@@ -12,9 +14,10 @@ no JAX, so it also runs on a machine that has only torch:
 
 Tolerances: integer values are exact in f32 and must agree exactly;
 Gaussian values are summed in another order (rtol 1e-5, atol
-1e-6*max|C|; TF32 would miss by ~1e-3, the 3xTF32 of the strip, pair
-and SpMM kernels does not: tests/test_torch_strip_arith.py emulates
-it). Counts are exact f32 sums of 0/1
+1e-6*max|C|; TF32 would miss by ~1e-3, the exact three-way TF32 split
+of the strip, pair and 128-column SpMM kernels does not, and neither
+does it on long sums of positive products: tests/test_torch_strip_arith.py
+emulates it). Counts are exact f32 sums of 0/1
 products in both versions and must be equal. The scan kernels add in
 their plain versions' order, with no contraction, so they must be
 bit-equal to them on any values. So must the Ozaki kernel: its int32
@@ -100,7 +103,8 @@ def _wide_range(a, rng):
 @pytest.mark.parametrize("tm", [8, 16, 32, 64])
 @pytest.mark.parametrize("window", [None, False])
 def test_kernel_wide_range_values(card, tm, window):
-    # 3xTF32 keeps f32 accuracy where TF32 alone would miss by ~1e-3
+    # the split products keep f32 accuracy where TF32 alone would miss by
+    # ~1e-3
     rng = np.random.default_rng(6)
     a = _wide_range(banded(rng, 3000, 64), rng)
     args = build_strip_args(pt.csr_to_tiles(a, tm, 128),
@@ -614,7 +618,7 @@ def test_spmm_kernel_matches_plain(card, tm, tk, k_pad):
 
 
 def test_spmm_kernel_wide_range_values(card):
-    # 3xTF32 on both operands (A and X far from TF32 values)
+    # split products on both operands (A and X far from TF32 values)
     rng = np.random.default_rng(34)
     a0 = _spmm_matrix("integer")
     a = _wide_range(a0, rng)
@@ -1038,6 +1042,55 @@ def test_strip_kernel_long_positive_sums(card, tm):
                                atol=1e-6 * np.abs(ref.data).max())
 
 
+@pytest.mark.parametrize("tm", [16, 64])
+def test_pair_kernel_long_positive_sums(card, tm):
+    """The pair kernel (backend="pallas") on the same long positive sums:
+    32 (A tile, B tile) pairs per C tile, 512 k8 steps per entry, within
+    rtol 1e-5, atol 1e-6*max|C| of the f64 sum (the kernel now adds each
+    step's exact split products into a fresh partial sum, as the strip
+    kernel does)."""
+    a, b = long_positive_sums()
+    w = pair_kernels.pair_accumulate_cuda
+    before = w.kernel_launches
+    res = pt.spgemm(pt.csr_to_tiles(a, tm, 128), pt.csr_to_tiles(b, 128, 128),
+                    backend="pallas", device=card)
+    assert w.kernel_launches == before + 1
+    got = golden.drop_explicit_zeros(res.c.to_csr())
+    ref = golden.spgemm_scipy(a, b)
+    assert got.pattern_equal(ref)
+    np.testing.assert_allclose(got.data, ref.data, rtol=1e-5,
+                               atol=1e-6 * np.abs(ref.data).max())
+
+
+@pytest.mark.parametrize("k_pad,form", [(128, "resident"), (256, "window")])
+def test_spmm_kernel_long_positive_sums(card, k_pad, form):
+    """SpMM's 128-column form on long rows of positive products: A (256 x
+    4096) at 30% (about 1,230 products per Y entry) times a positive
+    uniform X, resident at k 128 and windowed at k 256, within rtol 1e-5,
+    atol 1e-6*max|Y| of the f64 product."""
+    a, _ = long_positive_sums()
+    rng = np.random.default_rng(22)
+    x = rng.random((a.n, k_pad))
+    t = pt.csr_to_tiles(a, 16, 128)
+    block_rows = 8
+    ops = pspmm._pack_spmm_operands(t, x, k_pad, torch.float32,
+                                    block_rows).to_device(card)
+    kmin = None
+    if form == "window":
+        stats = pspmm._spmm_block_stats(t, block_rows)
+        kmin = torch.from_numpy(pspmm._window_kmin(t, stats)).to(card)
+    w = spmm_kernels.spmm_strip
+    before = (w.kernel_launches, w.narrow_launches)
+    y = w(*ops, kmin, gm=t.gm, block_rows=block_rows)
+    assert (w.kernel_launches, w.narrow_launches) == (before[0] + 1,
+                                                      before[1])
+    got = y.reshape(-1, k_pad)[: a.m].double().cpu().numpy()
+    f32 = lambda v: v.astype(np.float32).astype(np.float64)
+    ref = f32(a.to_dense()) @ f32(x)
+    np.testing.assert_allclose(got, ref, rtol=1e-5,
+                               atol=1e-6 * np.abs(ref).max())
+
+
 # --- the ESC digit mode (torch ops, no hand kernel) -----------------------------
 
 @pytest.mark.parametrize("values", ["integer", "gaussian", "f64"])
@@ -1127,3 +1180,40 @@ def test_entry_on_card(card):
     fn_c, args_c = entry(device="cpu")
     for got, exp in zip(fn(*args), fn_c(*args_c)):
         assert torch.equal(got.cpu(), exp)
+
+
+# --- the multi-device layer on one card --------------------------------------
+
+@pytest.mark.parametrize("form", ["pairs", "gustavson", "ring", "strip",
+                                  "esc", "ozaki"])
+def test_dist_formulations_one_rank_on_card(card, form):
+    """Each formulation on the one-rank mesh of a process with no group
+    (make_mesh(), device None: card 0) equals the same formulation on the
+    CPU; the strip and ESC shards launch their kernels, and no plain
+    version runs on the card."""
+    from spgemm_tpu_torch.parallel import dist as pdist
+
+    a = _matrix("integer", 1500, 48)
+    mesh = pdist.make_mesh()
+    assert mesh.device == torch.device("cuda", 0) and mesh.group is None
+    cpu = pdist.make_mesh(device="cpu")
+    t16 = pt.csr_to_tiles(a, 16, 16)
+    tw, bw = pt.csr_to_tiles(a, 16, 128), pt.csr_to_tiles(a, 128, 128)
+    run = {"pairs": lambda m: pdist.spgemm_sharded_pairs(t16, t16, m),
+           "gustavson": lambda m: pdist.spgemm_sharded(t16, t16, m),
+           "ring": lambda m: pdist.spgemm_sharded_ring(t16, t16, m),
+           "strip": lambda m: pdist.spgemm_sharded_strip(tw, bw, m,
+                                                         block_rows=4),
+           "esc": lambda m: pdist.spgemm_sharded_esc(a, a, m),
+           "ozaki": lambda m: pdist.spgemm_sharded_ozaki(tw, bw, m)}[form]
+    _zero_all_counters()
+    got = run(mesh)
+    assert all(w.plain_launches == 0 for w in _wrappers())
+    if form == "strip":
+        assert kernels.strip_numeric.kernel_launches == 1
+    if form == "esc":
+        assert scan_kernels.esc_scan.kernel_launches == 1
+    exp = run(cpu)
+    if form != "esc":
+        got, exp = got.to_csr(), exp.to_csr()
+    assert got == exp

@@ -1,30 +1,30 @@
 """The tensor-core kernels' arithmetic, emulated in plain torch on the CPU.
 
-The pair kernel (csrc/pair_accumulate.cu, a copy of the strip kernel's
-tile pipeline) and the 128-column SpMM kernel (csrc/spmm_strip.cu)
-multiply f32 values as 3xTF32: each operand x splits into hi =
-rna_tf32(x) and lo = rna_tf32(x - hi), and the f32 accumulator takes
-lo_a.hi_b + hi_a.lo_b + hi_a.hi_b. The SpMM kernel splits each X chunk
-into hi/lo planes once, for all warps, and skips the products whose lo
-operand is zero throughout (lo_a.hi_b where A is made of TF32 values,
-hi_a.lo_b where X is). Adding those zero products changes no
-accumulator, so the skipped and the full sums agree bit for bit; the
-tests below hold both at the SpMM and pair shapes. The emulation rounds
-to TF32 by bit masking (round to nearest, ties away from zero, as
-cvt.rna does), forms the products in f32 (each TF32 x TF32 product is
-exact in f32) and holds the result to the tolerance the kernels are
-checked at on the card: rtol 1e-5, atol 1e-6*max|C| of an f64 product,
-at tk = 128, on Gaussian values spanning 1e-3..1e3. TF32 alone must miss
-that tolerance, or the test would not tell the two apart. Integer values
-below 2^11 split with lo = 0, which is what lets the kernels skip the lo
-products and stay bit-equal to the plain f32 version on the integer
-value model.
-
-`csrc/strip_numeric.cu` splits each operand exactly into three TF32
-values (hi, mid = rna_tf32(x - hi), lo = the rest) and sums the six
-partial products above 2^-33 |a.b|: every product is then exact to far
-below f32's rounding, where a 3xTF32 product carries up to about 2^-22
-|a.b| (the last tests below).
+All three value kernels (csrc/strip_numeric.cu, csrc/pair_accumulate.cu,
+and the 128-column form of csrc/spmm_strip.cu) split each f32 operand
+exactly into three TF32 values (hi = rna_tf32(x), mid = rna_tf32(x - hi),
+lo = the rest) and, per k8 step, put the six partial products above
+2^-33 |a.b| (lo.hi, hi.lo, mid.mid, mid.hi, hi.mid, hi.hi) into a zeroed
+partial sum that one round-to-nearest add folds into the accumulator:
+every product is then exact to far below f32's rounding. The earlier
+3xTF32 scheme (hi, lo = rna_tf32(x - hi), three products added in place)
+carries up to about 2^-22 |a.b| per product, and in place the mma's
+truncating alignment biased long positive sums downward; the first tests
+below still hold its emulation to the kernels' card tolerance (rtol 1e-5,
+atol 1e-6*max|C| of an f64 product, at tk = 128, on Gaussian values
+spanning 1e-3..1e3) as the yardstick TF32 alone must miss. The SpMM
+kernel splits each X chunk into hi/mid/lo planes once, for all warps, and
+skips the products whose mid and lo operand is zero throughout (those of
+A where its fragments are TF32 values, those of X where the chunk's X
+is); adding those zero products changes no partial sum, so the skipped
+and the full sums agree bit for bit, at the SpMM and pair shapes. Where
+every operand of a step is a TF32 value (integers below 2^11) the kernels
+run one product on the raw bits, and the sum equals the plain f32 one
+exactly. The emulation rounds to TF32 by bit masking (round to nearest,
+ties away from zero, as cvt.rna does) and forms the products in f32 (each
+TF32 x TF32 product is exact in f32); it does not reproduce the mma's
+truncating alignment, which the card tests of long positive sums hold
+(tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -114,20 +114,35 @@ def test_integers_split_with_zero_lo():
     assert torch.equal(ah @ bh, a @ b)
 
 
-def _accumulate_3xtf32(a_tiles, b_tiles, skip_zero_lo):
-    """sum_t a_tiles[t] @ b_tiles[t], each product added into the f32
-    accumulator term by term (lo_a.hi_b, hi_a.lo_b, hi_a.hi_b), as the
-    kernels' mma.sync steps do; B split once per tile (the SpMM kernel's
-    hi/lo planes)."""
+def _is_tf32(x: torch.Tensor) -> bool:
+    return not (x.contiguous().view(torch.int32) & 0x1FFF).any()
+
+
+def _accumulate_split(a_tiles, b_tiles, skip_zero_rest):
+    """sum_t a_tiles[t] @ b_tiles[t] as the kernels take it: per k8 step,
+    one raw product accumulated in place where every operand is a TF32
+    value, else the six split products (smallest first) into a zeroed
+    partial sum that is then added to the accumulator; with
+    skip_zero_rest the terms whose mid/lo operand is zero throughout are
+    left out (B split once per step, as the SpMM kernel's planes)."""
     acc = torch.zeros(a_tiles.shape[1], b_tiles.shape[2])
-    for a, b in zip(a_tiles, b_tiles):
-        ah, al = split_tf32(a)
-        bh, bl = split_tf32(b)
-        if not skip_zero_lo or al.any():
-            acc = acc + al @ bh
-        if not skip_zero_lo or bl.any():
-            acc = acc + ah @ bl
-        acc = acc + ah @ bh
+    for a_t, b_t in zip(a_tiles, b_tiles):
+        for k0 in range(0, a_t.shape[1], 8):
+            a, b = a_t[:, k0:k0 + 8], b_t[k0:k0 + 8]
+            a_rest, b_rest = not _is_tf32(a), not _is_tf32(b)
+            if not a_rest and not b_rest:
+                acc = acc + a @ b
+                continue
+            ah, am, al = split3_tf32(a)
+            bh, bm, bl = split3_tf32(b)
+            terms = ((al, bh, a_rest), (ah, bl, b_rest),
+                     (am, bm, a_rest and b_rest), (am, bh, a_rest),
+                     (ah, bm, b_rest), (ah, bh, True))
+            part = torch.zeros_like(acc)
+            for x, y, live in terms:
+                if live or not skip_zero_rest:
+                    part = part + x @ y
+            acc = acc + part
     return acc
 
 
@@ -146,13 +161,16 @@ def _values(kind, rng, shape):
                                            ("integer", "wide"),
                                            ("wide", "integer")])
 def test_3xtf32_at_spmm_and_pair_shapes(tm, n_tiles, a_kind, b_kind):
+    """The pair and SpMM kernels' exact split (which replaced their
+    3xTF32) at their shapes: skipping the zero terms is bit-equal to the
+    full sum, and both meet the card tolerance that TF32 alone misses."""
     rng = np.random.default_rng(tm + n_tiles)
     a = _values(a_kind, rng, (n_tiles, tm, 128))
     b = _values(b_kind, rng, (n_tiles, 128, 128))
     exp = np.einsum("tik,tkj->ij", a.astype(np.float64), b.astype(np.float64))
     at, bt = torch.from_numpy(a), torch.from_numpy(b)
-    got = _accumulate_3xtf32(at, bt, skip_zero_lo=True)
-    assert torch.equal(got, _accumulate_3xtf32(at, bt, skip_zero_lo=False))
+    got = _accumulate_split(at, bt, skip_zero_rest=True)
+    assert torch.equal(got, _accumulate_split(at, bt, skip_zero_rest=False))
     assert _within(got.numpy(), exp).all()
     tf32 = sum(rna_tf32(x) @ rna_tf32(y) for x, y in zip(at, bt))
     assert not _within(tf32.numpy(), exp).all()
@@ -160,14 +178,15 @@ def test_3xtf32_at_spmm_and_pair_shapes(tm, n_tiles, a_kind, b_kind):
 
 @pytest.mark.parametrize("tm,n_tiles", [(8, 3), (16, 3), (64, 2)])
 def test_integer_tiles_bit_equal_at_spmm_and_pair_shapes(tm, n_tiles):
-    # integer A and X (the bench's value model): every lo is zero, only
-    # the hi.hi products run, and the sum equals the plain f32 one exactly
+    # integer A and X (the bench's value model): every operand is a TF32
+    # value, each k8 step is one raw product, and the sum equals the plain
+    # f32 one exactly
     rng = np.random.default_rng(5)
     a = torch.from_numpy(rng.integers(1, 10, (n_tiles, tm, 128)).astype(
         np.float32))
     b = torch.from_numpy(rng.integers(-4, 5, (n_tiles, 128, 128)).astype(
         np.float32))
-    got = _accumulate_3xtf32(a, b, skip_zero_lo=True)
+    got = _accumulate_split(a, b, skip_zero_rest=True)
     assert torch.equal(got, torch.bmm(a, b).sum(0))
 
 
@@ -193,10 +212,6 @@ def split3_tf32(x: torch.Tensor):
     hi = rna_tf32(x)
     mid = rna_tf32(x - hi)
     return hi, mid, (x - hi) - mid
-
-
-def _is_tf32(x: torch.Tensor) -> bool:
-    return not (x.contiguous().view(torch.int32) & 0x1FFF).any()
 
 
 def test_split3_is_exact_in_tf32_pieces():
