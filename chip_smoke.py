@@ -170,7 +170,19 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      strip and scan kernels launched on each rank, no plain version;
  32. dryrun_multichip(1) in the one-rank group (its OK line), then the
      group is destroyed;
- 33. print the kernels JSON line (the nine hand kernels), then the
+ 33-35. the tools through their entry points, each in a fresh
+     interpreter (`python -m` through runpy, so the module's own
+     __main__ block runs) whose launch counters start at 0 and are read
+     at its end: 33 `spgemm_tpu_torch.bench` at full size: its last line
+     holds every key of the root bench.py, value > 0, sol_pct <= 100, its
+     nnzC equal to scipy's nnz of the cant-like A^2 (phase 4) and its
+     numeric_ms within 10% of phase 5's; the strip, Ozaki and DD kernels
+     launched; 34 `spgemm_tpu_torch.tools.verify_cuda`: FAILS: 0, the
+     strip, scan (premul, mul, DD), Ozaki and SpMM kernels launched;
+     35 `spgemm_tpu_torch.tools.run_suite --n 8192 --configs A2` into a
+     temporary directory: every row PASSED, the strip and scan kernels
+     launched. No phase may run a plain version;
+ 36. print the kernels JSON line (the nine hand kernels), then the
      contract line {"ok": true, "device": {...}} as the last line.
 
 Beside every kernel's time the script prints (phase bound) its bound_ms:
@@ -184,8 +196,10 @@ The port never calls those; they are yardsticks.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -457,27 +471,6 @@ def _torch_csr(a, dtype):
                                    up(a.indices, np.int32),
                                    up(a.data, np.float64).to(dtype),
                                    size=a.shape)
-
-
-def profiled_device_ms(fn, *, iters: int = 20) -> float:
-    """Device time of one call of `fn`: the sum of the durations of every
-    kernel, memset and copy it runs on the card (torch.profiler), over
-    `iters` calls, divided by `iters`. Unlike CUDA events around each
-    call, this leaves out the gaps where the card waits for the host, which
-    dominate calls shorter than the host's launch overhead."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / iters / 1e3
 
 
 def library_ms(label: str, fn, *, iters: int):
@@ -944,7 +937,7 @@ def run_spmm_path(suite: dict) -> list:
     from spgemm_tpu_torch.ops import spmm as pspmm
     from spgemm_tpu_torch.ops import spmm_kernels as smk
     from spgemm_tpu_torch.ops.spmm import spmm, spmv
-    from spgemm_tpu_torch.utils.timing import cuda_event_ms
+    from spgemm_tpu_torch.utils.timing import cuda_event_ms, profiler_device_ms
 
     w = smk.spmm_strip
     name = f"banded{SUITE_N}"
@@ -1050,10 +1043,10 @@ def run_spmm_path(suite: dict) -> list:
             lib_ms = library_ms(f"torch.sparse.mm(A_csr, X) f32 k={k} at "
                                 f"{name}", lambda: torch.sparse.mm(a_t, xd),
                                 iters=20)
-        dev_ms = profiled_device_ms(lambda: w(*ops, km, **kw))
+        dev_ms = profiler_device_ms(lambda: w(*ops, km, **kw))
         lib_dev_ms = None
         if lib_ms is not None:
-            lib_dev_ms = profiled_device_ms(
+            lib_dev_ms = profiler_device_ms(
                 (lambda: torch.mv(a_t, xd)) if x.ndim == 1
                 else (lambda: torch.sparse.mm(a_t, xd)))
         del xd
@@ -2314,6 +2307,112 @@ def run_dryrun_phase() -> None:
     print(f"{CARD} | phase dryrun: took {time.perf_counter() - t0!r} s")
 
 
+# --- phases 33-35: the tools through their entry points ----------------
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "e2e_ms", "sol_ms",
+              "sol_pct", "f64_gflops", "f64_vs_baseline", "f64_int_gflops")
+TOOL_TIMEOUT = 600              # seconds, each tool
+# Runs one module as `python -m` would (runpy, run_name "__main__") in
+# this fresh interpreter, with every launch counter zeroed first, and
+# writes the counters to argv[1] however the module ends.
+_TOOL_WRAPPER = """
+import json, runpy, sys
+from chip_smoke import _all_wrappers, _counts, _zero_counters
+out, mod = sys.argv[1], sys.argv[2]
+sys.argv = [mod] + sys.argv[3:]
+_zero_counters(*_all_wrappers())
+try:
+    runpy.run_module(mod, run_name="__main__", alter_sys=True)
+finally:
+    with open(out, "w") as f:
+        json.dump(_counts(), f)
+"""
+
+
+def run_tool(label: str, module: str, argv=(), required=(), env=None):
+    """Phases 33-35: `module` through its entry point in a fresh
+    interpreter; prints its output's last lines and the hand-kernel
+    launches of that process; fails if it exits non-zero, runs a plain
+    version or leaves a `required` kernel unlaunched. Returns (stdout,
+    stderr)."""
+    with tempfile.TemporaryDirectory() as d:
+        counts_path = os.path.join(d, "counts.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _TOOL_WRAPPER, counts_path, module,
+             *argv], capture_output=True, text=True, timeout=TOOL_TIMEOUT,
+            env={**os.environ, **(env or {})})
+        wall = time.perf_counter() - t0
+        for stream, text in (("stderr", proc.stderr), ("stdout", proc.stdout)):
+            for line in text.splitlines()[-40:]:
+                print(f"phase {label} {stream}: {line}")
+        check(os.path.exists(counts_path),
+              f"{label}: the tool's process wrote no launch counts")
+        with open(counts_path) as f:
+            counts = {k: tuple(v) for k, v in json.load(f).items()}
+    ran = {k: v for k, v in counts.items() if v != (0, 0)}
+    print(f"{CARD} | phase {label}: exit {proc.returncode} in {wall!r} s; "
+          f"hand-kernel launches (kernel, plain): {ran or 'none'}")
+    check(proc.returncode == 0, f"{label} exited {proc.returncode}")
+    plain = {k: v for k, v in ran.items() if v[1]}
+    check(not plain, f"{label} ran a plain version: {plain}")
+    missing = [w.__name__ for w in required if counts[w.__name__][0] == 0]
+    check(not missing, f"{label} did not launch {missing}")
+    return proc.stdout, proc.stderr
+
+
+def run_tool_phases(cant_nnz_c: int, numeric_ms: float) -> None:
+    """Phases 33-35: the bench, the verify drive and the suite runner."""
+    import re
+
+    from spgemm_tpu_torch.ops import (kernels, ozaki_kernels, scan_kernels,
+                                      spmm_kernels)
+
+    t_all = time.perf_counter()
+    out, err = run_tool("bench", "spgemm_tpu_torch.bench", required=(
+        kernels.strip_numeric, ozaki_kernels.ozaki_strip_numeric,
+        scan_kernels.esc_scan_dd))
+    line = json.loads(out.strip().splitlines()[-1])
+    missing = [k for k in BENCH_KEYS if k not in line]
+    check(not missing, f"bench line lacks {missing}")
+    nnz_c = int(re.search(r"nnzC=(\d+)", err).group(1))
+    bench_ms = float(re.search(r"# numeric_ms=([0-9.]+)", err).group(1))
+    print(f"{CARD} | phase bench: value={line['value']!r} "
+          f"sol_pct={line['sol_pct']!r} nnzC={nnz_c} (scipy {cant_nnz_c}) "
+          f"numeric_ms={bench_ms!r} (phase 5: {numeric_ms!r}, ratio "
+          f"{bench_ms / numeric_ms!r})")
+    check(line["value"] > 0 and line["sol_pct"] <= 100,
+          f"bench value {line['value']} or sol_pct {line['sol_pct']}")
+    check(nnz_c == cant_nnz_c, f"bench nnzC {nnz_c} != scipy's {cant_nnz_c}")
+    check(abs(bench_ms / numeric_ms - 1) <= 0.10,
+          f"bench numeric_ms {bench_ms} is not within 10% of phase 5's "
+          f"{numeric_ms}")
+
+    out, _ = run_tool("verify", "spgemm_tpu_torch.tools.verify_cuda",
+                      required=(kernels.strip_numeric, scan_kernels.esc_scan,
+                                scan_kernels.esc_scan_mul,
+                                scan_kernels.esc_scan_dd,
+                                ozaki_kernels.ozaki_strip_numeric,
+                                spmm_kernels.spmm_strip))
+    last = out.strip().splitlines()[-1]
+    check(last == "FAILS: 0", f"verify_cuda ended with {last!r}")
+
+    with tempfile.TemporaryDirectory() as d:
+        run_tool("suite", "spgemm_tpu_torch.tools.run_suite",
+                 ["--n", "8192", "--configs", "A2", "--outdir", d],
+                 required=(kernels.strip_numeric, scan_kernels.esc_scan,
+                           scan_kernels.esc_scan_mul))
+        import csv
+
+        with open(os.path.join(d, "suite_summary.csv")) as f:
+            rows = list(csv.DictReader(f))
+    bad = [(r["matrix"], r["check"]) for r in rows if r["check"] != "PASSED"]
+    print(f"phase suite: {len(rows)} rows, backends "
+          f"{[r['backend'] for r in rows]}, not passed: {bad or 'none'}")
+    check(len(rows) == 5 and not bad, f"run_suite rows not passed: {bad}")
+    print(f"{CARD} | phase tools: phases 33-35 took "
+          f"{time.perf_counter() - t_all!r} s")
+
+
 def run() -> dict:
     import torch
 
@@ -2327,14 +2426,10 @@ def run() -> dict:
     from spgemm_tpu_torch.ops.spgemm import spgemm_csr
     from spgemm_tpu_torch.utils import generators as pgen
     from spgemm_tpu_torch.utils.generators import cantlike
-    from spgemm_tpu_torch.utils.timing import cuda_event_ms
+    from spgemm_tpu_torch.utils.timing import card_line, cuda_event_ms
 
     global CARD
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    CARD = smi.stdout.strip().splitlines()[0]
+    CARD = card_line()
     print(CARD)
     dev_name = torch.cuda.get_device_name(0)
     print(f"phase device: {dev_name} count={torch.cuda.device_count()} "
@@ -2374,6 +2469,7 @@ def run() -> dict:
     check(plain_launches == 0, "the main path ran the plain version")
 
     ref = golden.spgemm_scipy(a, a)
+    cant_nnz_c = ref.nnz
     for label, got in (("spgemm_csr", c), ("StripExecutor", c_ex)):
         got = golden.drop_explicit_zeros(got)
         pat = got.pattern_equal(ref)
@@ -2504,6 +2600,7 @@ def run() -> dict:
     del rmat
     run_dist_two_ranks()
     run_dryrun_phase()
+    run_tool_phases(cant_nnz_c, numeric_ms)
 
     return {
         "kernels": [{

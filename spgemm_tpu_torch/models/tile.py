@@ -84,6 +84,10 @@ class TileMat:
     def nnz(self) -> int:
         return int(self.val.size)
 
+    @property
+    def mask_words(self) -> int:
+        return cdiv(self.tn, MASK_BITS)
+
     def tile_nnz(self) -> np.ndarray:
         return self.tnnz_ptr[1:] - self.tnnz_ptr[:-1]
 
@@ -131,6 +135,17 @@ class TileMat:
         out = np.zeros((self.gm * self.tm, self.gn * self.tn), dtype=np.uint8)
         out[rows, cols] = 1
         return out
+
+    def occ_from_mask(self) -> np.ndarray:
+        """occ() recomputed from the packed bitmask words (reference
+        semantics check; used by tests to validate mask construction)."""
+        shifts = np.arange(MASK_BITS, dtype=MASK_DTYPE)
+        bits = (self.mask[..., None] >> shifts) & MASK_DTYPE(1)
+        return (
+            bits.reshape(self.nt, self.tm, self.mask_words * MASK_BITS)[
+                ..., : self.tn
+            ]
+        ).astype(np.uint8)
 
     @functools.cached_property
     def _csc_view(self) -> tuple[np.ndarray, np.ndarray]:

@@ -38,7 +38,8 @@ import torch
 from spgemm_tpu_torch.models.csr import CSR, INDEX_DTYPE
 from spgemm_tpu_torch.ops import scan_kernels
 from spgemm_tpu_torch.ops.gustavson import full_fp32
-from spgemm_tpu_torch.utils.timing import cuda_event_ms, resolve_device
+from spgemm_tpu_torch.utils.timing import (cuda_event_ms, profiler_device_ms,
+                                           resolve_device)
 
 SCAN_WIN = 128
 SCAN_BLK = 2048   # plans pad R to a multiple of this many rows
@@ -677,6 +678,39 @@ def esc_scan_dd(plan: ScanPlan, a_data: np.ndarray, b_data: np.ndarray,
         group_rows=plan.group_rows)
     res, tail = _combine_apply_dd(plan, s, e)
     return esc_scan_trim_combined_dd(plan, res, tail)
+
+
+def _resident_dd_launch(plan: ScanPlan, a_data, b_data):
+    """One double-double scan launch on (hi, lo, meta) planes of these
+    values uploaded to the card once, as a zero-argument callable. Raises
+    without a card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the double-double scan timers need a CUDA device")
+    dev = torch.device("cuda")
+    qh, ql = (torch.from_numpy(p).to(dev)
+              for p in scan_dd_planes(plan, a_data, b_data))
+    meta = torch.from_numpy(plan.meta16()).to(dev)
+    return lambda: scan_kernels.esc_scan_dd(
+        qh, ql, meta, passes=plan.passes, group_rows=plan.group_rows)
+
+
+def time_esc_scan_dd(plan: ScanPlan, a_data, b_data, *, warmup: int = 3,
+                     iters: int = 20) -> float:
+    """Median device ms of one double-double scan-kernel launch on
+    resident planes of these values, by CUDA events. Raises without a
+    card."""
+    return cuda_event_ms(_resident_dd_launch(plan, a_data, b_data),
+                         warmup=warmup, iters=iters)
+
+
+def device_ms_esc_scan_dd(plan: ScanPlan, a_data, b_data, *,
+                          iters: int = 20) -> float:
+    """The same launch's device time from torch.profiler (the kernel's
+    own duration, per launch). The kernel is short (≈0.1 ms at
+    random65536), near the host's launch overhead, so its events time
+    can include the card waiting for the host. Raises without a card."""
+    return profiler_device_ms(_resident_dd_launch(plan, a_data, b_data),
+                              iters=iters)
 
 
 # --- digit mode: numeric ---------------------------------------------------------

@@ -315,6 +315,39 @@ class StripArgs:
                 torch.from_numpy(np.ascontiguousarray(self.slots, np.int32)))
         return tuple(t.to(device) for t in host)
 
+    def traffic_bytes(self) -> dict:
+        """The JAX package's modelled HBM traffic of one numeric dispatch
+        + compaction (`spgemm_tpu/ops/gustavson.py:308`, the TPU kernel's
+        DMA volume, kept so both packages' headlines divide by the same
+        bytes): A tiles streamed once per block; B slabs per the delivery
+        mode (windowed: the full window each block; cached: one fetch per
+        distinct k per block); block-padded C written once (values +
+        counts) then re-read and compacted to nt_c tiles. It does not
+        describe the Hopper kernel, which stages A and B per padded C
+        slot."""
+        occ = self.a_occ.dtype.itemsize
+        both = self.a_val.dtype.itemsize + occ
+        a_bytes = self.a_val.shape[0] * self.tm * self.tk * both
+        slab = self.tk * self.max_b * self.tn * both
+        n_blocks = max(1, -(-self.gm // self.block_rows))
+        if self.kwin is not None:
+            b_bytes = n_blocks * self.kwin * slab
+        else:
+            aptr = self.aptr.astype(np.int64)
+            starts = np.minimum(
+                np.arange(0, self.gm + 1, self.block_rows), self.gm)
+            if starts[-1] != self.gm:
+                starts = np.append(starts, self.gm)
+            uniq = 0
+            for lo, hi in zip(aptr[starts[:-1]], aptr[starts[1:]]):
+                uniq += np.unique(self.ak[lo:hi]).size
+            b_bytes = int(uniq) * slab
+        padded = n_blocks * self.max_cblock * self.tm * self.tn
+        c_bytes = padded * 8          # val + cnt f32 written once
+        compact = padded * 8 + self.nt_c * self.tm * self.tn * 4
+        return dict(a=a_bytes, b=b_bytes, c=c_bytes, compact=compact,
+                    total=a_bytes + b_bytes + c_bytes + compact)
+
 
 def check_strip_feasible(args: StripArgs, device: torch.device) -> None:
     """Raise if the CUDA kernel cannot take this plan (no-op on the CPU,

@@ -405,6 +405,27 @@ def ozaki_strip_numeric(plan: OzakiStripPlan, device=None,
     return out, timings
 
 
+def time_ozaki_strip(plan: OzakiStripPlan, *, warmup: int = 3,
+                     iters: int = 20, device=None) -> float:
+    """Median device milliseconds of one fused-kernel launch plus the
+    compaction gather of its four planes (the reference's chain includes
+    `_gather4`), on the uploaded plan: CUDA events around each call after
+    `warmup` untimed ones. Raises without a card."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("time_ozaki_strip times the CUDA kernel: needs a "
+                           "CUDA device")
+    ops = plan.to_device(dev)
+    gidx = torch.from_numpy(plan.sargs.gather_idx.astype(np.int64)).to(dev)
+    kw = plan.kernel_kwargs()
+
+    def step():
+        planes = ozaki_kernels.ozaki_strip_numeric(*ops, **kw)
+        return tuple(p.index_select(0, gidx) for p in planes)
+
+    return cuda_event_ms(step, warmup=warmup, iters=iters)
+
+
 def _ozaki_compact_arrays(ctrow, ctcol, tm, tn, ea, eb,
                           c_h, c_m, c_l, c_cnt,
                           shape: tuple[int, int]) -> TileMat:

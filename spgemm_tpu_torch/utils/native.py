@@ -36,6 +36,9 @@ _lock = threading.Lock()
 _lib = None
 _tried = False
 
+# per-stage TSC totals of the most recent esc_scan_build (profiling aid)
+last_scan_build_stages: dict | None = None
+
 I8 = ctypes.POINTER(ctypes.c_int8)
 I32 = ctypes.POINTER(ctypes.c_int32)
 I64 = ctypes.POINTER(ctypes.c_int64)
@@ -365,7 +368,7 @@ def esc_scan_symbolic_native(a, b, keep_sources: bool = True,
     else:
         asrc = bsrc = np.zeros(1, np.int32)  # not written
     win_rowptr_buf = np.empty(n_win_ub + 1, np.int64)
-    stats = np.zeros(8, np.int64)  # [0] max run, [1] r_total
+    stats = np.zeros(8, np.int64)  # [0] max run, [1] r_total, [2:7] stages
     ad = np.ascontiguousarray(a.data, np.float64)
     bd = np.ascontiguousarray(b.data, np.float64)
     nnz_c = int(lib.esc_scan_build(
@@ -379,6 +382,13 @@ def esc_scan_symbolic_native(a, b, keep_sources: bool = True,
         ctypes.c_int64(group_rows),
         ctypes.c_int64(r_ub),
         _ptr(win_rowptr_buf, I64), _ptr(stats, I64)))
+
+    # stage breakdown (TSC tick totals; fractions locate the hot stage,
+    # read by spgemm_tpu_torch/tools/profile_esc_plan.py)
+    global last_scan_build_stages
+    last_scan_build_stages = dict(zip(
+        ("walk", "extract", "layout", "scatter", "flush"),
+        (int(v) for v in stats[2:7])))
 
     n_win = max(1, -(-nnz_c // SCAN_WIN))
     win_rowptr = win_rowptr_buf[: n_win + 1]

@@ -47,6 +47,7 @@ from spgemm_tpu_torch.ops.ozaki import (OzakiOverflow, build_ozaki_plan,
                                         build_ozaki_strip, ozaki_core)
 from spgemm_tpu_torch.ops.symbolic import build_pair_schedule
 from spgemm_tpu_torch.utils.generators import banded, cantlike, random_uniform
+from test_torch_fuzz import CASES as FUZZ_CASES, _operands as fuzz_operands
 
 pytestmark = pytest.mark.cuda
 
@@ -1217,3 +1218,77 @@ def test_dist_formulations_one_rank_on_card(card, form):
     if form != "esc":
         got, exp = got.to_csr(), exp.to_csr()
     assert got == exp
+
+
+# --- the fuzz cases and the tools on the card --------------------------------
+
+@pytest.mark.parametrize("case", FUZZ_CASES,
+                         ids=[f"c{c[-1]}" for c in FUZZ_CASES])
+@pytest.mark.parametrize("backend", ["strip", "gustavson", "dense", "xla",
+                                     "auto"])
+def test_fuzz_on_card(card, case, backend, record_property):
+    """tests/test_torch_fuzz.py's cases on the card against scipy (rtol
+    1e-5, atol 1e-8 on integer values). The router sends these odd tiles
+    from strip and auto to dense or gustavson (no hand kernel, no plain
+    version); each route is recorded. None of these tiles is one the
+    strip kernel is built for (tn 128)."""
+    a, b = fuzz_operands(case)
+    tm, tn = case[4], case[5]
+    _zero_all_counters()
+    res = pt.spgemm(pt.csr_to_tiles(a, tm, tn), pt.csr_to_tiles(b, tn, tn),
+                    backend=backend, device=card)
+    route = str(res.stats["backend"])
+    record_property("route", route)
+    assert all(w.kernel_launches == 0 and w.plain_launches == 0
+               for w in _wrappers())
+    if backend in ("strip", "auto"):
+        assert route.split("(")[0] in ("dense", "gustavson"), route
+    else:
+        assert route.split("(")[0] == backend, route
+    got = golden.drop_explicit_zeros(res.c.to_csr())
+    ref = golden.spgemm_scipy(a, b)
+    assert got.pattern_equal(ref), route
+    np.testing.assert_allclose(got.data, ref.data, rtol=1e-5, atol=1e-8)
+
+
+def test_tool_timers_on_card(card):
+    """time_ozaki_strip, time_esc_scan_dd and device_ms_esc_scan_dd return
+    positive milliseconds, launching their kernels."""
+    from spgemm_tpu_torch.ops.esc import (build_esc_scan_plan,
+                                          device_ms_esc_scan_dd,
+                                          time_esc_scan_dd)
+    from spgemm_tpu_torch.ops.ozaki import time_ozaki_strip
+
+    a = _matrix("gaussian", 2000, 48)
+    plan = build_ozaki_strip(pt.csr_to_tiles(a, 32, 128),
+                             pt.csr_to_tiles(a, 128, 128))
+    _zero_all_counters()
+    assert time_ozaki_strip(plan, warmup=1, iters=3) > 0
+    assert ozaki_kernels.ozaki_strip_numeric.kernel_launches == 4
+    r = random_uniform(np.random.default_rng(7), 4096)
+    sp = build_esc_scan_plan(r, r)
+    assert time_esc_scan_dd(sp, r.data, r.data, warmup=1, iters=3) > 0
+    assert device_ms_esc_scan_dd(sp, r.data, r.data, iters=3) > 0
+    assert scan_kernels.esc_scan_dd.kernel_launches == 4 + 4
+    assert all(w.plain_launches == 0 for w in _wrappers())
+
+
+def test_bench_small_on_card(card):
+    """`python -m spgemm_tpu_torch.bench` at BENCH_ROWS=3000 prints one
+    JSON line with every key of the root bench.py."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run([sys.executable, "-m", "spgemm_tpu_torch.bench"],
+                       cwd=root, capture_output=True, text=True, timeout=600,
+                       env={**os.environ, "BENCH_ROWS": "3000"})
+    assert p.returncode == 0, p.stderr[-3000:]
+    line = json.loads(p.stdout.strip().splitlines()[-1])
+    for key in ("metric", "value", "unit", "vs_baseline", "e2e_ms", "sol_ms",
+                "sol_pct", "f64_gflops", "f64_vs_baseline", "f64_int_gflops"):
+        assert key in line, key
+    assert line["metric"] == "spgemm_cantlike_gflops" and line["value"] > 0
+    assert 0 < line["sol_pct"] <= 100
