@@ -182,8 +182,31 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      35 `spgemm_tpu_torch.tools.run_suite --n 8192 --configs A2` into a
      temporary directory: every row PASSED, the strip and scan kernels
      launched. No phase may run a plain version;
- 36. print the kernels JSON line (the nine hand kernels), then the
-     contract line {"ok": true, "device": {...}} as the last line.
+ 36. the strip, pair, Ozaki and SpMM kernels at tile shapes past their
+     compiled heights (each tm % 8 == 0, tn % 128 == 0 tile runs as row
+     chunks of 64/32/16/8 rows, the Ozaki kernel's 32/16/8, and
+     128-column chunks, 64 for Ozaki; SpMM as sub-tiles of one height),
+     against their plain versions on random banded plans: strip (both
+     plan shapes) and pair at 24x128, 128x128, 8x256 and 40x384; Ozaki at
+     8x128, 64x128 and 24x256 (h, m, l, counts bit-equal); SpMM at tm 24
+     and 128, k 1 (narrow form), 128 and 256, resident and window;
+     integer values exact, Gaussian values within rtol 1e-5, atol
+     1e-6*max|C|;
+ 37. the main path at those shapes at full size, counters zeroed before
+     each route: the cant-like A^2 through spgemm_csr at 128x128 and
+     40x256 (auto must pick strip, only the strip kernel may launch;
+     integer values equal to scipy, Gaussian within rtol 1e-5), through
+     backend="pallas" at 128x128 (the pair kernel, exact), in f64 at
+     64x128 (auto must pick ozaki-strip(S=8x8), within 1e-12*max|C|; the
+     integer model through backend="ozaki" exact), and spmm/spmv on
+     banded65536 at 128x128 (resident k = 128, SpMV through the narrow
+     form, window k = 256; within rtol 1e-5 of scipy); no plain version
+     may run. Each kernel's time there (CUDA events) is printed beside
+     its bound and the compiled shape's time from phases 5, 12, 15, 17;
+ 38. print the kernels JSON line (the nine hand kernels, each with the
+     tile shapes it was held at against its plain version, "tiles", and
+     its phase-37 times, "chunked"), then the contract line {"ok": true,
+     "device": {...}} as the last line.
 
 Beside every kernel's time the script prints (phase bound) its bound_ms:
 the larger of the bytes its operands and results take, each read or
@@ -297,7 +320,7 @@ def build_kernels() -> None:
     # 8 pair groups (two CTAs per SM: <= 128 registers) and the three scan
     # kernels must not spill
     oz = [v for fn, v in usage.items()
-          if "ozaki_strip_kernelILi32ELi8E" in fn]
+          if "ozaki_strip_kernelILi32ELi8ELb0E" in fn]
     scan = [v for fn, v in usage.items() if "esc_scan_kernel" in fn]
     check(len(oz) == 1 and oz[0][0] <= 128 and oz[0][1:] == (0, 0),
           f"the tm 32, 8-group Ozaki kernel needs <= 128 registers and no "
@@ -2413,6 +2436,348 @@ def run_tool_phases(cant_nnz_c: int, numeric_ms: float) -> None:
           f"{time.perf_counter() - t_all!r} s")
 
 
+# --- tile shapes beyond the kernels' instantiated heights --------------------
+# Each kernel cuts a tm % 8 == 0, tn % 128 == 0 tile into chunks of the
+# heights it is instantiated for (ops/kernels.py:chunk_grid,
+# spmm_kernels.sub_tiles, ozaki_kernels.ozaki_grid).
+CHUNK_TILES = ((24, 128), (128, 128), (8, 256), (40, 384))  # strip, pair
+OZ_CHUNK_TILES = ((8, 128), (64, 128), (24, 256))
+SPMM_CHUNK_TM = (24, 128)
+BIG_TILES = ((128, 128), (40, 256))   # the cant-like A^2 through the strip
+PAIR_BIG = (128, 128)
+OZ_BIG = (64, 128)                    # bench.py's A tiling, in f64
+SPMM_BIG = (128, 128)
+
+
+def _shape(tm, tn) -> str:
+    return f"{tm}x{tn}"
+
+
+def compare_tile_shapes() -> dict:
+    """Phase 36: the strip, pair, Ozaki and SpMM kernels against their
+    plain versions at tile shapes past the instantiated ones, on random
+    banded plans. Returns {kernel name: [tile shapes held]}."""
+    import torch
+
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import kernels
+    from spgemm_tpu_torch.ops import ozaki_kernels as ok
+    from spgemm_tpu_torch.ops import pair_kernels as pk
+    from spgemm_tpu_torch.ops import spmm as pspmm
+    from spgemm_tpu_torch.ops import spmm_kernels as smk
+    from spgemm_tpu_torch.ops.gustavson import build_strip_args
+    from spgemm_tpu_torch.ops.ozaki import build_ozaki_strip
+    from spgemm_tpu_torch.ops.symbolic import build_pair_schedule
+    from spgemm_tpu_torch.utils.generators import banded
+
+    held = {"strip_numeric": [], "pair_accumulate": [], "ozaki_strip": [],
+            "spmm_strip": []}
+    rng = np.random.default_rng(29)
+    base = banded(rng, 3000, 64)
+    gauss = base.with_data(rng.standard_normal(base.nnz))
+    for tm, tn in CHUNK_TILES:
+        parts, cols = kernels.chunk_grid(tm, tn)
+        rows = "+".join(f"{n}x{h}" for h, _, n in parts)
+        for values, a in (("integer", base), ("gaussian", gauss)):
+            at, bt = csr_to_tiles(a, tm, tn), csr_to_tiles(a, tn, tn)
+            for window in (None, False):
+                args = build_strip_args(at, bt, window=window)
+                ops = args.to_device("cuda")
+                kw = args.kernel_kwargs()
+                cv, cc = kernels.strip_numeric(*ops, **kw)
+                pv, pc = kernels.strip_numeric_plain(*ops, **kw)
+                torch.cuda.synchronize()
+                ok_, err, _ = ((torch.equal(cv, pv), (cv - pv).abs().max()
+                                .item(), 0.0) if values == "integer"
+                               else _close(cv, pv))
+                print(f"phase tile-compare: strip {_shape(tm, tn)} "
+                      f"(row chunks {rows}, {cols} column chunks) "
+                      f"window={window} "
+                      f"{values} slots={cv.shape[0]} max_abs_err={err!r} "
+                      f"values_ok={ok_} counts_equal={torch.equal(cc, pc)}")
+                check(ok_ and torch.equal(cc, pc),
+                      f"strip kernel differs from its plain version at "
+                      f"{_shape(tm, tn)} ({window}, {values}): {err}")
+                del ops, cv, cc, pv, pc
+            sched = build_pair_schedule(at, bt)
+            ops = _pair_operands(at, bt, sched, "cuda", torch.bfloat16)
+            gv, gc = pk.pair_accumulate_cuda(*ops, num_segments=sched.nt_c)
+            pv, pc = pk.pair_accumulate_plain(*ops, num_segments=sched.nt_c)
+            torch.cuda.synchronize()
+            ok_, err, _ = ((torch.equal(gv, pv), (gv - pv).abs().max()
+                            .item(), 0.0) if values == "integer"
+                           else _close(gv, pv))
+            print(f"phase tile-compare: pair {_shape(tm, tn)} {values} "
+                  f"C tiles={sched.nt_c} pairs={sched.num_pairs} "
+                  f"max_abs_err={err!r} values_ok={ok_} "
+                  f"counts_equal={torch.equal(gc, pc)}")
+            check(ok_ and torch.equal(gc, pc),
+                  f"pair kernel differs from its plain version at "
+                  f"{_shape(tm, tn)} ({values}): {err}")
+            del ops, gv, gc, pv, pc
+        held["strip_numeric"].append(_shape(tm, tn))
+        held["pair_accumulate"].append(_shape(tm, tn))
+
+    for tm, tn in OZ_CHUNK_TILES:
+        for label, x in (("integer", base), ("gaussian", gauss)):
+            plan = build_ozaki_strip(csr_to_tiles(x, tm, tn),
+                                     csr_to_tiles(x, tn, tn))
+            ops = plan.to_device("cuda")
+            kw = plan.kernel_kwargs()
+            got = ok.ozaki_strip_numeric(*ops, **kw)
+            exp = ok.ozaki_strip_numeric_plain(*ops, **kw)
+            torch.cuda.synchronize()
+            equal = [torch.equal(g, e) for g, e in zip(got, exp)]
+            print(f"phase tile-compare: ozaki {_shape(tm, tn)} (grid y, z "
+                  f"{ok.ozaki_grid(tm, tn)}) {label} S={plan.sa}x{plan.sb} "
+                  f"pmax={plan.pmax} slots={got[0].shape[0]} "
+                  f"bit_equal(h, m, l, cnt)={equal}")
+            check(all(equal), f"the Ozaki kernel differs from its plain "
+                              f"version at {_shape(tm, tn)} ({label})")
+            del ops, got, exp
+        held["ozaki_strip"].append(_shape(tm, tn))
+
+    block_rows = 16
+    for tm in SPMM_CHUNK_TM:
+        for values, a in (("integer", base), ("gaussian", gauss)):
+            x = (rng.integers(-4, 5, (a.n, 256)).astype(np.float64)
+                 if values == "integer" else rng.standard_normal((a.n, 256)))
+            t = csr_to_tiles(a, tm, TN)
+            stats = pspmm._spmm_block_stats(t, block_rows)
+            kmin = torch.from_numpy(pspmm._window_kmin(t, stats)).to("cuda")
+            for k in (1, 128, 256):
+                width = smk.pack_width(k)
+                ops = pspmm._pack_spmm_operands(
+                    t, x[:, :k], width, torch.float32,
+                    block_rows).to_device("cuda")
+                for form, km in (("resident", None), ("window", kmin)):
+                    got = smk.spmm_strip(*ops, km, gm=t.gm,
+                                         block_rows=block_rows)
+                    exp = smk.spmm_strip_plain(*ops, km, gm=t.gm,
+                                               block_rows=block_rows)
+                    torch.cuda.synchronize()
+                    ok_, err, _ = ((torch.equal(got, exp), (got - exp).abs()
+                                    .max().item(), 0.0)
+                                   if values == "integer"
+                                   else _close(got, exp))
+                    print(f"phase tile-compare: spmm tm {tm} (sub-tiles "
+                          f"{smk.sub_tiles(tm)}) {form} {values} k={k} "
+                          f"width={width} max_abs_err={err!r} ok={ok_}")
+                    check(ok_, f"SpMM kernel differs from its plain version "
+                               f"at tm {tm} ({form}, {values}, k {k}): {err}")
+                del ops
+        held["spmm_strip"].append(_shape(tm, TN))
+    return held
+
+
+def _chunk_time(label, entry, ms, bnd, base_ms, base_tiles) -> None:
+    print(f"{CARD} | phase tiles-time: {label} kernel_ms={ms!r} "
+          f"bound_ms={bnd[0]!r} ({bnd[1]}) share {bnd[0] / ms:.1%}; the "
+          f"{base_tiles} instantiation on the same matrix {base_ms!r} ms")
+    entry.update(ms=ms, bound_ms=bnd[0], bound_by=bnd[1])
+
+
+def run_tile_shapes_phase(a, ref, ag, ref_g, banded, base_ms) -> dict:
+    """Phase 37: the main path at tile shapes past the instantiated ones,
+    at full size, counters zeroed before each route: the cant-like A^2
+    through the strip kernel at 128x128 and 40x256 (integer exact,
+    Gaussian within rtol 1e-5), the pair kernel at 128x128, the f64 Ozaki
+    kernel at 64x128 (Gaussian within 1e-12*max|C|, the integer model
+    exact) and SpMM/SpMV at 128x128 on banded65536, each against scipy
+    with no plain version run; then each kernel's time (CUDA events)
+    beside its bound and the instantiated shape's time from the earlier
+    phases (`base_ms`: {kernel: ms}). Returns {kernel: {shape: entry}}."""
+    import torch
+
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import golden, kernels
+    from spgemm_tpu_torch.ops import ozaki_kernels as ok
+    from spgemm_tpu_torch.ops import pair_kernels as pk
+    from spgemm_tpu_torch.ops import spmm as pspmm
+    from spgemm_tpu_torch.ops import spmm_kernels as smk
+    from spgemm_tpu_torch.ops.executor import StripExecutor
+    from spgemm_tpu_torch.ops.spgemm import spgemm, spgemm_csr
+    from spgemm_tpu_torch.ops.spmm import spmm, spmv
+    from spgemm_tpu_torch.utils.timing import cuda_event_ms
+
+    out = {"strip_numeric": {}, "pair_accumulate": {}, "ozaki_strip": {},
+           "spmm_strip": {}}
+    strip = kernels.strip_numeric
+    for tm, tn in BIG_TILES:
+        shape = _shape(tm, tn)
+        entry = {}
+        for values, x, oracle in (("integer", a, ref), ("gaussian", ag,
+                                                        ref_g)):
+            torch.cuda.empty_cache()
+            _zero_counters(*_all_wrappers())
+            t0 = time.perf_counter()
+            c, res = spgemm_csr(x, tm=tm, tn=tn, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            print(f"phase tiles: strip cant-like {shape} {values} backend="
+                  f"{res.stats['backend']} wall_s={wall!r} "
+                  f"timings_ms={res.timings_ms}")
+            check(res.stats["backend"] == "strip",
+                  f"auto routing picked {res.stats['backend']} at {shape}")
+            _launched(f"strip {shape} {values}", required=(strip,))
+            ran = [k for k, v in _counts().items() if v[0]]
+            check(ran == [strip.__name__], f"other kernels ran: {ran}")
+            entry.setdefault("launches", strip.kernel_launches)
+            if values == "integer":
+                _check_exact(f"strip {shape} integer", c, oracle)
+            else:
+                _check_close(f"strip {shape} Gaussian", c, oracle,
+                             rtol=GAUSS_RTOL, atol_rel=1e-6)
+            del c, res
+        at, bt = csr_to_tiles(a, tm, tn), csr_to_tiles(a, tn, tn)
+        ex = StripExecutor(at, bt, device="cuda")
+        sa = ex.args
+        cv, cc = ex.run()
+        products = float(sa.num_pairs) * sa.tm * sa.tk * sa.tn
+        bnd = bound(f"strip_numeric {shape}", ex._dev, (cv, cc),
+                    _f32_mma_ops(products) + [(2 * products, "bf16")])
+        del cv, cc
+        parts, cols = kernels.chunk_grid(tm, tn)
+        n_slots = -(-sa.gm // sa.block_rows) * sa.max_cblock
+        print(f"phase tiles: strip {shape} plan pairs={sa.num_pairs} "
+              f"padded_slots={n_slots} row chunks (height, first row, "
+              f"count)={parts} column chunks={cols}: CTAs="
+              f"{n_slots * sum(n for _, _, n in parts) * cols}")
+        _chunk_time(f"strip {shape}", entry,
+                    ex.time_numeric(warmup=3, iters=30), bnd,
+                    base_ms["strip_numeric"], _shape(TM, TN))
+        out["strip_numeric"][shape] = entry
+        del ex
+        torch.cuda.empty_cache()
+
+    # the pair kernel through backend="pallas"
+    tm, tn = PAIR_BIG
+    shape = _shape(tm, tn)
+    w = pk.pair_accumulate_cuda
+    _zero_counters(*_all_wrappers())
+    c, res = spgemm_csr(a, tm=tm, tn=tn, backend="pallas", device="cuda")
+    torch.cuda.synchronize()
+    check(res.stats["backend"] == "pallas", "pair backend not taken")
+    _launched(f"pair {shape}", required=(w,))
+    _check_exact(f"pair {shape} integer", c, ref)
+    entry = {"launches": w.kernel_launches}
+    sched = res.schedule
+    del c, res
+    at, bt = csr_to_tiles(a, tm, tn), csr_to_tiles(a, tn, tn)
+    ops = _pair_operands(at, bt, sched, "cuda", torch.bfloat16)
+    kw = dict(num_segments=sched.nt_c)
+    gv, gc = w(*ops, **kw)
+    products = float(sched.num_pairs) * tm * tn * tn
+    bnd = bound(f"pair_accumulate {shape}", ops, (gv, gc),
+                _f32_mma_ops(products) + [(2 * products, "bf16")])
+    del gv, gc
+    _chunk_time(f"pair {shape}", entry,
+                cuda_event_ms(lambda: w(*ops, **kw), warmup=3, iters=20), bnd,
+                base_ms["pair_accumulate"], _shape(TM, TN))
+    out["pair_accumulate"][shape] = entry
+    del ops
+    torch.cuda.empty_cache()
+
+    # the f64 Ozaki kernel through the f64 auto route
+    tm, tn = OZ_BIG
+    shape = _shape(tm, tn)
+    oz = ok.ozaki_strip_numeric
+    _zero_counters(*_all_wrappers())
+    c, res = spgemm_csr(ag, tm=tm, tn=tn, compute_dtype=torch.float64,
+                        device="cuda")
+    torch.cuda.synchronize()
+    print(f"phase tiles: f64 cant-like Gaussian {shape} backend="
+          f"{res.stats['backend']} timings_ms={res.timings_ms}")
+    check(res.stats["backend"] == "ozaki-strip(S=8x8)",
+          f"the f64 route at {shape} picked {res.stats['backend']}")
+    _launched(f"ozaki {shape}", required=(oz,))
+    entry = {"launches": oz.kernel_launches}
+    got = golden.drop_explicit_zeros(c)
+    pat = got.pattern_equal(ref_g)
+    scale = float(np.abs(ref_g.data).max())
+    err = float(np.abs(got.data - ref_g.data).max()) if pat else float("inf")
+    print(f"phase check: f64 {shape} pattern_equal={pat} max_abs_err={err!r} "
+          f"err/max|C|={err / scale!r} (limit {OZ_RTOL})")
+    check(pat and err <= OZ_RTOL * scale, f"f64 {shape} differs from scipy")
+    plan = res.schedule
+    del c, got, res
+    _zero_counters(*_all_wrappers())
+    ires = spgemm(csr_to_tiles(a, tm, tn), csr_to_tiles(a, tn, tn),
+                  backend="ozaki", device="cuda")
+    check(ires.stats["backend"] == "ozaki-strip(S=1x1)",
+          f"integer model at {shape}: {ires.stats['backend']}")
+    _launched(f"ozaki {shape} integer", required=(oz,))
+    _check_exact(f"ozaki {shape} integer", ires.c.to_csr(), ref)
+    del ires
+    ops = plan.to_device("cuda")
+    kw = plan.kernel_kwargs()
+    planes = oz(*ops, **kw)
+    s = plan.sargs
+    kept = sum(1 for i in range(plan.sa) for j in range(plan.sb)
+               if i + j <= plan.pmax)
+    macs = float(s.num_pairs) * kept * tm * s.tk * s.tn
+    bnd = bound(f"ozaki_strip {shape}", ops, planes, [(2 * macs, "int8")])
+    del planes
+    _chunk_time(f"ozaki {shape}", entry,
+                cuda_event_ms(lambda: oz(*ops, **kw), warmup=3, iters=20),
+                bnd, base_ms["ozaki_strip"], _shape(OZ_TM, TN))
+    out["ozaki_strip"][shape] = entry
+    del ops, plan
+    torch.cuda.empty_cache()
+
+    # SpMM and SpMV on banded65536
+    tm, tn = SPMM_BIG
+    shape = _shape(tm, tn)
+    sw = smk.spmm_strip
+    t = csr_to_tiles(banded, tm, tn)
+    sp_a = _sp(banded)
+    rng = np.random.default_rng(43)
+    block_rows = 64
+    stats = pspmm._spmm_block_stats(t, block_rows)
+    for label, k, form, vec in (("resident", SPMM_K, "resident", False),
+                                ("spmv", 1, "resident", True),
+                                ("window", 2 * SPMM_K, "window", False)):
+        x = rng.standard_normal(banded.n if vec else (banded.n, k)) \
+            .astype(np.float32)
+        k_pad = max(128, -(-k // 128) * 128)
+        mode = pspmm._spmm_mode(t, k_pad, device=torch.device("cuda"))[0]
+        check(mode == form, f"{label} at {shape}: the gate picked {mode}")
+        _zero_counters(*_all_wrappers())
+        with _RouteSpy() as spy:
+            y = (spmv if vec else spmm)(t, x, device="cuda")
+            torch.cuda.synchronize()
+        ok_, err, scale = _close(y, sp_a @ x.astype(np.float64))
+        print(f"phase tiles: spmm banded{SUITE_N} {shape} {label} k={k} "
+              f"route={spy.log} max_abs_err={err!r} max|Y|={scale!r} ok={ok_}")
+        check(spy.log == ["_spmm_strip"], f"{label} took route {spy.log}")
+        _launched(f"spmm {shape} {label}", required=(sw,))
+        check((sw.narrow_launches > 0) == vec,
+              f"{label}: narrow launches {sw.narrow_launches}")
+        check(ok_, f"spmm {shape} {label} differs from scipy: {err}")
+        entry = {"launches": sw.kernel_launches}
+        del y
+        x2 = x[:, None] if vec else x
+        ops = pspmm._pack_spmm_operands(t, x2, smk.pack_width(k),
+                                        torch.float32,
+                                        block_rows).to_device("cuda")
+        km = (None if label != "window" else
+              torch.from_numpy(pspmm._window_kmin(t, stats)).to("cuda"))
+        kw = dict(gm=t.gm, block_rows=block_rows)
+        got = sw(*ops, km, **kw)
+        width = got.shape[2]
+        bnd = bound(f"spmm {shape} {label} width={width}", (*ops, km), (got,),
+                    _f32_mma_ops(float(t.nt) * t.tm * t.tn * width))
+        del got
+        _chunk_time(f"spmm {shape} {label}", entry,
+                    cuda_event_ms(lambda: sw(*ops, km, **kw), warmup=3,
+                                  iters=20), bnd, base_ms[f"spmm {label}"],
+                    _shape(SPMM_TM, TN))
+        out["spmm_strip"][f"{shape} {label}"] = entry
+        del ops
+    torch.cuda.empty_cache()
+    return out
+
+
 def run() -> dict:
     import torch
 
@@ -2577,6 +2942,7 @@ def run() -> dict:
     spmm_entries = run_spmm_path(suite)
     rnd = suite[f"random{SUITE_N}"]
     rmat = suite[f"rmat{SUITE_N}"]
+    band = suite[f"banded{SUITE_N}"]
     del suite
     torch.cuda.empty_cache()
 
@@ -2591,7 +2957,6 @@ def run() -> dict:
     ag, ref_g = run_gustavson_route(a, ref)
     run_dense_route()
     run_slab_f64_route(ag, ref_g)
-    del ag, ref_g, a, ref
     torch.cuda.empty_cache()
     run_example_phases(rnd)
     del rnd
@@ -2602,8 +2967,24 @@ def run() -> dict:
     run_dryrun_phase()
     run_tool_phases(cant_nnz_c, numeric_ms)
 
-    return {
-        "kernels": [{
+    # phases 36-37: the kernels at tile shapes past their instantiations
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    held = compare_tile_shapes()
+    base_ms = {"strip_numeric": numeric_ms, "pair_accumulate":
+               pair_entry["ms"], "ozaki_strip": oz_entry["ms"]}
+    for e, label in zip(spmm_entries, ("resident", "spmv", "window")):
+        base_ms[f"spmm {label}"] = e["ms"]
+    chunked = run_tile_shapes_phase(a, ref, ag, ref_g, band, base_ms)
+    print(f"phase tiles: phases 36-37 took {time.perf_counter() - t0!r} s")
+    del a, ref, ag, ref_g, band
+    # the tile shapes each kernel was held at against its plain version
+    # (phases 3, 10, 13, 16 and 36) and its chunked times (phase 37)
+    instantiated = {"strip_numeric": ["64x128", "16x128"],
+                    "pair_accumulate": ["16x128", "64x128"],
+                    "ozaki_strip": ["16x128", "32x128"],
+                    "spmm_strip": ["16x128", "64x128"]}
+    entries = [{
             "name": "strip_numeric",
             "route": "cuda",
             "source": "spgemm_tpu_torch/csrc/strip_numeric.cu",
@@ -2618,7 +2999,15 @@ def run() -> dict:
             "library_ms": strip_lib_ms,
             "gaussian_ms": g_ms,
             "gaussian_max_abs_err": g_err,
-        }] + esc_entries + [dd_entry, oz_entry] + spmm_entries + [pair_entry],
+        }] + esc_entries + [dd_entry, oz_entry] + spmm_entries + [pair_entry]
+    for e in entries:
+        key = "spmm_strip" if e["name"].startswith("spmm_strip") \
+            else e["name"]
+        if key in held:
+            e["tiles"] = instantiated[key] + held[key]
+            e["chunked"] = chunked[key]
+    return {
+        "kernels": entries,
         # the number of cards this run uses
         "device": {"platform": "gpu", "kind": dev_name, "count": 1},
     }

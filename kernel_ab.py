@@ -13,7 +13,7 @@ rmat65536 A^2 (premul and mul), random65536 with standard-normal values
 (double-double), the cant-like A^2 at 64x128 with integer values (the
 strip kernel, and the pair kernel on the pair schedule with the bfloat16
 occupancy the pair backend uploads; both also with standard-normal
-values), and the suite's banded65536 at 16x128 tiles with standard-normal
+values; the strip kernel also at 32x128, 16x128 and 8x128), and the suite's banded65536 at 16x128 tiles with standard-normal
 X, then with integer A and X, at k = 128 (resident form) and k = 256
 (window form; the SpMM kernel's 128-column form). The port's wrapper
 drives either side's library (both share a C interface; the pair
@@ -319,6 +319,20 @@ def main(base_dir: str) -> int:
          for side, lib in sides("strip_numeric").items()},
         lambda: kernels.strip_numeric_plain(*gops, **gkw), close=True)
     del gops, gargs, grun
+    # the other compiled heights, integer values (their registers differ
+    # the most between the revisions)
+    for tm in (32, 16, 8):
+        hargs = build_strip_args(csr_to_tiles(a0, tm, 128),
+                                 csr_to_tiles(a0, 128, 128))
+        hops = hargs.to_device("cuda")
+        hkw = hargs.kernel_kwargs()
+        hrun = lambda: kernels.strip_numeric(*hops, **hkw)
+        out[f"strip_numeric_tm{tm}"] = _ab(
+            f"strip_numeric cant-like tm {tm}",
+            {side: _swap(kernels, lib, hrun)
+             for side, lib in sides("strip_numeric").items()},
+            lambda: kernels.strip_numeric_plain(*hops, **hkw))
+        del hops, hargs, hrun
     torch.cuda.empty_cache()
     sched = build_pair_schedule(at, bt)
     up = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to("cuda")

@@ -46,7 +46,9 @@ Baseline: 52.63 GFLOPS (the reference GPU's best cant run,
 `data/results_tile.csv`).
 
 Env knobs: BENCH_ROWS, BENCH_BAND, BENCH_REPEATS, BENCH_LOOP (timed
-launches), BENCH_TM/BENCH_TN, BENCH_BLOCK_ROWS, BENCH_F64.
+launches), BENCH_TM/BENCH_TN (any BENCH_TM % 8 == 0, BENCH_TN % 128 == 0
+runs the strip kernel, as the root bench.py's strip kernel takes them),
+BENCH_BLOCK_ROWS, BENCH_F64.
 """
 
 from __future__ import annotations

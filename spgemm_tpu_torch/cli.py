@@ -5,8 +5,10 @@ reference's `./test` binary:
 
 Prints the same lines as the JAX package's CLI (matrix info, load time,
 tile size, flops, conversion ms, format space, step times, tile/nnz
-counts, runtime + GFLOPS, check verdict) and appends the four CSV sinks.
-`--backend` takes the JAX CLI's auto|strip|gustavson|dense|esc|xla|pallas|
+counts, runtime + GFLOPS, check verdict) and appends the four CSV sinks;
+the route it took (`stats["backend"]`) goes to stderr. On the card every
+tile_m % 8 == 0, tile_n % 128 == 0 shape runs the hand kernels (strip,
+pair, Ozaki). `--backend` takes the JAX CLI's auto|strip|gustavson|dense|esc|xla|pallas|
 ozaki: auto sends unstructured inputs to the ESC scan route and the rest
 to the tiled router (the strip kernel where it runs, else dense, slab or
 pair gather: any tile size runs, TileSpGEMM's 16x16 included), gustavson
@@ -132,6 +134,8 @@ def main(argv=None) -> int:
     c, res = best
 
     tms = res.timings_ms
+    # the route on stderr: stdout keeps the JAX CLI's lines
+    print(f"route: {res.stats['backend']}", file=sys.stderr)
     print(f"step times: symbolic {tms['symbolic_ms']:.2f} ms, "
           f"upload {tms['upload_ms']:.2f} ms, "
           f"numeric {tms['numeric_ms']:.2f} ms, "

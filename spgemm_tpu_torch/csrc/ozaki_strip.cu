@@ -23,10 +23,27 @@
 // block's group accumulators in VMEM ((max_cblock+1) x n_groups*tm x tn
 // int32, megabytes) over an in-order grid. One C slot's accumulators alone
 // are n_groups*tm*tn int32: 128 KB at the cant-like plan (8 groups, tm 32),
-// 240 KB with all 15 groups. So here a CTA owns one C slot and 64 of its
-// 128 columns (grid.y = 2), its group sums in registers as int8 tensor-core
-// accumulators: 8 groups (the instantiation for n_groups <= 8, two CTAs
-// per SM at tm 32) or 15 (all groups, one CTA per SM).
+// 240 KB with all 15 groups. So here a CTA owns h rows and 64 columns of
+// one C slot (grid.y = tn/64 column chunks, grid.z the row chunks), its
+// group sums in registers as int8 tensor-core accumulators: 8 groups
+// (the instantiation for n_groups <= 8, two CTAs per SM at h 32) or 15
+// (all groups, one CTA per SM).
+//
+// Tile shapes. Any tm % 8 == 0 and tn % 128 == 0 (every tn % 64 would
+// do). A tile of 16 or 32 rows and 128 columns runs as it always has (the
+// CHUNKED = false instantiations, tm and tn compile-time). Any other is
+// cut into row chunks of h = 32, 16 or 8 rows: as many 32-row chunks as
+// fit, then at most one of 16 and 8 rows (sm90_common.cuh:
+// for_each_row_part; 64 -> 32 + 32, 24 -> 16 + 8; one 64-row CTA would
+// need 512 threads at 128 registers), one launch per height. At h 8 the CTA keeps the 16-row
+// layout of h 16 (128 threads, every A slice padded to an m16 fragment in
+// shared memory, rows 8..15 zero and never written) and drops rows 8..15
+// at the store. A chunk of rows r .. r+h (r = row_base + blockIdx.z*h)
+// reads those rows of each A slice in the stacked av8 (slice s at rows
+// s*tm + r) and of a_occ, and writes them in the slot's tile. Each chunk
+// CTA gathers the slot's pairs itself, so a tile of q row chunks and n/64
+// column chunks scans the slot words q*n/64 times, stages each A chunk
+// n/64 times and each B chunk q times.
 //
 // Design.
 //   Pairs: all threads scan the block's slot words, one word each per
@@ -83,8 +100,9 @@
 // (a transpose of bv8), asynchronous wgmma and TMA.
 //
 // Limits (checked by the caller, spgemm_tpu_torch/ops/ozaki_kernels.py):
-//   (tm, tn) in {(16,128), (32,128)}; tk % 16 == 0; 1 <= sa, sb <= 8;
-//   stack_rows >= sa*tm; n_blocks*max_cblock < 2^31 (grid size).
+//   tm % 8 == 0, tn % 128 == 0, tm/32 and tn/64 <= 65,535 (grid z and y);
+//   tk % 16 == 0; 1 <= sa, sb <= 8; stack_rows >= sa*tm;
+//   n_blocks*max_cblock < 2^31 (grid x).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC ozaki_strip.cu -o libozaki_strip.so
@@ -92,10 +110,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "sm90_common.cuh"
+
 namespace {
 
-constexpr int kTN = 128;            // C tile width (the only instantiated tn)
-constexpr int kCN = 64;             // C columns per CTA (grid.y = 2)
+constexpr int kTN = 128;            // tn is a multiple of this
+constexpr int kCN = 64;             // C columns per CTA (grid.y = tn/64)
+constexpr int kMaxChunks = 65535;   // grid.y and grid.z limit
 constexpr int kKC = 32;             // k depth of one pipeline step
 constexpr int kStages = 3;
 constexpr int kMaxSlices = 8;
@@ -108,9 +129,9 @@ constexpr int kBStride = kCN;            // int8 B rows: 64, chunks swizzled
 constexpr int kAoStride = 2 * kKC + 16;  // bf16 A occupancy rows: 80
 constexpr int kBoStride = 2 * kCN + 16;  // bf16 B occupancy rows: 144
 
-// bytes of one ring stage for sa A slices and sb B slices at tile height tm
-__host__ __device__ constexpr int stage_bytes(int tm, int sa, int sb) {
-  return sa * tm * kAStride + sb * kKC * kBStride + tm * kAoStride +
+// bytes of one ring stage for sa A slices and sb B slices of mr rows
+__host__ __device__ constexpr int stage_bytes(int mr, int sa, int sb) {
+  return sa * mr * kAStride + sb * kKC * kBStride + mr * kAoStride +
          kKC * kBoStride;
 }
 
@@ -175,13 +196,16 @@ __device__ __forceinline__ void two_sum(float a, float b, float& s,
   e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
 }
 
-// One CTA per (padded C slot, 64-column half). Warp w owns rows
-// (w/4)*16 .. +16 and columns (w%4)*16 .. +16 of the half, for every
-// group: an even-column and an odd-column n8 tile of the int8 products
-// (acc_e, acc_o: thread (gid, tig) holds columns 4*tig .. 4*tig+3 of rows
-// gid and gid+8), and two plain n8 tiles of counts.
-template <int TM, int NG>
-__global__ void __launch_bounds__(TM * 8, NG <= 8 ? 2 : 1)
+// One CTA per (padded C slot, 64-column chunk, row chunk of TM rows);
+// CHUNKED false: tm = TM and tn = 128 (the arguments are not read).
+// Warp w owns rows (w/4)*16 .. +16 and columns (w%4)*16 .. +16 of the
+// chunk, for every group: an even-column and an odd-column n8 tile of the
+// int8 products (acc_e, acc_o: thread (gid, tig) holds columns
+// 4*tig .. 4*tig+3 of rows gid and gid+8), and two plain n8 tiles of
+// counts. At TM 8 the CTA is laid out for 16 rows (MR) and rows 8..15
+// stay zero.
+template <int TM, int NG, bool CHUNKED>
+__global__ void __launch_bounds__((TM < 16 ? 16 : TM) * 8, NG <= 8 ? 2 : 1)
 ozaki_strip_kernel(const int8_t* __restrict__ av8,
                    const uint16_t* __restrict__ a_occ,
                    const int8_t* __restrict__ bv8,
@@ -192,9 +216,13 @@ ozaki_strip_kernel(const int8_t* __restrict__ av8,
                    float* __restrict__ c_h, float* __restrict__ c_m,
                    float* __restrict__ c_l, float* __restrict__ c_cnt,
                    int64_t gm, int64_t block_rows, int64_t max_b,
-                   int64_t max_cblock, int64_t stack_rows, int64_t tk,
-                   int sa, int sb, int pmax, int n_groups) {
-  constexpr int kThreads = TM * 8;
+                   int64_t max_cblock, int64_t stack_rows, int64_t row_base,
+                   int64_t tm_arg, int64_t tk, int64_t tn_arg, int sa, int sb,
+                   int pmax, int n_groups) {
+  constexpr int MR = TM < 16 ? 16 : TM;  // rows of the m16 fragments
+  const int64_t tm = CHUNKED ? tm_arg : TM;
+  const int64_t tn = CHUNKED ? tn_arg : kTN;
+  constexpr int kThreads = MR * 8;
   constexpr int kWarps = kThreads / 32;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int32_t match_g[kMatchCap];  // A tile of each gathered entry
@@ -211,18 +239,29 @@ ozaki_strip_kernel(const int8_t* __restrict__ av8,
   const int tig = lane & 3;
   const int64_t slot_id = blockIdx.x;
   const int c0 = blockIdx.y * kCN;
+  const int64_t row_off =
+      CHUNKED ? row_base + static_cast<int64_t>(blockIdx.z) * TM : 0;
   const int64_t blk = slot_id / max_cblock;
   const int32_t s_c = static_cast<int32_t>(slot_id - blk * max_cblock);
   const int64_t r0 = blk * block_rows;
   const int64_t r1 = r0 + block_rows < gm ? r0 + block_rows : gm;
   const int64_t e_begin = static_cast<int64_t>(aptr[r0]) * max_b;
   const int64_t e_end = static_cast<int64_t>(aptr[r1]) * max_b;
-  const int64_t ldb = static_cast<int64_t>(sb) * max_b * kTN;
-  const int64_t ldbo = max_b * kTN;
+  const int64_t ldb = static_cast<int64_t>(sb) * max_b * tn;
+  const int64_t ldbo = max_b * tn;
   const int nch = static_cast<int>((tk + kKC - 1) / kKC);
-  const int a_bytes = sa * TM * kAStride;
+  const int a_bytes = sa * MR * kAStride;
   const int b_bytes = sb * kKC * kBStride;
-  const int stage = stage_bytes(TM, sa, sb);
+  const int stage = stage_bytes(MR, sa, sb);
+
+  if (TM < 16) {
+    // rows TM..15 of every A slice and of the A occupancy are never
+    // copied: keep them zero (the gather's barriers land this first)
+    uint4* z = reinterpret_cast<uint4*>(smem);
+    for (int i = tid; i < kStages * stage / 16; i += kThreads) {
+      z[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
 
   int32_t acc_e[NG][4];
   int32_t acc_o[NG][4];
@@ -254,19 +293,22 @@ ozaki_strip_kernel(const int8_t* __restrict__ av8,
     unsigned char* s_a = st;
     unsigned char* s_b = st + a_bytes;
     unsigned char* s_ao = s_b + b_bytes;
-    unsigned char* s_bo = s_ao + TM * kAoStride;
-    const int8_t* a_g = av8 + g * stack_rows * tk + k0;
-    const int8_t* b_g = bv8 + (ks * tk + k0) * ldb + y * kTN + c0;
-    const uint16_t* ao_g = a_occ + g * TM * tk + k0;
-    const uint16_t* bo_g = b_occ + (ks * tk + k0) * ldbo + y * kTN + c0;
+    unsigned char* s_bo = s_ao + MR * kAoStride;
+    const int8_t* a_g = av8 + (g * stack_rows + row_off) * tk + k0;
+    const int8_t* b_g = bv8 + (ks * tk + k0) * ldb + y * tn + c0;
+    const uint16_t* ao_g = a_occ + (g * tm + row_off) * tk + k0;
+    const uint16_t* bo_g = b_occ + (ks * tk + k0) * ldbo + y * tn + c0;
     const int64_t kleft = tk - k0;
-    // A slice stack: sa*TM rows of two 16-byte chunks
+    // A slice stack: TM rows of each of the sa slices (slice s at rows
+    // s*tm of av8, at rows s*MR here), two 16-byte chunks a row
     for (int i = tid; i < sa * TM * 2; i += kThreads) {
       const int r = i >> 1;
+      const int s = r / TM;
+      const int rr = r - s * TM;
       const int c = i & 1;
       const bool in = c * 16 < kleft;
-      cp_async16(s_a + r * kAStride + c * 16, in ? a_g + r * tk + c * 16 : av8,
-                 in);
+      cp_async16(s_a + (s * MR + rr) * kAStride + c * 16,
+                 in ? a_g + (s * tm + rr) * tk + c * 16 : av8, in);
     }
     // B slices: sb x 32 k rows of four 16-byte chunks (64 columns)
     for (int i = tid; i < sb * kKC * 4; i += kThreads) {
@@ -275,7 +317,7 @@ ozaki_strip_kernel(const int8_t* __restrict__ av8,
       const int c = i & 3;
       const bool in = kr < kleft;
       cp_async16(s_b + (t * kKC + kr) * kBStride + b_chunk(kr, c) * 16,
-                 in ? b_g + kr * ldb + t * max_b * kTN + c * 16 : bv8, in);
+                 in ? b_g + kr * ldb + t * max_b * tn + c * 16 : bv8, in);
     }
     // A occupancy: TM rows of four chunks (8 bf16 each)
     for (int i = tid; i < TM * 4; i += kThreads) {
@@ -301,7 +343,7 @@ ozaki_strip_kernel(const int8_t* __restrict__ av8,
     const unsigned char* s_a = st;
     const unsigned char* s_b = st + a_bytes;
     const unsigned char* s_ao = s_b + b_bytes;
-    const unsigned char* s_bo = s_ao + TM * kAoStride;
+    const unsigned char* s_bo = s_ao + MR * kAoStride;
     // B fragments: lane group q = lane/8 feeds the k rows
     // (q&1)*2 + (q>>1)*16 + {0,1,4,5,8,9,12,13}
     const int lr = lane & 7;
@@ -334,7 +376,7 @@ ozaki_strip_kernel(const int8_t* __restrict__ av8,
         for (int s = 0; s < kMaxSlices; ++s) {
           if (s < sa && s + th <= pmax) {
             uint32_t af[4];
-            ldmatrix_x4(af, pa + s * TM * kAStride);
+            ldmatrix_x4(af, pa + s * MR * kAStride);
 #pragma unroll
             for (int u = 0; u < kPart; ++u) {
               constexpr int kLast = NG - 1;
@@ -414,11 +456,12 @@ ozaki_strip_kernel(const int8_t* __restrict__ av8,
     __syncthreads();  // stages and matches are free for the next gather
   }
 
-  // triple-float reduce of the group sums, in the reference's order
-  const int64_t base = slot_id * TM * kTN + c0 + cb * 16;
+  // triple-float reduce of the group sums, in the reference's order; at
+  // TM 8 the rows 8..15 (half 1) are padding and are dropped
+  const int64_t base = slot_id * tm * tn + row_off * tn + c0 + cb * 16;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int64_t row_off = base + (rb * 16 + gid + half * 8) * kTN;
+  for (int half = 0; half < (TM < 16 ? 1 : 2); ++half) {
+    const int64_t row_at = base + (rb * 16 + gid + half * 8) * tn;
     float h[4], m[4], l[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -445,26 +488,27 @@ ozaki_strip_kernel(const int8_t* __restrict__ av8,
       m[q] = mm;
       l[q] = ll;
     }
-    const int64_t off = row_off + 4 * tig;
+    const int64_t off = row_at + 4 * tig;
     *reinterpret_cast<float4*>(c_h + off) = make_float4(h[0], h[1], h[2], h[3]);
     *reinterpret_cast<float4*>(c_m + off) = make_float4(m[0], m[1], m[2], m[3]);
     *reinterpret_cast<float4*>(c_l + off) = make_float4(l[0], l[1], l[2], l[3]);
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
-      *reinterpret_cast<float2*>(c_cnt + row_off + nt * 8 + 2 * tig) =
+      *reinterpret_cast<float2*>(c_cnt + row_at + nt * 8 + 2 * tig) =
           make_float2(cnt[nt][half * 2], cnt[nt][half * 2 + 1]);
     }
   }
 }
 
-template <int TM, int NG>
-int launch(int64_t n_slots, cudaStream_t stream, const int8_t* av8,
+template <int TM, int NG, bool CHUNKED>
+int launch(dim3 grid, cudaStream_t stream, const int8_t* av8,
            const uint16_t* a_occ, const int8_t* bv8, const uint16_t* b_occ,
            const int32_t* aptr, const int32_t* ak, const int32_t* slots,
            float* c_h, float* c_m, float* c_l, float* c_cnt, int64_t gm,
            int64_t block_rows, int64_t max_b, int64_t max_cblock,
-           int64_t stack_rows, int64_t tk, int sa, int sb, int pmax,
-           int n_groups) {
+           int64_t stack_rows, int64_t row_base, int64_t tm, int64_t tk,
+           int64_t tn, int sa, int sb, int pmax, int n_groups) {
+  constexpr int MR = TM < 16 ? 16 : TM;
   // the shared-memory attributes are set once per device, for the largest
   // stage (sa = sb = 8), so every plan launches under them
   static bool ready[kMaxDevices] = {};
@@ -472,22 +516,23 @@ int launch(int64_t n_slots, cudaStream_t stream, const int8_t* av8,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kMaxDevices || !ready[dev]) {
-    err = cudaFuncSetAttribute(
-        ozaki_strip_kernel<TM, NG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kStages * stage_bytes(TM, kMaxSlices, kMaxSlices));
+    err = cudaFuncSetAttribute(ozaki_strip_kernel<TM, NG, CHUNKED>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kStages * stage_bytes(MR, kMaxSlices,
+                                                     kMaxSlices));
     if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(ozaki_strip_kernel<TM, NG>,
+      err = cudaFuncSetAttribute(ozaki_strip_kernel<TM, NG, CHUNKED>,
                                  cudaFuncAttributePreferredSharedMemoryCarveout,
                                  cudaSharedmemCarveoutMaxShared);
     }
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev < kMaxDevices) ready[dev] = true;
   }
-  const size_t smem = static_cast<size_t>(kStages) * stage_bytes(TM, sa, sb);
-  const dim3 grid(static_cast<unsigned>(n_slots), kTN / kCN);
-  ozaki_strip_kernel<TM, NG><<<grid, TM * 8, smem, stream>>>(
+  const size_t smem = static_cast<size_t>(kStages) * stage_bytes(MR, sa, sb);
+  ozaki_strip_kernel<TM, NG, CHUNKED><<<grid, MR * 8, smem, stream>>>(
       av8, a_occ, bv8, b_occ, aptr, ak, slots, c_h, c_m, c_l, c_cnt, gm,
-      block_rows, max_b, max_cblock, stack_rows, tk, sa, sb, pmax, n_groups);
+      block_rows, max_b, max_cblock, stack_rows, row_base, tm, tk, tn, sa, sb,
+      pmax, n_groups);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -505,10 +550,11 @@ int ozaki_strip_f32(const void* av8, const void* a_occ, const void* bv8,
                     int64_t tm, int64_t tk, int64_t tn, int64_t stack_rows,
                     int64_t sa, int64_t sb, int64_t pmax, void* stream) {
   const int64_t n_slots = n_blocks * max_cblock;
-  if (n_slots <= 0 || n_slots > INT32_MAX || tn != kTN || tk < 16 ||
-      tk % 16 != 0 || max_b < 1 || block_rows < 1 || gm < 1 || sa < 1 ||
-      sa > kMaxSlices || sb < 1 || sb > kMaxSlices || pmax < 0 ||
-      stack_rows < sa * tm) {
+  if (n_slots <= 0 || n_slots > INT32_MAX || tm < 8 || tm % 8 != 0 ||
+      tm / 32 > kMaxChunks || tn < kTN || tn % kTN != 0 ||
+      tn / kCN > kMaxChunks || tk < 16 || tk % 16 != 0 || max_b < 1 ||
+      block_rows < 1 || gm < 1 || sa < 1 || sa > kMaxSlices || sb < 1 ||
+      sb > kMaxSlices || pmax < 0 || stack_rows < sa * tm) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t ng64 = sa + sb - 1 < pmax + 1 ? sa + sb - 1 : pmax + 1;
@@ -528,19 +574,29 @@ int ozaki_strip_f32(const void* av8, const void* a_occ, const void* bv8,
   auto* cc = static_cast<float*>(c_cnt);
   const int isa = static_cast<int>(sa);
   const int isb = static_cast<int>(sb);
-#define OZAKI_LAUNCH(TM, NG)                                                  \
-  launch<TM, NG>(n_slots, st, a8, ao, b8, bo, ap, kk, sl, ch, cm, cl, cc, gm, \
-                 block_rows, max_b, max_cblock, stack_rows, tk, isa, isb, pm, \
-                 n_groups)
   const bool wide = n_groups > 8;
-  switch (tm) {
-    case 32:
-      return wide ? OZAKI_LAUNCH(32, 15) : OZAKI_LAUNCH(32, 8);
-    case 16:
-      return wide ? OZAKI_LAUNCH(16, 15) : OZAKI_LAUNCH(16, 8);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const auto col_chunks = static_cast<unsigned>(tn / kCN);
+#define OZAKI_LAUNCH(TM, NG, CHUNKED, GRID, ROW0)                             \
+  launch<TM, NG, CHUNKED>(GRID, st, a8, ao, b8, bo, ap, kk, sl, ch, cm, cl,   \
+                          cc, gm, block_rows, max_b, max_cblock, stack_rows, \
+                          ROW0, tm, tk, tn, isa, isb, pm, n_groups)
+  if ((tm == 16 || tm == 32) && tn == kTN) {
+    const dim3 grid(static_cast<unsigned>(n_slots), col_chunks);
+    if (tm == 32) {
+      return wide ? OZAKI_LAUNCH(32, 15, false, grid, 0)
+                  : OZAKI_LAUNCH(32, 8, false, grid, 0);
+    }
+    return wide ? OZAKI_LAUNCH(16, 15, false, grid, 0)
+                : OZAKI_LAUNCH(16, 8, false, grid, 0);
   }
+  // as many 32-row chunks as fit, then one each of 16 and 8 rows
+  return sm90::for_each_row_part<32, 16, 8>(
+      tm, [&](auto h, int64_t row_base, unsigned n) {
+        constexpr int H = decltype(h)::value;
+        const dim3 grid(static_cast<unsigned>(n_slots), col_chunks, n);
+        return wide ? OZAKI_LAUNCH(H, 15, true, grid, row_base)
+                    : OZAKI_LAUNCH(H, 8, true, grid, row_base);
+      });
 #undef OZAKI_LAUNCH
 }
 

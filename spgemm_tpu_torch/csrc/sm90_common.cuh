@@ -7,7 +7,8 @@
 //   mma.sync.m16n8k8 (tf32) and m16n8k16 (bf16) with f32 accumulation;
 //   ldmatrix (plain and .trans) for 16-bit fragments;
 //   a host helper that sets a kernel's shared-memory attributes once per
-//   device instead of before every launch.
+//   device instead of before every launch, and one that launches a tile's
+//   row chunks by height (for_each_row_part).
 //
 // The build key of every library that includes this file covers its bytes
 // (spgemm_tpu_torch/utils/native.py:build_shared_library), so an edit here
@@ -16,6 +17,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace sm90 {
@@ -124,6 +126,30 @@ inline cudaError_t set_smem_once(Kernel kernel, int smem, bool max_shared,
                                cudaSharedmemCarveoutMaxShared);
   }
   if (err == cudaSuccess && dev < kMaxDevices) ready[dev] = true;
+  return err;
+}
+
+template <int H, typename F>
+inline int row_part(int64_t tm, int64_t& row0, F& launch) {
+  const int64_t n = (tm - row0) / H;
+  if (n == 0) return 0;
+  const int err = launch(std::integral_constant<int, H>{}, row0,
+                         static_cast<unsigned>(n));
+  row0 += n * H;
+  return err;
+}
+
+// Calls launch(H, row_base, n) for the row chunks of a tm-row tile (tm a
+// multiple of the last height): for each H of Heights in turn (largest
+// first), the n chunks of H rows that fit from row row_base on, one call
+// per height that has any (H an std::integral_constant). So with 64, 32,
+// 16, 8: 128 = 2 x 64, 40 = 32 + 8, 24 = 16 + 8. Returns the first
+// nonzero result.
+template <int... Heights, typename F>
+inline int for_each_row_part(int64_t tm, F&& launch) {
+  int64_t row0 = 0;
+  int err = 0;
+  ((err = err != 0 ? err : row_part<Heights>(tm, row0, launch)), ...);
   return err;
 }
 

@@ -54,6 +54,19 @@
 // The tm x 128 accumulators (64 registers) stay in registers and each Y
 // row is written once. No atomics, a fixed accumulation order.
 //
+// Tile heights. Any tm % 8 == 0, the tiles the TPU kernels take. Y = A.X
+// is row-wise, so a (tm, tk) A tile with tm = q*h is q tiles of height h
+// stacked in memory: sub-tile j of tile g is the (h, tk) block at
+// a + (g*q + j)*h*tk, and Y's (n_rows, tm, k_pad) layout is (n_rows*q, h,
+// k_pad). The kernels are instantiated at h in {8, 16, 32, 64} (the
+// largest that divides tm, chunk_rows) and walk "virtual" tile rows
+// v = i*q + j: row v takes tile row i's ak list, reads sub-tile j of each
+// of its tiles, and writes Y rows v*h .. v*h+h. No copy of A and no other
+// plan: the merge stores each row's sub-tile index g*q + j beside the
+// slab ak[g]. The q sub-rows of a tall tile row share its ak list, so in
+// the 128-column form they land in one row group (when h*q <= 128) and
+// each X slab is staged once for all of them.
+//
 // What bounds it on the card. At the suite's banded65536 with 16x128
 // tiles and k = 128 (8,184 A tiles, gm 4,096, gn 512) the bytes each read
 // or written once are A 67 MB, X 33.5 MB and Y 33.5 MB: 40 us at 3.35
@@ -77,10 +90,11 @@
 // format, not of the kernel.
 //
 // Limits (checked by the caller, spgemm_tpu_torch/ops/spmm_kernels.py):
-//   tm in {8, 16, 32, 64}; any tk >= 1 (16-byte copies of A rows where
-//   tk % 4 == 0, 4-byte copies otherwise); k_pad a multiple of 128, or 8,
-//   16 or 32 (narrow form); n_blocks*block_rows < 2^31 (grid size);
-//   k_pad/128 < 65536. All element offsets are int64.
+//   tm % 8 == 0; any tk >= 1 (16-byte copies of A rows where tk % 4 == 0,
+//   4-byte copies otherwise); k_pad a multiple of 128, or 8, 16 or 32
+//   (narrow form); n_blocks*block_rows*q < 2^31 (grid size, the virtual
+//   rows) and ntA_pad*q < 2^31 (sub-tile indices); k_pad/128 < 65536.
+//   All element offsets are int64.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC spmm_strip.cu -o libspmm_strip.so
@@ -107,6 +121,13 @@ constexpr int kXStride = kCols + 8;   // X rows, words: no bank conflicts
 constexpr int kAStride = kXK + 4;     // A rows, words: no bank conflicts
 constexpr int kSchedCap = 64;         // slabs merged per pass
 
+// The sub-tile height for A tiles of tm rows: the largest instantiated
+// height that divides tm; 0 where tm % 8 != 0.
+constexpr int chunk_rows(int64_t tm) {
+  return tm % 64 == 0 ? 64 : tm % 32 == 0 ? 32 : tm % 16 == 0 ? 16
+         : tm % 8 == 0 ? 8 : 0;
+}
+
 template <int TM>
 struct SpmmCfg {
   static constexpr int R = kGroupRows / TM;        // tile rows per CTA
@@ -125,11 +146,14 @@ spmm_strip_kernel(const float* __restrict__ a,
                   const int32_t* __restrict__ aptr,
                   const int32_t* __restrict__ ak,
                   float* __restrict__ y,
-                  int64_t gm, int64_t n_rows, int64_t tk, int64_t k_pad) {
+                  int64_t gm, int64_t n_rows, int64_t tk, int64_t k_pad,
+                  int64_t n_sub) {
+  // gm and n_rows count virtual rows (tile rows times n_sub); TM is
+  // the sub-tile height
   using C = SpmmCfg<TM>;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int32_t sched_v[kSchedCap];          // slab of each entry
-  __shared__ int32_t sched_g[kSchedCap * C::R];   // each row's tile or -1
+  __shared__ int32_t sched_g[kSchedCap * C::R];   // each row's sub-tile or -1
   __shared__ int32_t sched_n;
 
   const int tid = threadIdx.x;
@@ -146,12 +170,16 @@ spmm_strip_kernel(const float* __restrict__ a,
   const int r_lo = 16 * warp / TM;
   float* rest_buf = reinterpret_cast<float*>(smem + kStages * C::STAGE);
 
-  // merge cursors: lane r < R of warp 0 walks tile row row0 + r
+  // merge cursors: lane r < R of warp 0 walks virtual row row0 + r, sub
+  // j of tile row i
   int cur = 0;
   int end = 0;
+  int sub = 0;
   if (warp == 0 && lane < C::R && row0 + lane < gm) {
-    cur = aptr[row0 + lane];
-    end = aptr[row0 + lane + 1];
+    const int64_t i = (row0 + lane) / n_sub;
+    sub = static_cast<int>(row0 + lane - i * n_sub);
+    cur = aptr[i];
+    end = aptr[i + 1];
   }
 
   float acc[kNT][4];
@@ -313,7 +341,10 @@ spmm_strip_kernel(const float* __restrict__ a,
         const int mine = cur < end ? ak[cur] : INT_MAX;
         const int v = __reduce_min_sync(0xffffffffu, mine);
         if (v == INT_MAX) break;
-        if (lane < C::R) sched_g[nd * C::R + lane] = mine == v ? cur : -1;
+        if (lane < C::R) {
+          sched_g[nd * C::R + lane] =
+              mine == v ? cur * static_cast<int>(n_sub) + sub : -1;
+        }
         if (lane == 0) sched_v[nd] = v;
         cur += mine == v;
         ++nd;
@@ -369,7 +400,7 @@ spmm_strip_kernel(const float* __restrict__ a,
 template <int TM>
 int launch(cudaStream_t stream, const float* a, const float* xb,
            const int32_t* aptr, const int32_t* ak, float* y, int64_t gm,
-           int64_t n_rows, int64_t tk, int64_t k_pad) {
+           int64_t n_rows, int64_t tk, int64_t k_pad, int64_t n_sub) {
   using C = SpmmCfg<TM>;
   // all of the SM's unified L1/shared memory to shared, so two CTAs fit;
   // set once per device
@@ -380,13 +411,14 @@ int launch(cudaStream_t stream, const float* a, const float* xb,
   const dim3 grid(static_cast<unsigned>((n_rows + C::R - 1) / C::R),
                   static_cast<unsigned>(k_pad / kCols));
   spmm_strip_kernel<TM><<<grid, kThreads, C::SMEM, stream>>>(
-      a, xb, aptr, ak, y, gm, n_rows, tk, k_pad);
+      a, xb, aptr, ak, y, gm, n_rows, tk, k_pad, n_sub);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---- narrow form: X and Y W = 8, 16 or 32 columns wide (k <= 32) ------
 //
-// One 256-thread CTA per tile row. The row's A tiles and their X slabs
+// One 256-thread CTA per virtual tile row (sub-tiles of TM rows); the
+// row's A tiles and their X slabs
 // stream through a 3-stage cp.async ring in shared memory, in k chunks of
 // NarrowCfg::KCH, one barrier per chunk, so two chunks' loads are in
 // flight while one is multiplied. Thread t owns A row r = t % tm, columns
@@ -426,7 +458,9 @@ spmm_narrow_kernel(const float* __restrict__ a,
                    const int32_t* __restrict__ ak,
                    const int32_t* __restrict__ kmin,
                    float* __restrict__ y,
-                   int64_t gm, int64_t block_rows, int64_t tk) {
+                   int64_t gm, int64_t block_rows, int64_t tk,
+                   int64_t n_sub) {
+  // gm counts tile rows, blockIdx.x virtual rows (sub j of tile row i)
   using C = NarrowCfg<TM, W>;
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -435,21 +469,23 @@ spmm_narrow_kernel(const float* __restrict__ a,
   const int cc = (tid / TM) % C::CC;
   const int ks = tid / (TM * C::CC);
   const int64_t row = blockIdx.x;
+  const int64_t ti = row / n_sub;       // tile row
+  const int64_t sub = row - ti * n_sub;  // and sub-tile
   float acc[8];
 #pragma unroll
   for (int q = 0; q < 8; ++q) acc[q] = 0.f;
 
-  if (row < gm) {
-    const int64_t g0 = aptr[row];
+  if (ti < gm) {
+    const int64_t g0 = aptr[ti];
     const int64_t nkc = (tk + C::KCH - 1) / C::KCH;
-    const int64_t steps = (aptr[row + 1] - g0) * nkc;
-    const int64_t klo = kmin != nullptr ? kmin[row / block_rows] : 0;
+    const int64_t steps = (aptr[ti + 1] - g0) * nkc;
+    const int64_t klo = kmin != nullptr ? kmin[ti / block_rows] : 0;
     const float* xwin = xb + klo * tk * W;
     // chunk c: k0 = (c % nkc) * KCH of tile g0 + c / nkc, into stage buf
     auto load_step = [&](int buf, int64_t c) {
       const int64_t g = g0 + c / nkc;
       const int64_t k0 = (c % nkc) * C::KCH;
-      const float* a_g = a + g * TM * tk + k0;
+      const float* a_g = a + (g * n_sub + sub) * TM * tk + k0;
       const float* x_g = xwin + ((ak[g] - klo) * tk + k0) * W;
       float* as = reinterpret_cast<float*>(smem + buf * C::STAGE);
       float* xs = as + TM * C::AS;
@@ -532,7 +568,9 @@ template <int TM, int W>
 int launch_narrow_w(cudaStream_t stream, const float* a, const float* xb,
                     const int32_t* aptr, const int32_t* ak,
                     const int32_t* kmin, float* y, int64_t gm,
-                    int64_t block_rows, int64_t tk, int64_t n_rows) {
+                    int64_t block_rows, int64_t tk, int64_t n_rows,
+                    int64_t n_sub) {
+  // n_rows counts virtual rows
   constexpr int smem = NarrowCfg<TM, W>::SMEM;
   static bool ready[kMaxDevices] = {};  // the attribute is set once a device
   const cudaError_t err =
@@ -540,7 +578,7 @@ int launch_narrow_w(cudaStream_t stream, const float* a, const float* xb,
   if (err != cudaSuccess) return static_cast<int>(err);
   spmm_narrow_kernel<TM, W>
       <<<static_cast<unsigned>(n_rows), kNarrowThreads, smem, stream>>>(
-          a, xb, aptr, ak, kmin, y, gm, block_rows, tk);
+          a, xb, aptr, ak, kmin, y, gm, block_rows, tk, n_sub);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -548,17 +586,18 @@ template <int TM>
 int launch_narrow(int64_t width, cudaStream_t stream, const float* a,
                   const float* xb, const int32_t* aptr, const int32_t* ak,
                   const int32_t* kmin, float* y, int64_t gm,
-                  int64_t block_rows, int64_t tk, int64_t n_rows) {
+                  int64_t block_rows, int64_t tk, int64_t n_rows,
+                  int64_t n_sub) {
   switch (width) {
     case 8:
       return launch_narrow_w<TM, 8>(stream, a, xb, aptr, ak, kmin, y, gm,
-                                    block_rows, tk, n_rows);
+                                    block_rows, tk, n_rows, n_sub);
     case 16:
       return launch_narrow_w<TM, 16>(stream, a, xb, aptr, ak, kmin, y, gm,
-                                     block_rows, tk, n_rows);
+                                     block_rows, tk, n_rows, n_sub);
     case 32:
       return launch_narrow_w<TM, 32>(stream, a, xb, aptr, ak, kmin, y, gm,
-                                     block_rows, tk, n_rows);
+                                     block_rows, tk, n_rows, n_sub);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -570,15 +609,19 @@ extern "C" {
 
 // Returns a cudaError_t: 0 when the launch was accepted. `kmin` may be
 // null (resident form). `k_pad` is the packed width of X and Y: 8, 16 or
-// 32 runs the narrow form, a multiple of 128 the 128-column form.
-// Launches on `stream`, does not synchronise, allocates nothing.
+// 32 runs the narrow form, a multiple of 128 the 128-column form. `tm` is
+// any multiple of 8: the kernels run its sub-tiles of height
+// chunk_rows(tm). Launches on `stream`, does not synchronise, allocates
+// nothing.
 int spmm_strip_f32(const void* a, const void* xb, const void* aptr,
                    const void* ak, const void* kmin, void* y, int64_t gm,
                    int64_t block_rows, int64_t n_rows, int64_t tm,
                    int64_t tk, int64_t k_pad, void* stream) {
   const bool narrow = k_pad == 8 || k_pad == 16 || k_pad == 32;
-  if (n_rows <= 0 || n_rows > INT32_MAX || n_rows < gm || gm < 1 ||
-      block_rows < 1 || tk < 1 ||
+  const int h = tm >= 8 ? chunk_rows(tm) : 0;
+  const int64_t q = h > 0 ? tm / h : 0;
+  if (h == 0 || n_rows <= 0 || n_rows > INT32_MAX / q || n_rows < gm ||
+      gm < 1 || block_rows < 1 || tk < 1 ||
       (!narrow && (k_pad < kCols || k_pad % kCols != 0 ||
                    k_pad / kCols > 65535))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -590,36 +633,34 @@ int spmm_strip_f32(const void* a, const void* xb, const void* aptr,
   const auto* kk = static_cast<const int32_t*>(ak);
   const auto* km = static_cast<const int32_t*>(kmin);
   auto* yv = static_cast<float*>(y);
+  const int64_t rows_v = n_rows * q;  // virtual rows
   if (narrow) {
-    switch (tm) {
+    switch (h) {
       case 64:
         return launch_narrow<64>(k_pad, st, av, xv, ap, kk, km, yv, gm,
-                                 block_rows, tk, n_rows);
+                                 block_rows, tk, rows_v, q);
       case 32:
         return launch_narrow<32>(k_pad, st, av, xv, ap, kk, km, yv, gm,
-                                 block_rows, tk, n_rows);
+                                 block_rows, tk, rows_v, q);
       case 16:
         return launch_narrow<16>(k_pad, st, av, xv, ap, kk, km, yv, gm,
-                                 block_rows, tk, n_rows);
-      case 8:
-        return launch_narrow<8>(k_pad, st, av, xv, ap, kk, km, yv, gm,
-                                block_rows, tk, n_rows);
+                                 block_rows, tk, rows_v, q);
       default:
-        return static_cast<int>(cudaErrorInvalidValue);
+        return launch_narrow<8>(k_pad, st, av, xv, ap, kk, km, yv, gm,
+                                block_rows, tk, rows_v, q);
     }
   }
   // the 128-column form reads no kmin: both forms read slab ak[g]
-  switch (tm) {
+  const int64_t gm_v = gm * q;
+  switch (h) {
     case 64:
-      return launch<64>(st, av, xv, ap, kk, yv, gm, n_rows, tk, k_pad);
+      return launch<64>(st, av, xv, ap, kk, yv, gm_v, rows_v, tk, k_pad, q);
     case 32:
-      return launch<32>(st, av, xv, ap, kk, yv, gm, n_rows, tk, k_pad);
+      return launch<32>(st, av, xv, ap, kk, yv, gm_v, rows_v, tk, k_pad, q);
     case 16:
-      return launch<16>(st, av, xv, ap, kk, yv, gm, n_rows, tk, k_pad);
-    case 8:
-      return launch<8>(st, av, xv, ap, kk, yv, gm, n_rows, tk, k_pad);
+      return launch<16>(st, av, xv, ap, kk, yv, gm_v, rows_v, tk, k_pad, q);
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch<8>(st, av, xv, ap, kk, yv, gm_v, rows_v, tk, k_pad, q);
   }
 }
 

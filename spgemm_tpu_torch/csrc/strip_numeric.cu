@@ -61,9 +61,23 @@
 //   the B slab is N-major, and a C slot's few k-steps leave little for
 //   an asynchronous warpgroup product to hide.
 //
-// The pair kernel (pair_accumulate.cu) runs the same tile pipeline on a
-// pair_ptr range instead of the slot scan; it keeps its own copy, so this
-// kernel's generated code stays as it was.
+// The tile pipeline (staging ring, products, store) lives in
+// tile_pipeline.cuh, shared with the pair kernel (pair_accumulate.cu),
+// which feeds it from a pair_ptr range instead of the slot scan.
+//
+// Tile shapes. Any tm % 8 == 0 and tn % 128 == 0, the tiles the TPU
+// kernels take. A C slot's tm x tn tile is cut into chunks of h x 128, h
+// one of the instantiated heights: as many 64-row chunks as fit, then at
+// most one 32-, 16- and 8-row chunk (tile_pipeline.cuh:launch_row_parts;
+// 128 -> 64 + 64, 40 -> 32 + 8, 24 -> 16 + 8, an 8-row chunk a
+// half-empty m16 tile), one launch per height and in it one CTA per
+// (slot, row chunk = blockIdx.y, column chunk = blockIdx.z). A chunk
+// reads rows r .. r+h of its A tiles (r = row_base + blockIdx.y*h) and
+// columns z*128 .. +128 of each B column block y (B slab row stride
+// max_b*tn, block y at column y*tn), and writes that part of the slot's
+// tile. Each chunk CTA scans the block's slot words itself: a tile of q
+// row chunks and n column chunks scans them q*n times and stages each A
+// chunk n times and each B chunk q times.
 //
 // Staging. The k range of every matched (g, y) pair is cut into 32-deep
 // chunks, and the chunks of all the slot's pairs form one stream of
@@ -84,9 +98,9 @@
 // values, and the C planes' block padding is the largest part of them.
 //
 // Limits (checked by the caller, spgemm_tpu_torch/ops/kernels.py):
-//   (tm, tn) in {(8,128), (16,128), (32,128), (64,128)} (tm 8 runs
-//   half-empty m16 tiles); tk % 8 == 0 (16-byte copies of bf16 rows);
-//   n_blocks*max_cblock < 2^31 (grid size); one block's A tiles times
+//   tm % 8 == 0 and tn % 128 == 0, tm/64 and tn/128 <= 65,535 (grid y
+//   and z); tk % 8 == 0 (16-byte copies of bf16 rows);
+//   n_blocks*max_cblock < 2^31 (grid x); one block's A tiles times
 //   max_b < 2^31. All element offsets are int64.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
@@ -95,46 +109,17 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "sm90_common.cuh"
+#include "tile_pipeline.cuh"
 
 namespace {
 
-using namespace sm90;
+using namespace tile_pipeline;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTN = 128;
-constexpr int kKC = 32;              // k depth of one pipeline step
-constexpr int kStagesTm64 = 2;       // ring depth at tm 64 (others: 3)
 constexpr int kScan = kThreads;      // slot words scanned per pass
-// shared-memory row strides in elements, padded against bank conflicts
-constexpr int kAvStride = kKC + 4;   // f32 A rows: 36 words
-constexpr int kAoStride = kKC + 8;   // bf16 A rows: 80 bytes
-constexpr int kBvStride = kTN + 8;   // f32 B rows: 136 words
-constexpr int kBoStride = kTN + 8;   // bf16 B rows: 272 bytes
 
-template <int TM>
-struct Cfg {
-  // each warp owns one m16 row tile and NT n8 column tiles of C, so one
-  // A fragment per k step and the accumulators (2 x NT x 4) stay within
-  // 128 registers
-  static constexpr int MR = TM < 16 ? 16 : TM;  // rows the m16 tiles cover
-  static constexpr int WM = MR / 16;            // warps along m
-  static constexpr int WN = kWarps / WM;        // warps along n
-  static constexpr int NT = kTN / (8 * WN);     // n8 tiles per warp
-  static constexpr int STAGES = TM == 64 ? kStagesTm64 : 3;
-  static constexpr int AV = MR * kAvStride * 4;  // stage layout, bytes
-  static constexpr int AO = MR * kAoStride * 2;
-  static constexpr int BV = kKC * kBvStride * 4;
-  static constexpr int BO = kKC * kBoStride * 2;
-  static constexpr int STAGE = AV + AO + BV + BO;
-  static constexpr int SMEM = STAGES * STAGE;
-  static_assert(16 * WM == MR && NT * 8 * WN == kTN && NT % 2 == 0,
-                "warp tiling must cover the C tile");
-  static_assert(AV % 16 == 0 && AO % 16 == 0 && BV % 16 == 0,
-                "stage parts must stay 16-byte aligned");
-};
-
+// One CTA per (padded C slot, row chunk, column chunk); TM is the chunk
+// height h, row_base the first row of this launch's chunks, tm and tn
+// the tile's.
 template <int TM>
 __global__ void __launch_bounds__(kThreads, 2)
 strip_numeric_kernel(const float* __restrict__ a_val,
@@ -147,7 +132,8 @@ strip_numeric_kernel(const float* __restrict__ a_val,
                      float* __restrict__ c_val,
                      float* __restrict__ c_cnt,
                      int64_t gm, int64_t block_rows, int64_t max_b,
-                     int64_t max_cblock, int64_t tk) {
+                     int64_t max_cblock, int64_t row_base, int64_t tm,
+                     int64_t tk, int64_t tn) {
   using C = Cfg<TM>;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int32_t match_g[kScan];  // A tile of each matched entry
@@ -157,8 +143,6 @@ strip_numeric_kernel(const float* __restrict__ a_val,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int gid = lane >> 2;  // mma fragment row / column group
-  const int tig = lane & 3;   // thread in group
   const int m0 = (warp / C::WN) * 16;          // the warp's C rows
   const int n0 = (warp % C::WN) * C::NT * 8;   // and columns
   const int64_t slot_id = blockIdx.x;
@@ -168,11 +152,21 @@ strip_numeric_kernel(const float* __restrict__ a_val,
   const int64_t r1 = r0 + block_rows < gm ? r0 + block_rows : gm;
   const int64_t e_begin = static_cast<int64_t>(aptr[r0]) * max_b;
   const int64_t e_end = static_cast<int64_t>(aptr[r1]) * max_b;
-  const int64_t ldb = max_b * kTN;  // B slab row stride, elements
+  const int64_t ldb = max_b * tn;  // B slab row stride, elements
+  const int64_t a_tile = tm * tk;  // A tile stride, elements
+  // this CTA's chunk: A rows from row_base + blockIdx.y * TM, B and C
+  // columns from blockIdx.z * 128
+  const int64_t row_off = row_base + static_cast<int64_t>(blockIdx.y) * TM;
+  const int64_t col_off = static_cast<int64_t>(blockIdx.z) * kTN;
+  const float* a_chunk = a_val + row_off * tk;
+  const uint16_t* ao_chunk = a_occ + row_off * tk;
+  const float* b_chunk = b_val + col_off;
+  const uint16_t* bo_chunk = b_occ + col_off;
   const int nch = static_cast<int>((tk + kKC - 1) / kKC);
 
   if (TM < 16) {
     // rows TM..15 of the m16 A tiles are never copied: keep them zero
+    // (the scan's barriers below land this before any copy)
     uint4* z = reinterpret_cast<uint4*>(smem);
     for (int i = tid; i < C::SMEM / 16; i += kThreads) {
       z[i] = make_uint4(0u, 0u, 0u, 0u);
@@ -190,152 +184,20 @@ strip_numeric_kernel(const float* __restrict__ a_val,
     }
   }
 
-  // copies k chunk `step % nch` of match `step / nch` into stage `buf`
-  auto load_step = [&](int buf, int step) {
-    // an opaque copy of the thread index: the copy offsets below are then
-    // recomputed per step instead of held in registers across the loop
-    int tid = threadIdx.x;
-    asm volatile("" : "+r"(tid));
+  // copies k chunk `step % nch` of match `step / nch` into stage `st`
+  auto load_step = [&](unsigned char* st, int step) {
     const int mi = step / nch;
     const int64_t k0 = static_cast<int64_t>(step - mi * nch) * kKC;
     const int64_t g = match_g[mi];
-    unsigned char* st = smem + buf * C::STAGE;
-    float* as_v = reinterpret_cast<float*>(st);
-    uint16_t* as_o = reinterpret_cast<uint16_t*>(st + C::AV);
-    float* bs_v = reinterpret_cast<float*>(st + C::AV + C::AO);
-    uint16_t* bs_o = reinterpret_cast<uint16_t*>(st + C::AV + C::AO + C::BV);
-    const int64_t a_off = g * TM * tk + k0;
-    const float* av_g = a_val + a_off;
-    const uint16_t* ao_g = a_occ + a_off;
+    const int64_t a_off = g * a_tile + k0;
     const int64_t b_off = (static_cast<int64_t>(ak[g]) * tk + k0) * ldb +
-                          static_cast<int64_t>(match_y[mi]) * kTN;
-    const float* bv_g = b_val + b_off;
-    const uint16_t* bo_g = b_occ + b_off;
+                          static_cast<int64_t>(match_y[mi]) * tn;
     const int kmax = static_cast<int>(tk - k0 < kKC ? tk - k0 : kKC);
-#pragma unroll
-    for (int j = 0; j < (TM * kKC / 4 + kThreads - 1) / kThreads; ++j) {
-      const int i = tid + j * kThreads;
-      const int r = i / (kKC / 4);
-      const int c = (i % (kKC / 4)) * 4;
-      if (i < TM * kKC / 4) {
-        const bool in = c < kmax;
-        cp_async16(as_v + r * kAvStride + c, in ? av_g + r * tk + c : a_val,
-                   in);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < (TM * kKC / 8 + kThreads - 1) / kThreads; ++j) {
-      const int i = tid + j * kThreads;
-      const int r = i / (kKC / 8);
-      const int c = (i % (kKC / 8)) * 8;
-      if (i < TM * kKC / 8) {
-        const bool in = c < kmax;
-        cp_async16(as_o + r * kAoStride + c, in ? ao_g + r * tk + c : a_occ,
-                   in);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kKC * kTN / 4 / kThreads; ++j) {
-      const int i = tid + j * kThreads;
-      const int kr = i / (kTN / 4);
-      const int c = (i % (kTN / 4)) * 4;
-      const bool in = kr < kmax;
-      cp_async16(bs_v + kr * kBvStride + c, in ? bv_g + kr * ldb + c : b_val,
-                 in);
-    }
-#pragma unroll
-    for (int j = 0; j < kKC * kTN / 8 / kThreads; ++j) {
-      const int i = tid + j * kThreads;
-      const int kr = i / (kTN / 8);
-      const int c = (i % (kTN / 8)) * 8;
-      const bool in = kr < kmax;
-      cp_async16(bs_o + kr * kBoStride + c, in ? bo_g + kr * ldb + c : b_occ,
-                 in);
-    }
+    load_stage<TM>(st, a_chunk + a_off, ao_chunk + a_off, tk, kmax,
+                   b_chunk + b_off, bo_chunk + b_off, ldb, kmax, a_val,
+                   a_occ, b_val, b_occ);
   };
 
-  // the warp's mma products over stage buffer `buf`
-  auto compute_step = [&](int buf) {
-    const unsigned char* st = smem + buf * C::STAGE;
-    const float* as_v = reinterpret_cast<const float*>(st);
-    const uint16_t* as_o = reinterpret_cast<const uint16_t*>(st + C::AV);
-    const float* bs_v = reinterpret_cast<const float*>(st + C::AV + C::AO);
-    const uint16_t* bs_o =
-        reinterpret_cast<const uint16_t*>(st + C::AV + C::AO + C::BV);
-    // values, four k8 steps (not unrolled: one step's fragments live at a
-    // time, within the 128-register budget)
-#pragma unroll 1
-    for (int kk = 0; kk < kKC; kk += 8) {
-      const float* ap = as_v + (m0 + gid) * kAvStride + kk + tig;
-      const float* bp = bs_v + (kk + tig) * kBvStride + n0 + gid;
-      const float a[4] = {ap[0], ap[8 * kAvStride], ap[4],
-                          ap[8 * kAvStride + 4]};
-      float b[C::NT][2];
-      uint32_t low = 0u;  // the bits TF32 drops, over all fragments
-#pragma unroll
-      for (int q = 0; q < 4; ++q) low |= __float_as_uint(a[q]);
-#pragma unroll
-      for (int nt = 0; nt < C::NT; ++nt) {
-        b[nt][0] = bp[nt * 8];
-        b[nt][1] = bp[nt * 8 + 4 * kBvStride];
-        low |= __float_as_uint(b[nt][0]) | __float_as_uint(b[nt][1]);
-      }
-      if (!__any_sync(0xffffffffu, (low & kTf32Low) != 0u)) {
-        // every operand is a TF32 value (integers below 2^11 are): one
-        // product each, exact, on the raw bits
-        const uint32_t ah[4] = {__float_as_uint(a[0]), __float_as_uint(a[1]),
-                                __float_as_uint(a[2]), __float_as_uint(a[3])};
-#pragma unroll
-        for (int nt = 0; nt < C::NT; ++nt) {
-          mma_tf32(acc_v[nt], ah, __float_as_uint(b[nt][0]),
-                   __float_as_uint(b[nt][1]));
-        }
-      } else {
-        // B is read from shared memory again below instead of held in
-        // b[][]: the split needs those registers at tm 64
-        asm volatile("" ::: "memory");
-        uint32_t ah[4], am[4], al[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) split3_tf32(a[q], ah[q], am[q], al[q]);
-#pragma unroll
-        for (int nt = 0; nt < C::NT; ++nt) {
-          uint32_t bh[2], bm[2], bl[2];
-          split3_tf32(bp[nt * 8], bh[0], bm[0], bl[0]);
-          split3_tf32(bp[nt * 8 + 4 * kBvStride], bh[1], bm[1], bl[1]);
-          // the six partial products above 2^-33 |a.b|, smallest first,
-          // into a zeroed partial sum; then one round-to-nearest add
-          float part[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(part, al, bh[0], bh[1]);
-          mma_tf32(part, ah, bl[0], bl[1]);
-          mma_tf32(part, am, bm[0], bm[1]);
-          mma_tf32(part, am, bh[0], bh[1]);
-          mma_tf32(part, ah, bm[0], bm[1]);
-          mma_tf32(part, ah, bh[0], bh[1]);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc_v[nt][q] += part[q];
-        }
-      }
-    }
-    // counts: bf16 0/1 planes, two k16 steps
-#pragma unroll 1
-    for (int kk = 0; kk < kKC; kk += 16) {
-      uint32_t af[4];
-      ldmatrix_x4(af, as_o + (m0 + (lane & 15)) * kAoStride + kk +
-                          (lane >> 4) * 8);
-#pragma unroll
-      for (int nt = 0; nt < C::NT; nt += 2) {
-        uint32_t bf[4];
-        ldmatrix_x4_trans(
-            bf, bs_o + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kBoStride +
-                    n0 + nt * 8 + (lane >> 4) * 8);
-        mma_bf16(acc_c[nt], af, bf[0], bf[1]);
-        mma_bf16(acc_c[nt + 1], af, bf[2], bf[3]);
-      }
-    }
-  };
-
-  // (the zero fill above lands before any copy: the scan's barriers
-  // come first)
   for (int64_t e0 = e_begin; e0 < e_end; e0 += kScan) {
     // ordered compaction of this pass's slot words that name slot s
     const int64_t e = e0 + tid;
@@ -359,44 +221,14 @@ strip_numeric_kernel(const float* __restrict__ a_val,
     }
     __syncthreads();
     if (nm == 0) continue;
-
-    // the stream of (match, k chunk) steps through the cp.async ring
-    const int steps = nm * nch;
-#pragma unroll
-    for (int p = 0; p < C::STAGES - 1; ++p) {
-      if (p < steps) load_step(p, p);
-      cp_async_commit();
-    }
-    for (int step = 0; step < steps; ++step) {
-      cp_async_wait<C::STAGES - 2>();
-      __syncthreads();  // this step's copies are visible; the buffer the
-                        // next copies overwrite is no longer read
-      const int next = step + C::STAGES - 1;
-      if (next < steps) load_step(next % C::STAGES, next);
-      cp_async_commit();
-      compute_step(step % C::STAGES);
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // stages and matches are free for the next pass
+    // the stream of (match, k chunk) steps through the cp.async ring; it
+    // ends with a barrier, so the matches are free for the next pass
+    stream_steps<TM>(nm * nch, smem, load_step, acc_v, acc_c, m0, n0, lane);
   }
 
-  float* cv = c_val + slot_id * TM * kTN;
-  float* co = c_cnt + slot_id * TM * kTN;
-#pragma unroll
-  for (int nt = 0; nt < C::NT; ++nt) {
-    const int col = n0 + nt * 8 + 2 * tig;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + gid + 8 * h;
-      if (row < TM) {
-        const int64_t off = static_cast<int64_t>(row) * kTN + col;
-        *reinterpret_cast<float2*>(cv + off) =
-            make_float2(acc_v[nt][2 * h], acc_v[nt][2 * h + 1]);
-        *reinterpret_cast<float2*>(co + off) =
-            make_float2(acc_c[nt][2 * h], acc_c[nt][2 * h + 1]);
-      }
-    }
-  }
+  const int64_t c_off = slot_id * tm * tn + row_off * tn + col_off;
+  store_tile<TM>(c_val + c_off, c_cnt + c_off, tn, acc_v, acc_c, m0, n0,
+                 lane);
 }
 
 template <int TM>
@@ -404,7 +236,8 @@ int launch(dim3 grid, cudaStream_t stream, const float* a_val,
            const uint16_t* a_occ, const float* b_val, const uint16_t* b_occ,
            const int32_t* aptr, const int32_t* ak, const int32_t* slots,
            float* c_val, float* c_cnt, int64_t gm, int64_t block_rows,
-           int64_t max_b, int64_t max_cblock, int64_t tk) {
+           int64_t max_b, int64_t max_cblock, int64_t row_base, int64_t tm,
+           int64_t tk, int64_t tn) {
   using C = Cfg<TM>;
   // all of the SM's unified L1/shared memory to shared, so two CTAs fit;
   // set once per device
@@ -414,7 +247,7 @@ int launch(dim3 grid, cudaStream_t stream, const float* a_val,
   if (err != cudaSuccess) return static_cast<int>(err);
   strip_numeric_kernel<TM><<<grid, kThreads, C::SMEM, stream>>>(
       a_val, a_occ, b_val, b_occ, aptr, ak, slots, c_val, c_cnt, gm,
-      block_rows, max_b, max_cblock, tk);
+      block_rows, max_b, max_cblock, row_base, tm, tk, tn);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -433,10 +266,9 @@ int strip_numeric_f32(const void* a_val, const void* a_occ,
                       void* stream) {
   const int64_t n_slots = n_blocks * max_cblock;
   if (n_slots <= 0 || n_slots > INT32_MAX || tk < 8 || tk % 8 != 0 ||
-      max_b < 1 || block_rows < 1 || gm < 1 || tn != kTN) {
+      max_b < 1 || block_rows < 1 || gm < 1 || !tile_taken(tm, tn)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(static_cast<unsigned>(n_slots));
   auto st = static_cast<cudaStream_t>(stream);
   const auto* av = static_cast<const float*>(a_val);
   const auto* ao = static_cast<const uint16_t*>(a_occ);
@@ -447,22 +279,13 @@ int strip_numeric_f32(const void* a_val, const void* a_occ,
   const auto* sl = static_cast<const int32_t*>(slots);
   auto* cv = static_cast<float*>(c_val);
   auto* cc = static_cast<float*>(c_cnt);
-  switch (tm) {
-    case 64:
-      return launch<64>(grid, st, av, ao, bv, bo, ap, kk, sl, cv, cc, gm,
-                        block_rows, max_b, max_cblock, tk);
-    case 32:
-      return launch<32>(grid, st, av, ao, bv, bo, ap, kk, sl, cv, cc, gm,
-                        block_rows, max_b, max_cblock, tk);
-    case 16:
-      return launch<16>(grid, st, av, ao, bv, bo, ap, kk, sl, cv, cc, gm,
-                        block_rows, max_b, max_cblock, tk);
-    case 8:
-      return launch<8>(grid, st, av, ao, bv, bo, ap, kk, sl, cv, cc, gm,
-                       block_rows, max_b, max_cblock, tk);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const auto col_chunks = static_cast<unsigned>(tn / kTN);
+  return launch_row_parts(tm, [&](auto h, int64_t row_base, unsigned n) {
+    const dim3 grid(static_cast<unsigned>(n_slots), n, col_chunks);
+    return launch<decltype(h)::value>(grid, st, av, ao, bv, bo, ap, kk, sl,
+                                      cv, cc, gm, block_rows, max_b,
+                                      max_cblock, row_base, tm, tk, tn);
+  });
 }
 
 }  // extern "C"

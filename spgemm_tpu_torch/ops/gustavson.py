@@ -17,8 +17,9 @@ the two packages run from identical plans. What differs:
 * the TPU gates are gone: Mosaic 128-alignment, the SMEM slot-table and
   the VMEM scratch budgets (`gustavson.py:585-626,688-693,753-785`). The
   port kernel's own limits replace them (`check_strip_feasible`): on
-  CUDA, (tm, tn) must be one of ops/kernels.py:SUPPORTED_TILES; the
-  kernel's shared memory does not grow with the plan;
+  CUDA, tm % 8 == 0, tn % 128 == 0 (the reference's alignment rule) and
+  tk % 8 == 0 (ops/kernels.py:strip_kernel_takes); the kernel's shared
+  memory does not grow with the plan;
 * the windowed plan (kwin set) keeps its padded B but not the TPU
   kernel's `kmin` window starts or `meta` rows: the CUDA kernel reads
   B slabs by ak and its pairs from slots, so both plan shapes run
@@ -354,12 +355,12 @@ def check_strip_feasible(args: StripArgs, device: torch.device) -> None:
     whose plain version takes any plan)."""
     if device.type != "cuda":
         return
-    if (args.tm, args.tn) not in kernels.SUPPORTED_TILES \
-            or args.tk % kernels.TK_MULTIPLE:
+    if not kernels.strip_kernel_takes(args.tm, args.tk, args.tn):
         raise ValueError(
-            f"strip kernel takes (tm, tn) in {kernels.SUPPORTED_TILES} and "
-            f"tk a multiple of {kernels.TK_MULTIPLE}; got {args.tm}x"
-            f"{args.tn}, tk={args.tk}")
+            f"strip kernel takes tm % 8 == 0, tn % 128 == 0 and tk a "
+            f"multiple of {kernels.TK_MULTIPLE} (the reference's tm%8, "
+            f"tk%128, tn%128 with tk relaxed); got {args.tm}x{args.tk} @ "
+            f"{args.tk}x{args.tn}")
     n_blocks = max(1, -(-args.gm // args.block_rows))
     if n_blocks * args.max_cblock >= 2 ** 31 \
             or args.max_ablock * args.max_b >= 2 ** 31:

@@ -8,8 +8,11 @@ gustavson_strip_pallas` (:538), which reaches the two Pallas strip kernels
 from the same plan. It runs on the tensor cores: values as TF32
 products of an exact three-way split of each f32 operand (products exact
 far below f32 rounding, summed as accurately as a sequential f32 sum),
-counts as bf16 products of the 0/1 occupancy planes. The source file's header says what bounds the kernel
-on an H100 and what its design does about it.
+counts as bf16 products of the 0/1 occupancy planes. It takes every tile
+the reference's strip gate takes on the TPU (tm % 8 == 0, tn % 128 == 0;
+`strip_kernel_takes`), each C tile cut into h x 128 chunks of the heights
+it is instantiated for (`chunk_grid`). The source file's header says what
+bounds the kernel on an H100 and what its design does about it.
 
 For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
 tensor it launches the kernel or raises. It never falls back. The kernel
@@ -36,9 +39,13 @@ import torch
 
 from spgemm_tpu_torch.utils.native import build_shared_library
 
-# (tm, tn) tile shapes the CUDA kernel is instantiated for; tk is any
-# multiple of TK_MULTIPLE (its staging copies 16-byte runs of bf16).
-SUPPORTED_TILES = ((8, 128), (16, 128), (32, 128), (64, 128))
+# The kernel takes any tm % 8 == 0 and tn % COL_CHUNK == 0 tile, cut into
+# chunks of h x 128 (h in CHUNK_HEIGHTS, the instantiated heights: row
+# chunks as row_parts picks them); tk is any multiple of TK_MULTIPLE (its
+# staging copies 16-byte runs of bf16).
+CHUNK_HEIGHTS = (64, 32, 16, 8)
+COL_CHUNK = 128
+MAX_CHUNKS = 65535   # CUDA's grid.y and grid.z limit
 TK_MULTIPLE = 8
 # pairs the plain version multiplies at once (bounds its temporaries)
 _PLAIN_CHUNK = 4096
@@ -116,6 +123,49 @@ def load_strip_kernel():
         build_info.update(info)
         _lib = lib
         return _lib
+
+
+def row_parts(tm: int, heights=CHUNK_HEIGHTS) -> list:
+    """The launches that cover a tm-row tile, [(h, row_base, n)]: n chunks
+    of h rows from row row_base, as many of the largest height as fit,
+    then of each smaller one in turn (csrc/tile_pipeline.cuh:
+    for_each_row_part; 40 -> [(32, 0, 1), (8, 32, 1)]). Empty where tm is
+    not a multiple of the smallest height."""
+    if tm <= 0 or tm % heights[-1]:
+        return []
+    parts, row0 = [], 0
+    for h in heights:
+        n = (tm - row0) // h
+        if n:
+            parts.append((h, row0, n))
+            row0 += n * h
+    return parts
+
+
+def chunk_grid(tm: int, tn: int, heights=CHUNK_HEIGHTS,
+               col_chunk: int = COL_CHUNK):
+    """(row_parts(tm), column chunks) of a tm x tn tile, or None where the
+    kernel does not take it: tm not a multiple of the smallest height, tn
+    not a multiple of 128, or a grid dimension (the largest height's
+    chunks, the col_chunk-wide column chunks: 128 for the strip, pair
+    kernels, 64 for the Ozaki kernel) past MAX_CHUNKS."""
+    parts = row_parts(tm, heights)
+    if not parts or tn < COL_CHUNK or tn % COL_CHUNK:
+        return None
+    if max(n for _, _, n in parts) > MAX_CHUNKS \
+            or tn // col_chunk > MAX_CHUNKS:
+        return None
+    return parts, tn // col_chunk
+
+
+def strip_kernel_takes(tm: int, tk: int, tn: int) -> bool:
+    """Whether the strip kernel takes (tm, tk) A and (tk, tn) B tiles: tm
+    % 8 == 0 and tn % 128 == 0, the reference's `aligned` gate
+    (spgemm_tpu/ops/spgemm.py:143, check_strip_feasible at
+    spgemm_tpu/ops/gustavson.py:773), whose tk % 128 is relaxed here to
+    tk % TK_MULTIPLE; within the grid's chunk limits."""
+    return (chunk_grid(tm, tn) is not None and tk > 0
+            and tk % TK_MULTIPLE == 0)
 
 
 def _geometry(a_val, b_val, max_b, gm, block_rows):
@@ -201,10 +251,11 @@ def strip_numeric(a_val, a_occ, b_val, b_occ, aptr, ak, slots, *,
                          f"{a_val.device}")
     ntp, tm, tk, tn, n_blocks = _geometry(a_val, b_val, max_b, gm,
                                           block_rows)
-    if (tm, tn) not in SUPPORTED_TILES or tk % TK_MULTIPLE:
-        raise ValueError(f"strip kernel takes (tm, tn) in {SUPPORTED_TILES} "
-                         f"and tk a multiple of {TK_MULTIPLE}, got ({tm}, "
-                         f"{tn}) and tk={tk}")
+    if not strip_kernel_takes(tm, tk, tn):
+        raise ValueError(f"strip kernel takes tm % 8 == 0, tn % "
+                         f"{COL_CHUNK} == 0 (at most {MAX_CHUNKS} chunks of "
+                         f"each) and tk a multiple of {TK_MULTIPLE}, got "
+                         f"({tm}, {tn}) and tk={tk}")
     if n_blocks * max_cblock >= 2 ** 31:
         raise ValueError("strip kernel grid exceeds 2^31-1 C slots")
     lib = load_strip_kernel()

@@ -26,8 +26,9 @@ every partial sum is at most tk * 127^2 < 2^24, gated at tk <= 1040),
 cast to int32 and summed, one int32 `index_add_` into the C tiles, and
 the triple-float TwoSum combine as eager elementwise ops. `spgemm_ozaki`
 takes it where the strip kernel cannot run: a pattern with no windowed
-strip plan (an arrow), or, on CUDA, tiles the kernel has no
-instantiation for (TileSpGEMM's 16x16 among them). What differs from the
+strip plan (an arrow), or, on CUDA, tiles the kernel does not take
+(tm % 8, tn % 128 or tk % 16 fails: TileSpGEMM's 16x16 among them). What
+differs from the
 JAX package:
 
 * the TPU kernel's VMEM budget loop over block_rows is gone: the strip
@@ -377,9 +378,10 @@ def build_ozaki_strip(a: TileMat, b: TileMat, *,
 def strip_kernel_takes(tm: int, tk: int, tn: int,
                        device: torch.device) -> bool:
     """True where the fused strip route can run these tiles: any on the
-    CPU (the plain version), the kernel's instantiations on CUDA."""
-    return device.type != "cuda" or (
-        (tm, tn) in ozaki_kernels.OZAKI_TILES and tk % 16 == 0)
+    CPU (the plain version), on CUDA what the kernel takes
+    (ozaki_kernels.ozaki_kernel_takes: tm % 8, tn % 128, tk % 16)."""
+    return device.type != "cuda" or ozaki_kernels.ozaki_kernel_takes(
+        tm, tk, tn)
 
 
 def ozaki_strip_numeric(plan: OzakiStripPlan, device=None,
@@ -791,7 +793,7 @@ def spgemm_ozaki(a: TileMat, b: TileMat, *, device=None, sync: bool = True,
     `device` (None means CUDA); returns a SpGEMMResult (TileMat C, f64
     values) shaped like the other tiled routes. The fused strip kernel
     runs where it can; where the pattern has no windowed strip plan or, on
-    CUDA, the kernel has no instantiation for the tiles, the slab engine
+    CUDA, the kernel does not take the tiles, the slab engine
     runs (stats["backend"] "ozaki(S=AxB)(xla-fallback)", the JAX
     package's name). Raises OzakiOverflow when the int32 accumulation
     bound fails (or, with strict, on extreme multi-scale data): callers

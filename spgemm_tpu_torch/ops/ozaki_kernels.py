@@ -12,9 +12,11 @@ For CPU tensors the wrapper runs the plain PyTorch version; for CUDA
 tensors it launches the kernel or raises. It never falls back. Both
 versions sum exact int32 group products and reduce them with the same
 TwoSum sequence (the kernel is built with --fmad=false), so h, m, l and
-the counts are bit-equal. The kernel has an instantiation for up to 8
-pair groups (the plans' usual pmax 7) and one for all 15; the launch
-picks by the plan's group count. The library is built with nvcc at first
+the counts are bit-equal. The kernel takes every tm % 8 == 0, tn % 128
+== 0 tile (`ozaki_kernel_takes`), one CTA per 64 columns and h rows of a
+C slot (h 32, 16 or 8: `ozaki_grid`). Each
+height has an instantiation for up to 8 pair groups (the plans' usual
+pmax 7) and one for all 15; the launch picks by the plan's group count. The library is built with nvcc at first
 use (never at import) into `spgemm_tpu_torch/_build/`.
 
 Launch counters: `ozaki_strip_numeric.kernel_launches` counts kernel
@@ -30,10 +32,13 @@ import threading
 
 import torch
 
-from spgemm_tpu_torch.ops.kernels import build_cuda_library
+from spgemm_tpu_torch.ops.kernels import build_cuda_library, chunk_grid
 
-# (tm, tn) tile shapes the CUDA kernel is instantiated for; tk % 16 == 0
-OZAKI_TILES = ((16, 128), (32, 128))
+# chunk heights the CUDA kernel is instantiated for (a 64-row CTA would
+# need 512 threads at 128 registers) and its columns per CTA
+OZAKI_HEIGHTS = (32, 16, 8)
+OZAKI_COLS = 64
+TK_MULTIPLE = 16    # k32 int8 products over 16-byte runs of bf16 counts
 MAX_SLICES = 8      # 7 bits/slice * 8 = 56 >= f64's 53 significand bits
 # bytes of f64 temporaries the plain version allows per chunk of pairs
 _PLAIN_CHUNK_BYTES = 1 << 30
@@ -66,6 +71,25 @@ def load_ozaki_kernel():
         build_info.update(info)
         _lib = lib
         return _lib
+
+
+def ozaki_grid(tm: int, tn: int):
+    """(64-column chunks, [(h, row_base, n)]) of a tm x tn tile: the grid's
+    y and, per launch, the row chunks in its z (csrc/ozaki_strip.cu:
+    tm 16 and 32 at tn 128 in one launch, other tiles in row chunks of
+    32, 16 and 8 rows, as ops/kernels.py:row_parts picks them); None where
+    the kernel does not take the tile."""
+    grid = chunk_grid(tm, tn, OZAKI_HEIGHTS, OZAKI_COLS)
+    return None if grid is None else grid[::-1]
+
+
+def ozaki_kernel_takes(tm: int, tk: int, tn: int) -> bool:
+    """Whether the Ozaki strip kernel takes (tm, tk) A and (tk, tn) B
+    tiles: tm % 8 == 0 and tn % 128 == 0, the tiles the reference's Ozaki
+    strip kernel runs (spgemm_tpu/ops/ozaki.py:770-797 adds only its VMEM
+    budget), and tk % 16 == 0; within the grid's chunk limits."""
+    return (ozaki_grid(tm, tn) is not None and tk > 0
+            and tk % TK_MULTIPLE == 0)
 
 
 def _geometry(av8, a_occ, b_occ, *, gm, max_b, block_rows, sa, sb, pmax):
@@ -221,10 +245,10 @@ def ozaki_strip_numeric(av8, a_occ, bv8, b_occ, aptr, ak, slots, *,
     ntp, stack_rows, tm, tk, tn, n_blocks, pmax, _ = _geometry(
         av8, a_occ, b_occ, gm=gm, max_b=max_b, block_rows=block_rows, sa=sa,
         sb=sb, pmax=pmax)
-    if (tm, tn) not in OZAKI_TILES or tk % 16:
-        raise ValueError(f"Ozaki strip kernel takes (tm, tn) in "
-                         f"{OZAKI_TILES} and tk % 16 == 0, got ({tm}, {tn}), "
-                         f"tk={tk}")
+    if not ozaki_kernel_takes(tm, tk, tn):
+        raise ValueError(f"Ozaki strip kernel takes tm % 8 == 0, tn % 128 "
+                         f"== 0 (at most 65535 chunks of each) and tk % "
+                         f"{TK_MULTIPLE} == 0, got ({tm}, {tn}), tk={tk}")
     if n_blocks * max_cblock >= 2 ** 31:
         raise ValueError("Ozaki strip kernel grid exceeds 2^31-1 C slots")
     if any(t.data_ptr() % 16 for t in (av8, a_occ, bv8, b_occ)):

@@ -32,10 +32,8 @@ import threading
 import torch
 
 from spgemm_tpu_torch.ops import numeric
-from spgemm_tpu_torch.ops.kernels import build_cuda_library
+from spgemm_tpu_torch.ops.kernels import build_cuda_library, chunk_grid
 
-# (tm, tn) tile shapes the CUDA kernel is instantiated for; tk is free
-PAIR_TILES = ((8, 128), (16, 128), (32, 128), (64, 128))
 # the kernel reads A rows in 16-byte runs of bf16: rows of other widths
 # are padded to a multiple of this with zero columns
 ROW_MULTIPLE = 8
@@ -67,6 +65,16 @@ def load_pair_kernel():
         build_info.update(info)
         _lib = lib
         return _lib
+
+
+def pair_kernel_takes(tm: int, tn: int) -> bool:
+    """Whether the pair kernel takes (tm, tk) A and (tk, tn) B tiles: tm %
+    8 == 0 and tn % 128 == 0, the reference's gate
+    (spgemm_tpu/ops/pallas_kernels.py:125), whose tk % 128 the port does
+    not need (any tk: A's rows are padded to ROW_MULTIPLE); within the
+    grid's chunk limits. It runs the strip kernel's h x 128 chunks
+    (ops/kernels.py:chunk_grid)."""
+    return chunk_grid(tm, tn) is not None
 
 
 def check_pair_dtype(dtype) -> None:
@@ -139,9 +147,10 @@ def pair_accumulate_cuda(a_val, a_occ, b_val, b_occ, pa, pb, pair_ptr, *,
                          f"{a_val.device}")
     _, tm, tk = a_val.shape
     tn = b_val.shape[2]
-    if (tm, tn) not in PAIR_TILES:
-        raise ValueError(f"the pair kernel takes (tm, tn) in {PAIR_TILES}, "
-                         f"got ({tm}, {tn})")
+    if not pair_kernel_takes(tm, tn):
+        raise ValueError(f"the pair kernel takes tm % 8 == 0 and tn % 128 "
+                         f"== 0 (at most 65535 chunks of each), got ({tm}, "
+                         f"{tn})")
     if num_segments >= 2 ** 31:
         raise ValueError("pair kernel grid exceeds 2^31-1 C tiles")
     lib = load_pair_kernel()

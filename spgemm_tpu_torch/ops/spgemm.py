@@ -86,19 +86,20 @@ def _resolve_backend(a: TileMat, b: TileMat, backend: str, compute_dtype,
     built), in the JAX package's order: strip, dense (f32 only),
     gustavson, xla. Returns (backend, note).
 
-    The strip gate is the port's own: the strip kernel's instantiated
-    (tm, tn) and tk % 8 == 0 on CUDA, any tiles on the CPU (whose plain
-    version takes them, as the JAX package's on_cpu does), and float32
-    on both (the port's strip route has no f64). The slab (4 GiB) and
-    dense (6 GiB) byte gates are the JAX package's. Its SMEM slot-table
-    and VMEM gates are TPU limits the port does not carry."""
+    The strip gate on CUDA is what the strip kernel takes
+    (kernels.strip_kernel_takes): the JAX package's `aligned` rule (tm %
+    8 == 0, tn % 128 == 0) with its tk % 128 relaxed to tk % 8; any tiles
+    on the CPU (whose plain version takes them, as the JAX package's
+    on_cpu does); float32 on both (the port's strip route has no f64).
+    The slab (4 GiB) and dense (6 GiB) byte gates are the JAX package's.
+    Its SMEM slot-table, VMEM and B-cache gates are TPU limits the port
+    does not carry."""
     f64 = esc.is_f64(compute_dtype)
     acsc_ptr, _ = a.csc_view()
     max_a = max(1, int(np.diff(acsc_ptr).max())) if a.nt else 1
     max_b = max(1, int(np.diff(b.tptr).max())) if b.nt else 1
-    tiles_ok = device.type == "cpu" or (
-        (a.tm, b.tn) in kernels.SUPPORTED_TILES
-        and a.tn % kernels.TK_MULTIPLE == 0)
+    tiles_ok = device.type == "cpu" or kernels.strip_kernel_takes(
+        a.tm, a.tn, b.tn)
     strip_ok = tiles_ok and not f64
     # the slab route materializes (gk*max_a*max_b, tm, tn) x2 products
     slab_ok = a.gn * max_a * max_b * a.tm * b.tn * 8 <= SLAB_BYTES
@@ -198,11 +199,11 @@ def _spgemm_pairs(a: TileMat, b: TileMat, *, backend: str, f64: bool,
     if backend == "pallas":
         pair_kernels.check_pair_dtype(torch.float64 if f64 else torch.float32)
         _f32_kernel(acc_dtype, "pair")
-        if device.type == "cuda" and (a.tm, b.tn) not in \
-                pair_kernels.PAIR_TILES:
+        if device.type == "cuda" and not pair_kernels.pair_kernel_takes(
+                a.tm, b.tn):
             raise NotImplementedError(
-                f"the pair kernel takes (tm, tn) in {pair_kernels.PAIR_TILES} "
-                f"on CUDA, got {a.tm}x{b.tn}; use backend='xla' or 'strip'")
+                f"the pair kernel takes tm % 8 == 0 and tn % 128 == 0 on "
+                f"CUDA, got {a.tm}x{b.tn}; use backend='xla' or 'strip'")
     timings: dict[str, float] = {}
     t0 = time.perf_counter()
     sched = build_pair_schedule(a, b)
@@ -468,8 +469,10 @@ def spgemm_csr(a: CSR, b: CSR | None = None, *, tm: int = 16, tn: int = 128,
                sync: bool = True) -> tuple[CSR, SpGEMMResult]:
     """CSR-level API: C = A @ B with B as A (A^2), A^T (aat) or an
     explicit matrix, on `device` (None means CUDA). Returns CSR C with the
-    result record. Any tiles run: the default 16x128 is the strip
-    kernel's; TileSpGEMM's 16x16 takes the dense or slab route.
+    result record. Any tiles run: every tm % 8 == 0, tn % 128 == 0 tile
+    (the default 16x128, 64x128, 128x128, 40x256, ...) takes the strip
+    kernel on the card, as the JAX package's strip kernel takes them on
+    the TPU; TileSpGEMM's 16x16 takes the dense or slab route.
 
     backend "auto" keeps the JAX package's router: unstructured patterns
     go to the ESC scan route (no tiling), the rest to spgemm's tiled

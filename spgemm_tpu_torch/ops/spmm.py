@@ -88,13 +88,14 @@ def _spmm_mode(a: TileMat, k_pad: int, block_rows: int = 64, *,
     computed once and threaded to the packing and kernel stages.
 
     On the CPU the plain version takes any plan: 'resident', as the JAX
-    package answers off the TPU. On CUDA: 'xla' where the kernel is not
-    instantiated for the tile height (any tk is taken); 'resident' while X
-    (gn*tn*k_pad f32) fits the L2; 'window' above that."""
+    package answers off the TPU. On CUDA: 'xla' where the kernel does not
+    take the tile height (spmm_kernels.spmm_kernel_takes: tm % 8, as the
+    reference's gate; any tk is taken); 'resident' while X (gn*tn*k_pad
+    f32) fits the L2; 'window' above that."""
     stats = _spmm_block_stats(a, block_rows)
     if device.type == "cpu":
         return "resident", stats
-    if a.tm not in spmm_kernels.SPMM_TM:
+    if not spmm_kernels.spmm_kernel_takes(a.tm):
         return "xla", stats
     if a.gn * a.tn * k_pad * 4 <= L2_BYTES:
         return "resident", stats
@@ -133,8 +134,8 @@ def spmm(a: TileMat, x, *, dtype=torch.float32, backend: str = "auto",
     if hw_ok and backend in ("auto", "strip"):
         mode, stats = _spmm_mode(a, k_pad, device=dev)
     if backend == "strip" and mode == "xla":
-        raise ValueError("strip SpMM infeasible: the kernel takes tm in "
-                         f"{spmm_kernels.SPMM_TM} and float32 on CUDA")
+        raise ValueError("strip SpMM infeasible: the kernel takes tm % 8 "
+                         "== 0 and float32 on CUDA")
     # the JAX package's traffic model: the tile kernels stream tm*tn*4 B
     # per stored tile, the gather route one k_pad-wide X row + 8 B of
     # (value, column) per nonzero

@@ -32,10 +32,8 @@ import threading
 
 import torch
 
-from spgemm_tpu_torch.ops.kernels import build_cuda_library
+from spgemm_tpu_torch.ops.kernels import CHUNK_HEIGHTS, build_cuda_library
 
-# A tile heights the CUDA kernel is instantiated for; tk is free
-SPMM_TM = (8, 16, 32, 64)
 KCOLS = 128          # k_pad is a multiple of this (one CTA per 128 columns)
 NARROW_WIDTHS = (8, 16, 32)  # packed widths of the narrow form (k <= 32)
 # bytes of temporaries the plain version allows per chunk of A tiles
@@ -67,6 +65,22 @@ def load_spmm_kernel():
         build_info.update(info)
         _lib = lib
         return _lib
+
+
+def sub_tiles(tm: int):
+    """(h, q): the kernel runs a tm-row A tile as q sub-tiles of h rows, h
+    the largest instantiated height that divides tm (csrc/spmm_strip.cu:
+    chunk_rows; every sub-tile one height, so A is re-viewed without a
+    copy), or None where tm % 8 != 0."""
+    h = next((h for h in CHUNK_HEIGHTS if tm > 0 and tm % h == 0), 0)
+    return (h, tm // h) if h else None
+
+
+def spmm_kernel_takes(tm: int) -> bool:
+    """Whether the SpMM kernel takes A tiles of tm rows: tm % 8 == 0, the
+    reference's gate (spgemm_tpu/ops/spmm.py:115), whose tn % 128 the port
+    does not need (any tk)."""
+    return sub_tiles(tm) is not None
 
 
 def pack_width(k: int) -> int:
@@ -157,13 +171,15 @@ def spmm_strip(a_dense, xb, aptr, ak, arow, kmin=None, *, gm: int,
         raise ValueError(f"the SpMM kernel takes float32, got "
                          f"{a_dense.dtype}")
     narrow = k_pad in NARROW_WIDTHS
-    if tm not in SPMM_TM or not narrow and (
+    if not spmm_kernel_takes(tm) or not narrow and (
             k_pad % KCOLS or k_pad // KCOLS > 65535):
-        raise ValueError(f"the SpMM kernel takes tm in {SPMM_TM} and k_pad "
-                         f"in {NARROW_WIDTHS} or a multiple of {KCOLS}, got "
+        raise ValueError(f"the SpMM kernel takes tm % 8 == 0 and k_pad in "
+                         f"{NARROW_WIDTHS} or a multiple of {KCOLS}, got "
                          f"tm={tm} k_pad={k_pad}")
-    if n_rows >= 2 ** 31:
-        raise ValueError("SpMM kernel grid exceeds 2^31-1 rows")
+    _, q = sub_tiles(tm)
+    if n_rows * q >= 2 ** 31 or a_dense.shape[0] * q >= 2 ** 31:
+        raise ValueError(f"SpMM kernel grid exceeds 2^31-1 rows of "
+                         f"{tm // q}-row sub-tiles")
     if a_dense.data_ptr() % 16 or xb.data_ptr() % 16:
         raise ValueError("the SpMM kernel copies 16-byte runs: a_dense and "
                          "xb must start 16-byte aligned")

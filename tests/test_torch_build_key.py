@@ -50,9 +50,13 @@ def test_key_ignores_missing_and_system_includes(tmp_path):
 def test_kernel_sources_key_on_their_headers():
     names = lambda src: [os.path.basename(p)
                          for p in native.source_closure(src)]
+    # the strip and pair kernels share the tile pipeline, which includes
+    # the common building blocks: an edit to either rebuilds both
     assert names(kernels.KERNEL_SRC) == ["strip_numeric.cu",
+                                         "tile_pipeline.cuh",
                                          "sm90_common.cuh"]
     assert names(pair_kernels.KERNEL_SRC) == ["pair_accumulate.cu",
+                                              "tile_pipeline.cuh",
                                               "sm90_common.cuh"]
     assert names(spmm_kernels.KERNEL_SRC) == ["spmm_strip.cu",
                                               "sm90_common.cuh"]

@@ -481,13 +481,15 @@ def test_ozaki_kernel_padded_slots_are_zero(card, tm, pmax):
 
 
 def test_ozaki_kernel_registers(card):
-    # the main plan's instantiation (tm 32, up to 8 groups): two 256-thread
-    # CTAs per SM need <= 128 registers a thread, and no spills
+    # the main plan's instantiation (tm 32 at tn 128, up to 8 groups): two
+    # 256-thread CTAs per SM need <= 128 registers a thread, and no
+    # spills; beside it tm 16 at tn 128 and the chunked heights 32, 16 and
+    # 8, each for 8 and for 15 groups
     ozaki_kernels.load_ozaki_kernel()
     usage = kernels.ptxas_usage(ozaki_kernels.build_info["ptxas"])
     inst = {fn: v for fn, v in usage.items() if "ozaki_strip_kernel" in fn}
-    assert len(inst) == 4
-    main = [v for fn, v in inst.items() if "ILi32ELi8E" in fn]
+    assert len(inst) == 10
+    main = [v for fn, v in inst.items() if "ILi32ELi8ELb0E" in fn]
     assert len(main) == 1
     regs, spill_stores, spill_loads = main[0]
     assert regs <= 128 and spill_stores == 0 and spill_loads == 0
@@ -532,23 +534,27 @@ def test_ozaki_entry_points_on_card_match_cpu(card):
 def test_ozaki_rejects_unsupported_tiles(card):
     a = cantlike(600, 16).with_data(
         np.random.default_rng(1).standard_normal(cantlike(600, 16).nnz))
-    # no kernel instantiation at tm 64: the slab engine runs instead
+    # tm 12 is outside the kernel's tiles (tm % 8): the slab engine runs
+    # instead, and neither the kernel nor its plain version does
     w = ozaki_kernels.ozaki_strip_numeric
-    before = w.kernel_launches
-    got, res = pt.spgemm_csr(a, tm=64, compute_dtype=torch.float64,
+    before = (w.kernel_launches, w.plain_launches)
+    got, res = pt.spgemm_csr(a, tm=12, compute_dtype=torch.float64,
                              device=card)
     assert res.stats["backend"] == "ozaki(S=8x8)(xla-fallback)"
-    assert w.kernel_launches == before
+    assert (w.kernel_launches, w.plain_launches) == before
     ref = golden.spgemm_scipy(a, a)
     got = golden.drop_explicit_zeros(got)
     assert got.pattern_equal(ref)
     assert np.abs(got.data - ref.data).max() <= \
         1e-12 * np.abs(ref.data).max()
-    plan = build_ozaki_strip(pt.csr_to_tiles(a, 8, 128),
-                             pt.csr_to_tiles(a, 128, 128))
+    # the wrapper raises on such a plan (tk 120: tk % 16) and runs no
+    # plain version
+    plan = build_ozaki_strip(pt.csr_to_tiles(a, 8, 120),
+                             pt.csr_to_tiles(a, 120, 128))
     with pytest.raises(ValueError, match="Ozaki strip kernel takes"):
         ozaki_kernels.ozaki_strip_numeric(*plan.to_device(card),
                                           **plan.kernel_kwargs())
+    assert (w.kernel_launches, w.plain_launches) == before
 
 
 def test_cli_ozaki_on_card(card, tmp_path, capsys):
@@ -1292,3 +1298,240 @@ def test_bench_small_on_card(card):
         assert key in line, key
     assert line["metric"] == "spgemm_cantlike_gflops" and line["value"] > 0
     assert 0 < line["sol_pct"] <= 100
+
+
+# --- tile shapes beyond the kernels' instantiated heights -----------------
+#
+# Every kernel of a tiled route takes the tiles its TPU kernel takes: tm %
+# 8 == 0 and tn % 128 == 0, cut into chunks of the instantiated heights
+# (strip and pair: 64/32/16/8 rows x 128 columns; SpMM: sub-tiles of
+# 64/32/16/8 rows; Ozaki: 32/16/8 rows x 64 columns).
+
+CHUNKED_TILES = [(24, 128), (128, 128), (8, 256), (40, 384), (48, 256)]
+
+
+@pytest.mark.parametrize("tm,tn", CHUNKED_TILES)
+@pytest.mark.parametrize("window", [None, False])
+@pytest.mark.parametrize("values", ["integer", "gaussian"])
+def test_strip_kernel_chunked_tiles_match_plain(card, tm, tn, window,
+                                                values):
+    a = _matrix(values, 2500, 64)
+    args = build_strip_args(pt.csr_to_tiles(a, tm, tn),
+                            pt.csr_to_tiles(a, tn, tn), window=window)
+    ops = args.to_device(card)
+    w = kernels.strip_numeric
+    before = (w.kernel_launches, w.plain_launches)
+    kv, kc = w(*ops, **args.kernel_kwargs())
+    pv, pc = kernels.strip_numeric_plain(*ops, **args.kernel_kwargs())
+    torch.cuda.synchronize()
+    assert (w.kernel_launches, w.plain_launches) == (before[0] + 1,
+                                                     before[1])
+    assert kv.shape[1:] == (tm, tn)
+    _assert_close(kv, pv, values)
+    assert torch.equal(kc, pc)
+
+
+@pytest.mark.parametrize("tm,tn", CHUNKED_TILES)
+@pytest.mark.parametrize("tk", [7, 128])
+def test_pair_kernel_chunked_tiles_match_plain(card, tm, tn, tk):
+    for values in ("integer", "gaussian"):
+        a = _matrix(values, 900 if tk < 16 else 1500, 64)
+        at, bt = pt.csr_to_tiles(a, tm, tk), pt.csr_to_tiles(a, tk, tn)
+        sched = build_pair_schedule(at, bt)
+        ops = _pair_ops(at, bt, sched, card, torch.bfloat16)
+        w = pair_kernels.pair_accumulate_cuda
+        before = (w.kernel_launches, w.plain_launches)
+        gv, gc = w(*ops, num_segments=sched.nt_c)
+        pv, pc = pair_kernels.pair_accumulate_plain(*ops,
+                                                    num_segments=sched.nt_c)
+        torch.cuda.synchronize()
+        assert (w.kernel_launches, w.plain_launches) == (before[0] + 1,
+                                                         before[1])
+        _assert_close(gv, pv, values)
+        assert torch.equal(gc, pc)
+
+
+@pytest.mark.parametrize("tm,tn", [(8, 128), (64, 128), (24, 256),
+                                   (128, 128)])
+@pytest.mark.parametrize("case,sizes,pmax", [
+    ("integer", (1, 1), None), ("gaussian", (8, 8), None),
+    ("gaussian", (8, 8), 14), ("gaussian-x-wide-int", (8, 3), None)])
+def test_ozaki_kernel_chunked_tiles_match_plain(card, tm, tn, case, sizes,
+                                                pmax):
+    rng = np.random.default_rng(23)
+    a = banded(rng, 1500, 64)
+    x = y = a
+    if case != "integer":
+        x = a.with_data(rng.standard_normal(a.nnz))
+        y = x if case == "gaussian" else a.with_data(
+            rng.integers(-2 ** 20, 2 ** 20, a.nnz).astype(np.float64))
+    plan = build_ozaki_strip(pt.csr_to_tiles(x, tm, tn),
+                             pt.csr_to_tiles(y, tn, tn))
+    assert (plan.sa, plan.sb) == sizes
+    ops = plan.to_device(card)
+    kw = plan.kernel_kwargs()
+    if pmax is not None:
+        kw["pmax"] = pmax
+    w = ozaki_kernels.ozaki_strip_numeric
+    before = (w.kernel_launches, w.plain_launches)
+    got = w(*ops, **kw)
+    exp = ozaki_kernels.ozaki_strip_numeric_plain(*ops, **kw)
+    torch.cuda.synchronize()
+    assert (w.kernel_launches, w.plain_launches) == (before[0] + 1,
+                                                     before[1])
+    for g, e in zip(got, exp):
+        assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("tm", [24, 40, 128, 256])
+@pytest.mark.parametrize("width,k", [(8, 1), (32, 20), (128, 100),
+                                     (256, 256)])
+def test_spmm_kernel_chunked_tiles_match_plain(card, tm, width, k):
+    rng = np.random.default_rng(36)
+    for values in ("integer", "gaussian"):
+        a = _spmm_matrix(values)
+        t = pt.csr_to_tiles(a, tm, 128)
+        x = (rng.integers(-4, 5, (a.n, k)).astype(np.float64)
+             if values == "integer" else rng.standard_normal((a.n, k)))
+        block_rows = 3
+        stats = pspmm._spmm_block_stats(t, block_rows)
+        ops = pspmm._pack_spmm_operands(t, x, width, torch.float32,
+                                        block_rows).to_device(card)
+        kmin = torch.from_numpy(pspmm._window_kmin(t, stats)).to(card)
+        w = spmm_kernels.spmm_strip
+        for form in (None, kmin):
+            before = (w.kernel_launches, w.narrow_launches, w.plain_launches)
+            got = w(*ops, form, gm=t.gm, block_rows=block_rows)
+            exp = spmm_kernels.spmm_strip_plain(*ops, form, gm=t.gm,
+                                                block_rows=block_rows)
+            torch.cuda.synchronize()
+            assert (w.kernel_launches, w.narrow_launches,
+                    w.plain_launches) == (before[0] + 1,
+                                          before[1] + (width <= 32),
+                                          before[2])
+            assert got.shape == exp.shape == (t.gm + (-t.gm) % block_rows,
+                                              tm, width)
+            _assert_close(got, exp, values)
+            assert not got[t.gm:].any()
+
+
+@pytest.mark.parametrize("tm,tn", [(128, 128), (40, 256)])
+def test_chunked_strip_and_pair_long_positive_sums(card, tm, tn):
+    """The strip and pair kernels at chunked tiles on the long positive
+    sums that found the in-place 3xTF32 bias: within rtol 1e-5, atol
+    1e-6*max|C| of the f64 sum."""
+    a, b = long_positive_sums()
+    ref = golden.spgemm_scipy(a, b)
+    for backend, w in (("strip", kernels.strip_numeric),
+                       ("pallas", pair_kernels.pair_accumulate_cuda)):
+        before = w.kernel_launches
+        res = pt.spgemm(pt.csr_to_tiles(a, tm, tn),
+                        pt.csr_to_tiles(b, tn, tn), backend=backend,
+                        device=card)
+        assert w.kernel_launches == before + 1
+        got = golden.drop_explicit_zeros(res.c.to_csr())
+        assert got.pattern_equal(ref)
+        np.testing.assert_allclose(got.data, ref.data, rtol=1e-5,
+                                   atol=1e-6 * np.abs(ref.data).max())
+
+
+@pytest.mark.parametrize("tm", [24, 128])
+def test_chunked_spmm_long_positive_sums(card, tm):
+    a, _ = long_positive_sums()
+    x = np.random.default_rng(22).random((a.n, 128))
+    t = pt.csr_to_tiles(a, tm, 128)
+    ops = pspmm._pack_spmm_operands(t, x, 128, torch.float32,
+                                    8).to_device(card)
+    y = spmm_kernels.spmm_strip(*ops, gm=t.gm, block_rows=8)
+    got = y.reshape(-1, 128)[: a.m].double().cpu().numpy()
+    f32 = lambda v: v.astype(np.float32).astype(np.float64)
+    ref = f32(a.to_dense()) @ f32(x)
+    np.testing.assert_allclose(got, ref, rtol=1e-5,
+                               atol=1e-6 * np.abs(ref).max())
+
+
+def test_kernels_raise_outside_their_tiles(card):
+    """A tile outside a kernel's gate raises on CUDA, and no plain version
+    runs in its place."""
+    a = _matrix("integer", 400, 8)
+    _zero_all_counters()
+    for tm, tn in ((12, 128), (16, 64), (16, 200)):
+        args = build_strip_args(pt.csr_to_tiles(a, tm, tn),
+                                pt.csr_to_tiles(a, tn, tn))
+        with pytest.raises(ValueError, match="strip kernel takes"):
+            kernels.strip_numeric(*args.to_device(card),
+                                  **args.kernel_kwargs())
+        at, bt = pt.csr_to_tiles(a, tm, tn), pt.csr_to_tiles(a, tn, tn)
+        sched = build_pair_schedule(at, bt)
+        with pytest.raises(ValueError, match="pair kernel takes"):
+            pair_kernels.pair_accumulate_cuda(
+                *_pair_ops(at, bt, sched, card, torch.bfloat16),
+                num_segments=sched.nt_c)
+        plan = build_ozaki_strip(at, bt)
+        with pytest.raises(ValueError, match="Ozaki strip kernel takes"):
+            ozaki_kernels.ozaki_strip_numeric(*plan.to_device(card),
+                                              **plan.kernel_kwargs())
+    t = pt.csr_to_tiles(a, 12, 128)
+    ops = pspmm._pack_spmm_operands(t, np.ones((a.n, 4)), 128,
+                                    torch.float32, 4).to_device(card)
+    with pytest.raises(ValueError, match="SpMM kernel takes"):
+        spmm_kernels.spmm_strip(*ops, gm=t.gm, block_rows=4)
+    assert not _any_kernel_ran()
+
+
+@pytest.mark.parametrize("tm,tn", [(128, 128), (40, 256), (24, 128)])
+def test_chunked_entry_points_route_to_the_kernels(card, tm, tn):
+    """spgemm_csr at aligned tiles takes the strip kernel on the card (and
+    backend="pallas" the pair kernel), f64 the Ozaki kernel, spmm the SpMM
+    kernel: C equal to the CPU's."""
+    a = cantlike(3000, 64)
+    for backend, w, name in (
+            ("auto", kernels.strip_numeric, "strip"),
+            ("pallas", pair_kernels.pair_accumulate_cuda, "pallas")):
+        before = w.kernel_launches
+        got, res = pt.spgemm_csr(a, tm=tm, tn=tn, backend=backend,
+                                 device=card)
+        assert res.stats["backend"] == name
+        assert w.kernel_launches == before + 1
+        exp, _ = pt.spgemm_csr(a, tm=tm, tn=tn, backend=backend,
+                               device="cpu")
+        assert got.pattern_equal(exp) and np.array_equal(got.data, exp.data)
+    ag = a.with_data(np.random.default_rng(0).standard_normal(a.nnz))
+    w = ozaki_kernels.ozaki_strip_numeric
+    before = w.kernel_launches
+    gc, res = pt.spgemm_csr(ag, tm=tm, tn=tn, compute_dtype=torch.float64,
+                            device=card)
+    assert res.stats["backend"] == "ozaki-strip(S=8x8)"
+    assert w.kernel_launches == before + 1
+    hc, _ = pt.spgemm_csr(ag, tm=tm, tn=tn, compute_dtype=torch.float64,
+                          device="cpu")
+    assert gc.pattern_equal(hc) and np.array_equal(gc.data, hc.data)
+    t = pt.csr_to_tiles(a, tm, tn)
+    x = np.random.default_rng(1).integers(-4, 5, (a.n, 64)).astype(float)
+    w = spmm_kernels.spmm_strip
+    before = w.kernel_launches
+    y = pt.spmm(t, x, backend="strip", device=card)
+    assert w.kernel_launches == before + 1
+    assert torch.equal(y.cpu(), pt.spmm(t, x, backend="strip",
+                                        device="cpu"))
+
+
+def test_cli_reports_the_strip_route_at_128x256(card, tmp_path, capsys):
+    """`python -m spgemm_tpu_torch A.mtx 128 256` runs the strip kernel on
+    the card and says so on stderr."""
+    from spgemm_tpu_torch.cli import main
+
+    a = cantlike(2000, 64)
+    p = tmp_path / "c.mtx"
+    rows = a.rows_expanded() + 1
+    with open(p, "w") as f:
+        f.write("%%MatrixMarket matrix coordinate real general\n")
+        f.write(f"{a.m} {a.n} {a.nnz}\n")
+        for r, c, v in zip(rows, a.indices + 1, a.data):
+            f.write(f"{r} {c} {v:.17g}\n")
+    before = kernels.strip_numeric.kernel_launches
+    assert main(["-d", "cuda:0", str(p), "128", "256"]) == 0
+    out = capsys.readouterr()
+    assert "check (values vs scipy oracle): [PASSED]" in out.out
+    assert "route: strip" in out.err
+    assert kernels.strip_numeric.kernel_launches == before + 1

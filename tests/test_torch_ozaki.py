@@ -358,10 +358,14 @@ def test_arrow_pattern_raises_naming_the_slab_engine():
 
 
 def test_cuda_tile_gate_and_bad_operands():
-    # the strip kernel's tiles on CUDA; elsewhere the slab engine runs
+    # the strip kernel's tiles on CUDA (tm % 8, tn % 128, tk % 16);
+    # elsewhere the slab engine runs
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert po.strip_kernel_takes(32, 128, 128, cuda)
-    assert not po.strip_kernel_takes(64, 128, 128, cuda)
+    assert po.strip_kernel_takes(64, 128, 128, cuda)
+    assert po.strip_kernel_takes(24, 128, 256, cuda)
+    assert not po.strip_kernel_takes(12, 128, 128, cuda)  # tm % 8
+    assert not po.strip_kernel_takes(16, 128, 64, cuda)   # tn % 128
     assert not po.strip_kernel_takes(16, 16, 16, cuda)
     assert not po.strip_kernel_takes(16, 40, 128, cuda)   # tk % 16
     assert po.strip_kernel_takes(64, 128, 128, cpu)
