@@ -5,8 +5,8 @@
 Phases (each prints a line; any failure exits non-zero, with no result):
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build the strip kernel, the ESC scan kernels, the Ozaki strip
-     kernel, the SpMM strip kernel and the pair kernel from
-     spgemm_tpu_torch/csrc with nvcc (one nvcc per source, all five
+     kernel, the SpMM strip kernel, the pair kernel and the gather kernel
+     from spgemm_tpu_torch/csrc with nvcc (one nvcc per source, all six
      started together) and print the build seconds and each kernel's
      ptxas registers and spills (the tm 32, 8-group Ozaki kernel and the
      tm 64 pair kernel must stay within 128 registers, and they, the
@@ -87,7 +87,8 @@ Phases (each prints a line; any failure exits non-zero, with no result):
  15. time the SpMM kernel and its plain version (CUDA events, median of
      20) on the banded65536 operands at k = 128, SpMV and k = 256, beside
      torch.sparse.mm(A, X) and torch.mv(A, x), with GFLOPS = 2*nnz*k /
-     kernel ms, and the gather route's device time at rmat65536;
+     kernel ms, and the gather route's device time at rmat65536; SpMV
+     and torch.mv also with the L2 cache flushed before each timed call;
  16. compare the pair kernel with its plain version on random banded
      plans: 16x128 and 64x128 A tiles (B 128x128), float32 and bfloat16
      occupancy, integer values (equal exactly), Gaussian values (rtol
@@ -203,7 +204,21 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      form, window k = 256; within rtol 1e-5 of scipy); no plain version
      may run. Each kernel's time there (CUDA events) is printed beside
      its bound and the compiled shape's time from phases 5, 12, 15, 17;
- 38. print the kernels JSON line (the nine hand kernels, each with the
+ 38. (run after phase 17: after the multi-device phases torch.profiler
+     reads no device time on the card) the gather kernel
+     (take_along_blocks, csrc/dyngather.cu) against its plain version,
+     bit-equal, at the dynamic-gather probe's nine shapes
+     and at C = 1,024 (16,384 rows, blk 256 on axis 1, blk 512 on axis
+     0); its time (CUDA events, torch.profiler), bound and torch.gather's
+     at the probe's largest case; then the TwoSum rounding probe's
+     kernel (csrc/twosum_probe.cu, verify_cuda's) at its 1,024 elements;
+ 39. the three probes through their entry points, each in a fresh
+     interpreter as in phases 33-35, writing into a temporary directory:
+     probe_dyngather (every case ok, take_along_blocks launched, no plain
+     version), probe_sort (the nine rows, then the three full-array sort
+     rows at F = 400,458,682, rmat65536 A^2's products) and
+     probe_primitives (nine rows); each file starts with the card's line;
+ 40. print the kernels JSON line (the ten hand kernels, each with the
      tile shapes it was held at against its plain version, "tiles", and
      its phase-37 times, "chunked"), then the contract line {"ok": true,
      "device": {...}} as the last line.
@@ -293,23 +308,25 @@ def build_kernels() -> None:
     """Phase 2: one nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from spgemm_tpu_torch.ops import (kernels, ozaki_kernels, pair_kernels,
-                                      scan_kernels, spmm_kernels)
+    from spgemm_tpu_torch.ops import (gather_kernels, kernels, ozaki_kernels,
+                                      pair_kernels, scan_kernels,
+                                      spmm_kernels)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         futs = [pool.submit(kernels.load_strip_kernel),
                 pool.submit(scan_kernels.load_scan_kernel),
                 pool.submit(ozaki_kernels.load_ozaki_kernel),
                 pool.submit(spmm_kernels.load_spmm_kernel),
-                pool.submit(pair_kernels.load_pair_kernel)]
+                pool.submit(pair_kernels.load_pair_kernel),
+                pool.submit(gather_kernels.load_gather_kernel)]
         for f in futs:
             f.result()
-    print(f"phase build: five sources in {time.perf_counter() - t0!r} s")
+    print(f"phase build: six sources in {time.perf_counter() - t0!r} s")
     usage = {}
     for info in (kernels.build_info, scan_kernels.build_info,
                  ozaki_kernels.build_info, spmm_kernels.build_info,
-                 pair_kernels.build_info):
+                 pair_kernels.build_info, gather_kernels.build_info):
         print(f"phase build: {info['seconds']!r} s -> {info['path']}")
         for fn, (regs, st, ld) in sorted(
                 kernels.ptxas_usage(info["ptxas"]).items()):
@@ -1072,6 +1089,20 @@ def run_spmm_path(suite: dict) -> list:
             lib_dev_ms = profiler_device_ms(
                 (lambda: torch.mv(a_t, xd)) if x.ndim == 1
                 else (lambda: torch.sparse.mm(a_t, xd)))
+        flushed = {}
+        if x.ndim == 1:
+            # the SpMV row's rank: both calls with L2 flushed before each
+            # timed call (a 64 MiB write outside the event pair)
+            flushed["l2_flushed_ms"] = cuda_event_ms(
+                lambda: w(*ops, km, **kw), warmup=3, iters=20, flush_l2=True)
+            flushed["library_l2_flushed_ms"] = (None if lib_ms is None else
+                                                cuda_event_ms(
+                lambda: torch.mv(a_t, xd), warmup=3, iters=20,
+                flush_l2=True))
+            print(f"{CARD} | phase spmm-time: spmv with L2 flushed before "
+                  f"each call: kernel_ms={flushed['l2_flushed_ms']!r} "
+                  f"torch.mv ms={flushed['library_l2_flushed_ms']!r} "
+                  f"(CUDA events)")
         del xd
         print(f"phase spmm-time: {label} k={k} width={width} kernel_ms={ms!r} "
               f"plain_ms={plain_ms!r} library_ms={lib_ms!r} (CUDA events "
@@ -1087,7 +1118,7 @@ def run_spmm_path(suite: dict) -> list:
             launches=launches[label][0], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms, device_ms=dev_ms,
-            library_device_ms=lib_dev_ms))
+            library_device_ms=lib_dev_ms, **flushed))
         del ops
     del a_t
     gms = pspmm.time_spmm_gather(g, xg, warmup=2, iters=20, device="cuda")
@@ -1254,13 +1285,15 @@ CARD = ""                       # nvidia-smi's name and power limit line
 
 
 def _all_wrappers():
-    from spgemm_tpu_torch.ops import (kernels, ozaki_kernels, pair_kernels,
-                                      scan_kernels, spmm_kernels)
+    from spgemm_tpu_torch.ops import (gather_kernels, kernels, ozaki_kernels,
+                                      pair_kernels, scan_kernels,
+                                      spmm_kernels)
 
     return (kernels.strip_numeric, scan_kernels.esc_scan,
             scan_kernels.esc_scan_mul, scan_kernels.esc_scan_dd,
             ozaki_kernels.ozaki_strip_numeric, spmm_kernels.spmm_strip,
-            pair_kernels.pair_accumulate_cuda)
+            pair_kernels.pair_accumulate_cuda,
+            gather_kernels.take_along_blocks)
 
 
 def _check_no_kernel(label: str) -> None:
@@ -2352,11 +2385,11 @@ finally:
 
 
 def run_tool(label: str, module: str, argv=(), required=(), env=None):
-    """Phases 33-35: `module` through its entry point in a fresh
+    """Phases 33-35 and 39: `module` through its entry point in a fresh
     interpreter; prints its output's last lines and the hand-kernel
     launches of that process; fails if it exits non-zero, runs a plain
     version or leaves a `required` kernel unlaunched. Returns (stdout,
-    stderr)."""
+    stderr, {wrapper name: (kernel, plain) launches})."""
     with tempfile.TemporaryDirectory() as d:
         counts_path = os.path.join(d, "counts.json")
         t0 = time.perf_counter()
@@ -2380,7 +2413,7 @@ def run_tool(label: str, module: str, argv=(), required=(), env=None):
     check(not plain, f"{label} ran a plain version: {plain}")
     missing = [w.__name__ for w in required if counts[w.__name__][0] == 0]
     check(not missing, f"{label} did not launch {missing}")
-    return proc.stdout, proc.stderr
+    return proc.stdout, proc.stderr, counts
 
 
 def run_tool_phases(cant_nnz_c: int, numeric_ms: float) -> None:
@@ -2391,7 +2424,7 @@ def run_tool_phases(cant_nnz_c: int, numeric_ms: float) -> None:
                                       spmm_kernels)
 
     t_all = time.perf_counter()
-    out, err = run_tool("bench", "spgemm_tpu_torch.bench", required=(
+    out, err, _ = run_tool("bench", "spgemm_tpu_torch.bench", required=(
         kernels.strip_numeric, ozaki_kernels.ozaki_strip_numeric,
         scan_kernels.esc_scan_dd))
     line = json.loads(out.strip().splitlines()[-1])
@@ -2410,7 +2443,7 @@ def run_tool_phases(cant_nnz_c: int, numeric_ms: float) -> None:
           f"bench numeric_ms {bench_ms} is not within 10% of phase 5's "
           f"{numeric_ms}")
 
-    out, _ = run_tool("verify", "spgemm_tpu_torch.tools.verify_cuda",
+    out, _, _ = run_tool("verify", "spgemm_tpu_torch.tools.verify_cuda",
                       required=(kernels.strip_numeric, scan_kernels.esc_scan,
                                 scan_kernels.esc_scan_mul,
                                 scan_kernels.esc_scan_dd,
@@ -2778,6 +2811,150 @@ def run_tile_shapes_phase(a, ref, ag, ref_g, banded, base_ms) -> dict:
     return out
 
 
+# --- phases 38-39: the dynamic-gather kernel and the three probes -----------
+# the gather kernel's shapes beyond the probe's nine: C = 1,024 on both axes
+GATHER_EXTRA = (("lane gather (16384,1024) blk=256 idx<1024",
+                 (16384, 1024), 1, 256, 1024),
+                ("sublane gather (16384,1024) blk=512 idx<512",
+                 (16384, 1024), 0, 512, 512))
+GATHER_MAIN = "lane gather big (131072,128) blk=1024"   # the probe's largest
+F_SYMBOLIC = 400_458_682        # rmat65536 A^2's products (phase 7's F)
+
+
+def compare_gather_kernel() -> dict:
+    """Phase 38: take_along_blocks against its plain version, bit-equal,
+    at the probe's nine shapes and GATHER_EXTRA; then the kernels JSON
+    entry's times at GATHER_MAIN (without launches, which phase 39
+    counts)."""
+    import torch
+
+    from spgemm_tpu_torch.ops import gather_kernels as gk
+    from spgemm_tpu_torch.tools.probe_dyngather import CASES, case_inputs
+    from spgemm_tpu_torch.utils.timing import cuda_event_ms, profiler_device_ms
+
+    t0 = time.perf_counter()
+    held, entry = [], None
+    for name, shape, axis, blk, idx_max in CASES + GATHER_EXTRA:
+        x, idx = case_inputs(shape, idx_max)
+        xd = torch.from_numpy(x).to("cuda")
+        idd = torch.from_numpy(idx).to("cuda")
+        kw = dict(axis=axis, blk_rows=blk)
+        got = gk.take_along_blocks(xd, idd, **kw)
+        exp = gk.take_along_blocks_plain(xd, idd, **kw)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, exp)
+        err = (got - exp).abs().max().item()
+        print(f"phase gather-compare: {name} axis={axis} bit_equal={equal} "
+              f"max_abs_err={err!r}")
+        check(equal, f"the gather kernel differs from its plain version: "
+                     f"{name}")
+        held.append(f"{shape[0]}x{shape[1]} axis {axis} blk {blk}")
+        if name != GATHER_MAIN:
+            continue
+        view = (shape[0] // blk, blk, shape[1])
+        xv, iv = xd.view(view), idd.long().view(view)
+        ms = cuda_event_ms(lambda: gk.take_along_blocks(xd, idd, **kw),
+                           warmup=3, iters=50)
+        dev_ms = profiler_device_ms(lambda: gk.take_along_blocks(xd, idd,
+                                                                 **kw))
+        plain_ms = cuda_event_ms(lambda: gk.take_along_blocks_plain(
+            xd, idd, **kw), warmup=2, iters=20)
+        lib_ms = library_ms(f"torch.gather on the blocked view, {name}",
+                            lambda: torch.gather(xv, axis + 1, iv), iters=50)
+        lib_dev_ms = profiler_device_ms(lambda: torch.gather(xv, axis + 1,
+                                                             iv))
+        b_ms, b_by = bound(f"take_along_blocks {name}", (xd, idd), (got,))
+        print(f"{CARD} | phase gather-time: {name} kernel_ms={ms!r} "
+              f"device_ms={dev_ms!r} plain_ms={plain_ms!r} "
+              f"library_ms={lib_ms!r} library_device_ms={lib_dev_ms!r} "
+              f"bound_ms={b_ms!r}")
+        check(dev_ms > 0, "torch.profiler read no device time for the "
+                          "gather kernel")
+        entry = dict(
+            name="take_along_blocks", route="cuda",
+            source="spgemm_tpu_torch/csrc/dyngather.cu",
+            replaces="tools/probe_dyngather.py:40", max_abs_err=err, ms=ms,
+            device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms, library_device_ms=lib_dev_ms,
+            shape=f"{shape[0]}x{shape[1]} axis {axis} blk {blk}")
+        del xv, iv
+    entry["tiles"] = held
+    time_rounding_probe()
+    print(f"phase gather-compare: took {time.perf_counter() - t0!r} s")
+    return entry
+
+
+def time_rounding_probe() -> None:
+    """The other TPU kernel of tools/ (verify_tpu.py:188, the Mosaic
+    TwoSum probe) has its counterpart in csrc/twosum_probe.cu, which
+    verify_cuda runs on 1,024 elements (phase 34): its time there beside
+    its bound. No PyTorch call computes it."""
+    import torch
+
+    from spgemm_tpu_torch.ops import ozaki_kernels
+    from spgemm_tpu_torch.tools.verify_cuda import rounding_probe_launcher
+    from spgemm_tpu_torch.utils.timing import cuda_event_ms, profiler_device_ms
+
+    launch = rounding_probe_launcher(ozaki_kernels.NVCC_FLAGS)
+    x = torch.ones(8 * 128, dtype=torch.float32, device="cuda")
+    ts, ce = torch.empty_like(x), torch.empty_like(x)
+    ms = cuda_event_ms(lambda: launch(x, ts, ce), warmup=3, iters=50)
+    dev_ms = profiler_device_ms(lambda: launch(x, ts, ce))
+    b_ms, b_by = bound("twosum_probe n=1024", (x,), (ts, ce))
+    print(f"{CARD} | phase gather-time: twosum_probe n={x.numel()} "
+          f"kernel_ms={ms!r} device_ms={dev_ms!r} bound_ms={b_ms!r} "
+          f"({b_by}); library_ms none")
+
+
+def _probe_file(path: str, rows: int) -> list:
+    """The probe's results file: its first line the card's, `rows` lines
+    after it that are not FAILED."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    print(f"phase probes: {os.path.basename(path)} {len(lines)} lines")
+    check(lines and lines[0] == CARD,
+          f"{path} does not start with the card's line: {lines[:1]}")
+    bad = [ln for ln in lines if "FAILED" in ln]
+    check(not bad and len(lines) >= rows + 1, f"{path}: {bad or lines}")
+    return lines
+
+
+def run_probe_phases() -> int:
+    """Phase 39: the three probes through their entry points, writing into
+    a temporary directory. Returns take_along_blocks' launches in the
+    dynamic-gather probe's process."""
+    from spgemm_tpu_torch.ops import gather_kernels as gk
+
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "probe_dyngather.txt")
+        _, _, counts = run_tool("probe-dyngather",
+                                "spgemm_tpu_torch.tools.probe_dyngather",
+                                ["--out", path],
+                                required=(gk.take_along_blocks,))
+        cases = _probe_file(path, 9)[1:]
+        check(len(cases) == 9 and all("ok=True" in ln for ln in cases),
+              f"a dynamic-gather case is not ok: {cases}")
+        path = os.path.join(d, "probe_sort.txt")
+        run_tool("probe-sort", "spgemm_tpu_torch.tools.probe_sort",
+                 ["--out", path])
+        lines = _probe_file(path, 15)
+        big = [i for i, ln in enumerate(lines)
+               if ln.startswith(f"F={F_SYMBOLIC}")]
+        check(len(big) == 1 and all(" ms " in ln for ln in
+                                     lines[big[0] + 1: big[0] + 4]),
+              f"probe_sort lacks the F={F_SYMBOLIC} sort rows")
+        path = os.path.join(d, "probe_primitives.txt")
+        run_tool("probe-primitives", "spgemm_tpu_torch.tools.probe_primitives",
+                 ["--out", path])
+        _probe_file(path, 10)
+    launches = counts[gk.take_along_blocks.__name__][0]
+    print(f"{CARD} | phase probes: phase 39 took "
+          f"{time.perf_counter() - t_all!r} s; take_along_blocks launched "
+          f"{launches} times")
+    return launches
+
+
 def run() -> dict:
     import torch
 
@@ -2953,6 +3130,10 @@ def run() -> dict:
     compare_pair_plans()
     pair_entry = run_pair_path(a, ref, strip_lib_ms)
     torch.cuda.empty_cache()
+    # phase 38 runs here: after the multi-device phases torch.profiler
+    # reads no device time on the card
+    gather_entry = compare_gather_kernel()
+    torch.cuda.empty_cache()
 
     ag, ref_g = run_gustavson_route(a, ref)
     run_dense_route()
@@ -2978,6 +3159,10 @@ def run() -> dict:
     chunked = run_tile_shapes_phase(a, ref, ag, ref_g, band, base_ms)
     print(f"phase tiles: phases 36-37 took {time.perf_counter() - t0!r} s")
     del a, ref, ag, ref_g, band
+    torch.cuda.empty_cache()
+
+    # phase 39: the three probes
+    gather_entry["launches"] = run_probe_phases()
     # the tile shapes each kernel was held at against its plain version
     # (phases 3, 10, 13, 16 and 36) and its chunked times (phase 37)
     instantiated = {"strip_numeric": ["64x128", "16x128"],
@@ -2999,7 +3184,8 @@ def run() -> dict:
             "library_ms": strip_lib_ms,
             "gaussian_ms": g_ms,
             "gaussian_max_abs_err": g_err,
-        }] + esc_entries + [dd_entry, oz_entry] + spmm_entries + [pair_entry]
+        }] + esc_entries + [dd_entry, oz_entry] + spmm_entries + [
+            pair_entry, gather_entry]
     for e in entries:
         key = "spmm_strip" if e["name"].startswith("spmm_strip") \
             else e["name"]

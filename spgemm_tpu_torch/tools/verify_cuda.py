@@ -68,11 +68,11 @@ class Drive:
         self.fails += 1
 
 
-def rounding_probe(flags: list[str], n: int = 8 * 128):
-    """Builds csrc/twosum_probe.cu with nvcc `flags` and runs it on x = 1.
-    Returns (twosum_err, contract_err) as NumPy arrays: 2^-30 and 0 each
-    where the multiply and the adds round on their own, contract_err
-    2^-24 where nvcc fused b*b - p into an FMA. Needs a card."""
+def rounding_probe_launcher(flags: list[str]):
+    """Builds csrc/twosum_probe.cu with nvcc `flags`; returns
+    launch(x, twosum_err, contract_err), which runs the probe on the
+    float32 CUDA tensor x into the two outputs (x's shape) on the current
+    stream."""
     import torch
 
     from spgemm_tpu_torch.ops.kernels import build_cuda_library
@@ -81,12 +81,26 @@ def rounding_probe(flags: list[str], n: int = 8 * 128):
     lib.twosum_probe.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int64,
                                                          ctypes.c_void_p]
     lib.twosum_probe.restype = ctypes.c_int
+
+    def launch(x, ts, ce):
+        rc = lib.twosum_probe(x.data_ptr(), ts.data_ptr(), ce.data_ptr(),
+                              x.numel(),
+                              torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"twosum_probe launch failed: CUDA error {rc}")
+    return launch
+
+
+def rounding_probe(flags: list[str], n: int = 8 * 128):
+    """Builds csrc/twosum_probe.cu with nvcc `flags` and runs it on x = 1.
+    Returns (twosum_err, contract_err) as NumPy arrays: 2^-30 and 0 each
+    where the multiply and the adds round on their own, contract_err
+    2^-24 where nvcc fused b*b - p into an FMA. Needs a card."""
+    import torch
+
     x = torch.ones(n, dtype=torch.float32, device="cuda")
     ts, ce = torch.empty_like(x), torch.empty_like(x)
-    rc = lib.twosum_probe(x.data_ptr(), ts.data_ptr(), ce.data_ptr(), n,
-                          torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"twosum_probe launch failed: CUDA error {rc}")
+    rounding_probe_launcher(flags)(x, ts, ce)
     return ts.cpu().numpy(), ce.cpu().numpy()
 
 

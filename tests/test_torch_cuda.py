@@ -38,14 +38,17 @@ import pytest
 import torch
 
 import spgemm_tpu_torch as pt
-from spgemm_tpu_torch.ops import (golden, kernels, ozaki_kernels, pair_kernels,
-                                  scan_kernels, spmm_kernels)
+from spgemm_tpu_torch.ops import (gather_kernels, golden, kernels,
+                                  ozaki_kernels, pair_kernels, scan_kernels,
+                                  spmm_kernels)
 from spgemm_tpu_torch.ops import spmm as pspmm
 from spgemm_tpu_torch.ops.esc import gather_planes, scan_dd_planes
 from spgemm_tpu_torch.ops.gustavson import build_strip_args
 from spgemm_tpu_torch.ops.ozaki import (OzakiOverflow, build_ozaki_plan,
                                         build_ozaki_strip, ozaki_core)
 from spgemm_tpu_torch.ops.symbolic import build_pair_schedule
+from spgemm_tpu_torch.tools.probe_dyngather import (CASES as GATHER_CASES,
+                                                    case_inputs)
 from spgemm_tpu_torch.utils.generators import banded, cantlike, random_uniform
 from test_torch_fuzz import CASES as FUZZ_CASES, _operands as fuzz_operands
 
@@ -1139,7 +1142,8 @@ def _wrappers():
     return (kernels.strip_numeric, scan_kernels.esc_scan,
             scan_kernels.esc_scan_mul, scan_kernels.esc_scan_dd,
             ozaki_kernels.ozaki_strip_numeric, spmm_kernels.spmm_strip,
-            pair_kernels.pair_accumulate_cuda)
+            pair_kernels.pair_accumulate_cuda,
+            gather_kernels.take_along_blocks)
 
 
 def _zero_all_counters():
@@ -1535,3 +1539,62 @@ def test_cli_reports_the_strip_route_at_128x256(card, tmp_path, capsys):
     assert "check (values vs scipy oracle): [PASSED]" in out.out
     assert "route: strip" in out.err
     assert kernels.strip_numeric.kernel_launches == before + 1
+
+
+# --- the dynamic-gather probe's kernel ----------------------------------------
+
+@pytest.mark.parametrize("name,shape,axis,blk,idx_max", GATHER_CASES,
+                         ids=[c[0] for c in GATHER_CASES])
+def test_gather_kernel_matches_plain(card, name, shape, axis, blk, idx_max):
+    x, idx = case_inputs(shape, idx_max)
+    xd, idd = torch.from_numpy(x).to(card), torch.from_numpy(idx).to(card)
+    w = gather_kernels.take_along_blocks
+    before = (w.kernel_launches, w.plain_launches)
+    got = w(xd, idd, axis=axis, blk_rows=blk)
+    assert (w.kernel_launches, w.plain_launches) == (before[0] + 1,
+                                                     before[1])
+    exp = gather_kernels.take_along_blocks_plain(xd, idd, axis=axis,
+                                                 blk_rows=blk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, exp), name
+
+
+def test_gather_kernel_refuses_and_never_falls_back(card):
+    """Shapes past the kernel's limits raise on CUDA and no plain version
+    runs in their place; an index outside the contract writes NaN and
+    reads nothing outside the block."""
+    w = gather_kernels.take_along_blocks
+    _zero_all_counters()
+    for shape, axis, blk in (((64, 2048), 1, 16), ((4096, 128), 0, 2048)):
+        x = torch.zeros(shape, device=card)
+        idx = torch.zeros(shape, dtype=torch.int32, device=card)
+        with pytest.raises(ValueError, match="gather kernel takes"):
+            w(x, idx, axis=axis, blk_rows=blk)
+    with pytest.raises(ValueError, match="must divide"):
+        w(torch.zeros(96, 128, device=card),
+          torch.zeros(96, 128, dtype=torch.int32, device=card), axis=0,
+          blk_rows=64)
+    assert w.kernel_launches == w.plain_launches == 0
+    assert not _any_kernel_ran()
+    for axis, bad in ((1, 128), (0, 8), (1, -1)):
+        idx = torch.zeros(64, 128, dtype=torch.int32, device=card)
+        idx[5, 7] = bad
+        out = w(torch.ones(64, 128, device=card), idx, axis=axis, blk_rows=8)
+        torch.cuda.synchronize()
+        assert torch.isnan(out[5, 7]) and int(torch.isnan(out).sum()) == 1
+
+
+def test_chained_timer_and_l2_flush_on_card(card):
+    from spgemm_tpu_torch.utils.timing import chained_device_ms, cuda_event_ms
+
+    x = torch.rand(1 << 20, device=card)
+
+    def chain(v):
+        acc = torch.zeros((), device=card)
+        for _ in range(4):
+            acc = acc + (v + acc * 1e-30).sum()
+        return acc
+
+    assert 0 < chained_device_ms(chain, x, loop=4) < 1e3
+    assert 0 < chained_device_ms(chain, x, loop=4, flush_l2=True) < 1e3
+    assert 0 < cuda_event_ms(lambda: x.sum(), iters=5, flush_l2=True) < 1e3

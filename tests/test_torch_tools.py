@@ -6,8 +6,8 @@ held to the JAX package on the same seeded inputs (CPU):
   device_ms_esc_scan_dd) raise without a card;
 * utils/native.py:last_scan_build_stages set after a native build, with
   the JAX binding's keys;
-* `python -m spgemm_tpu_torch.bench` and `...tools.verify_cuda` exit 1
-  without a card, and no tool module imports jax;
+* `python -m spgemm_tpu_torch.bench`, `...tools.verify_cuda` and the
+  three probes exit 1 without a card, and no tool module imports jax;
 * run_suite -d cpu: the nnzC/nnzCub/check columns equal the JAX runner's
   (`tools/run_suite.py`, run in this process on JAX's CPU);
 * generate_fixtures: byte for byte the JAX generator's files;
@@ -36,7 +36,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOL_MODULES = ["spgemm_tpu_torch.bench"] + [
     f"spgemm_tpu_torch.tools.{m}" for m in (
         "run_suite", "verify_cuda", "profile_esc_plan", "profile_aat_plan",
-        "generate_fixtures", "scale_suite")]
+        "generate_fixtures", "scale_suite", "probe_dyngather", "probe_sort",
+        "probe_primitives")]
+PROBE_MODULES = [f"spgemm_tpu_torch.tools.{m}" for m in (
+    "probe_dyngather", "probe_sort", "probe_primitives")]
 
 
 def _reference_tool(name):
@@ -117,7 +120,8 @@ def _no_card_env():
 
 
 @pytest.mark.parametrize("module", ["spgemm_tpu_torch.bench",
-                                    "spgemm_tpu_torch.tools.verify_cuda"])
+                                    "spgemm_tpu_torch.tools.verify_cuda"]
+                         + PROBE_MODULES)
 def test_entry_points_exit_1_without_a_card(module):
     p = subprocess.run([sys.executable, "-m", module], cwd=ROOT,
                        capture_output=True, text=True, timeout=120,
