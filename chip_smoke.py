@@ -8,10 +8,11 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      kernel, the SpMM strip kernel, the pair kernel and the gather kernel
      from spgemm_tpu_torch/csrc with nvcc (one nvcc per source, all six
      started together) and print the build seconds and each kernel's
-     ptxas registers and spills (the tm 32, 8-group Ozaki kernel and the
-     tm 64 pair kernel must stay within 128 registers, and they, the
-     three scan kernels and the four 128-column SpMM instantiations must
-     not spill);
+     ptxas registers and spills (the tm 64 pair kernel must stay within
+     128 registers, and it, the three scan kernels, the four 128-column
+     and sixteen narrow SpMM instantiations must not spill; the five
+     Ozaki instantiations must launch at <= 168 registers and ptxas must
+     not serialise their wgmmas);
   3. compare the strip kernel with its plain PyTorch version on the card,
      on random banded plans: 64x128 and 16x128 A tiles (B 128x128),
      integer values (equal exactly) and Gaussian values (rtol 1e-5, atol
@@ -71,10 +72,12 @@ Phases (each prints a line; any failure exits non-zero, with no result):
  12. time it: symbolic_ms (host, best of 5), the kernel's ms (CUDA
      events, median of 30) and the plain version's on the same plan (bit
      equal there too), f64 GFLOPS = 2*nnzCub / (symbolic_ms + kernel ms),
-     spgemm_csr's phase split and the peak device memory;
+     spgemm_csr's phase split, the peak device memory, the call's device
+     time by kernel (the K-major copy of B, the wgmma kernel) and the
+     bound with and without the copy's bytes;
  13. compare the SpMM strip kernel with its plain version on random banded
-     plans: 16x128 and 64x128 A tiles, packed widths 256 (k 200), 8 (k 1)
-     and 32 (k 20), resident and window form, integer values (equal
+     plans: 16x128 and 64x128 A tiles, packed widths 256 (k 200), 1 and
+     8 (k 1) and 32 (k 20), resident and window form, integer values (equal
      exactly) and Gaussian values (rtol 1e-5, atol 1e-6*max|Y|);
  14. drive the SpMM path at full size on the suite's banded65536 (16x128
      tiles), counters zeroed just before each route: spmm with k = 128
@@ -82,13 +85,15 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      window form (X over the L2 budget), and spmm on rmat65536 with
      k = 128 the gather route; each Y within rtol 1e-5, atol 1e-6*max|Y|
      of scipy's A @ X, the kernel launched where its route runs and the
-     plain version never; spmv through the narrow form (packed at 8
-     columns) and k = 128 and 256 through the 128-column form;
+     plain version never; spmv through the narrow form (packed at 1
+     column, A read by its sector map) and k = 128 and 256 through the
+     128-column form;
  15. time the SpMM kernel and its plain version (CUDA events, median of
      20) on the banded65536 operands at k = 128, SpMV and k = 256, beside
      torch.sparse.mm(A, X) and torch.mv(A, x), with GFLOPS = 2*nnz*k /
      kernel ms, and the gather route's device time at rmat65536; SpMV
      and torch.mv also with the L2 cache flushed before each timed call;
+     SpMV's bound from its occupied sectors, the dense-tile bound beside;
  16. compare the pair kernel with its plain version on random banded
      plans: 16x128 and 64x128 A tiles (B 128x128), float32 and bfloat16
      occupancy, integer values (equal exactly), Gaussian values (rtol
@@ -333,15 +338,21 @@ def build_kernels() -> None:
             usage[fn] = (regs, st, ld)
             print(f"phase build: ptxas {fn}: {regs} registers, {st} bytes "
                   f"spill stores, {ld} bytes spill loads")
-    # the main plans' instantiations: the Ozaki kernel at tm 32 with up to
-    # 8 pair groups (two CTAs per SM: <= 128 registers) and the three scan
-    # kernels must not spill
-    oz = [v for fn, v in usage.items()
-          if "ozaki_strip_kernelILi32ELi8ELb0E" in fn]
+    # the main plans' instantiations: the Ozaki kernel (one 384-thread
+    # CTA a SM: <= 168 registers at launch) at every height and group
+    # count, and the three scan kernels must not spill
+    oz = {fn: v for fn, v in usage.items() if "ozaki_wgmma_kernel" in fn}
     scan = [v for fn, v in usage.items() if "esc_scan_kernel" in fn]
-    check(len(oz) == 1 and oz[0][0] <= 128 and oz[0][1:] == (0, 0),
-          f"the tm 32, 8-group Ozaki kernel needs <= 128 registers and no "
-          f"spills: {oz}")
+    print(f"phase build: Ozaki kernel, (registers at launch, spill stores, "
+          f"spill loads) by instantiation: {oz}")
+    check(len(oz) == 5 and all(v[0] <= 168 for v in oz.values()),
+          f"an Ozaki kernel instantiation needs more than 168 registers: "
+          f"{oz}")
+    oz_log = ozaki_kernels.build_info["ptxas"]
+    print(f"phase build: Ozaki kernel, ptxas reports of serialised wgmma "
+          f"(C7511): {oz_log.count('C7511')}")
+    check(oz_log.count("C7511") == 0,
+          "ptxas serialised the Ozaki kernel's wgmma instructions")
     check(len(scan) == 3 and all(v[1:] == (0, 0) for v in scan),
           f"the scan kernels spill: {scan}")
     # the pair kernel at the main plan's tm 64 (two CTAs per SM: <= 128
@@ -354,6 +365,12 @@ def build_kernels() -> None:
           f"{pair}")
     check(len(spmm) == 4 and all(v[1:] == (0, 0) for v in spmm),
           f"a 128-column SpMM instantiation spills: {spmm}")
+    narrow = {fn: v for fn, v in usage.items() if "spmm_narrow_kernel" in fn}
+    print(f"phase build: narrow SpMM form, (registers, spill stores, spill "
+          f"loads) by instantiation: {sorted(narrow.values())}")
+    check(len(narrow) == 16 and all(v[1:] == (0, 0)
+                                    for v in narrow.values()),
+          f"a narrow SpMM instantiation spills: {narrow}")
 
 
 def compare_scan_kernels() -> None:
@@ -500,6 +517,26 @@ def bound_bytes(label: str, moved: int, ops=()) -> tuple:
           f"{chip.peak_hbm_bw:.3g} B/s) ops=[{what}] ({ops_ms!r} ms at peak) "
           f"bound_ms={ms!r} bound_by={by}")
     return ms, by
+
+
+def spmv_bound(label: str, t, ops, smap, y) -> tuple:
+    """bound() of the narrow SpMM form, which reads A by sectors: the
+    occupied 32-byte sectors (the sector map's set bits), the map, X, aptr,
+    ak and Y, and the products of the occupied values. Prints the
+    dense-tile bound (every A tile read whole) beside it."""
+    a_dense, xb, aptr, ak, _ = ops
+    width = y.shape[2]
+    sectors = int(np.unpackbits(smap.cpu().numpy().view(np.uint8)).sum())
+    dense = bound(f"{label} width={width} dense tiles", ops, (y,),
+                  _f32_mma_ops(float(t.nt) * t.tm * t.tn * width))
+    new = bound_bytes(
+        f"{label} width={width} occupied sectors ({sectors} of "
+        f"{t.nt * t.tm * -(-t.tn // 8)})",
+        sectors * 32 + _nbytes((smap, xb, aptr, ak, y)),
+        _f32_mma_ops(8.0 * sectors * width))
+    print(f"phase bound: {label} dense-tile bound_ms={dense[0]!r} "
+          f"occupied-sector bound_ms={new[0]!r}")
+    return new
 
 
 def _torch_csr(a, dtype):
@@ -848,12 +885,21 @@ def run_ozaki_path(a_int, ref_int) -> dict:
     macs = float(s.num_pairs) * kept * OZ_TM * s.tk * s.tn
     b_ms, b_by = bound(f"ozaki_strip (pairs {s.num_pairs} x {kept} kept "
                        f"slice products)", ops, got, [(2 * macs, "int8")])
+    # the K-major copy of B the call writes first: bv8 and b_occ read
+    # again and written once more
+    copy_bytes = 2 * _nbytes((ops[2], ops[3]))
+    bound_bytes("ozaki_strip with its K-major copy of B",
+                _nbytes(ops) + _nbytes(got) + copy_bytes,
+                [(2 * macs, "int8")])
     del got, exp
     a_t = _torch_csr(a, torch.float64)
     lib_ms = library_ms("torch.sparse.mm(A_csr, A_csr) f64 at the cant-like",
                         lambda: torch.sparse.mm(a_t, a_t), iters=3)
     del a_t
     ms = cuda_event_ms(lambda: oz(*ops, **kw), warmup=3, iters=30)
+    split = kernel_split(lambda: oz(*ops, **kw))
+    print(f"{CARD} | phase f64-strip-time: device ms by kernel "
+          f"(torch.profiler): {split}")
     plain_ms = cuda_event_ms(lambda: ok.ozaki_strip_numeric_plain(*ops, **kw),
                              warmup=1, iters=5)
     gflops = 2.0 * nnz_cub / ((sym_ms + ms) * 1e6)
@@ -890,6 +936,18 @@ def _close(got, exp, *, rtol=GAUSS_RTOL, atol_rel=1e-6):
     return ok, err, scale
 
 
+def _spmm_ops(t, x, width, block_rows):
+    """The strip SpMM kernel's packed operands on the card and, at a
+    narrow width, the sector map its narrow form reads A by."""
+    import torch
+
+    from spgemm_tpu_torch.ops import spmm as pspmm
+
+    packed = pspmm._pack_spmm_operands(t, x, width, torch.float32,
+                                       block_rows)
+    return packed.to_device("cuda"), packed.sector_map_to("cuda")
+
+
 def compare_spmm_plans() -> None:
     """Phase 13: the SpMM kernel against its plain version."""
     import torch
@@ -913,13 +971,11 @@ def compare_spmm_plans() -> None:
             stats = pspmm._spmm_block_stats(t, block_rows)
             kmin = torch.from_numpy(pspmm._window_kmin(t, stats)).to("cuda")
             # (k, packed width): the 128-column form and the narrow one
-            for k, width in ((200, 256), (1, 8), (20, 32)):
-                ops = pspmm._pack_spmm_operands(
-                    t, x[:, :k], width, torch.float32,
-                    block_rows).to_device("cuda")
+            for k, width in ((200, 256), (1, 1), (1, 8), (20, 32)):
+                ops, smap = _spmm_ops(t, x[:, :k], width, block_rows)
                 for form, km in (("resident", None), ("window", kmin)):
                     got = smk.spmm_strip(*ops, km, gm=t.gm,
-                                         block_rows=block_rows)
+                                         block_rows=block_rows, smap=smap)
                     exp = smk.spmm_strip_plain(*ops, km, gm=t.gm,
                                                block_rows=block_rows)
                     torch.cuda.synchronize()
@@ -1055,23 +1111,25 @@ def run_spmm_path(suite: dict) -> list:
         x = xs[label]
         x2 = x[:, None] if x.ndim == 1 else x
         k = x2.shape[1]
-        ops = pspmm._pack_spmm_operands(t, x2, smk.pack_width(k),
-                                        torch.float32,
-                                        block_rows).to_device("cuda")
+        ops, smap = _spmm_ops(t, x2, smk.pack_width(k), block_rows)
         km = (None if label != "window" else
               torch.from_numpy(pspmm._window_kmin(t, stats)).to("cuda"))
         kw = dict(gm=t.gm, block_rows=block_rows)
-        got = w(*ops, km, **kw)
+        got = w(*ops, km, **kw, smap=smap)
         exp = smk.spmm_strip_plain(*ops, km, **kw)
         torch.cuda.synchronize()
         ok, err, _ = _close(got, exp)
         check(ok, f"SpMM kernel differs from its plain version ({label}, "
                   f"{name}): {err}")
         width = got.shape[2]
-        b_ms, b_by = bound(
-            f"spmm {label} k={k} width={width}", (*ops, km), (got,),
-            _f32_mma_ops(float(t.nt) * t.tm * t.tn * width))
+        if x.ndim == 1:
+            b_ms, b_by = spmv_bound(f"spmm {label} k={k}", t, ops, smap, got)
+        else:
+            b_ms, b_by = bound(
+                f"spmm {label} k={k} width={width}", (*ops, km), (got,),
+                _f32_mma_ops(float(t.nt) * t.tm * t.tn * width))
         del got, exp
+        kw["smap"] = smap
         ms = cuda_event_ms(lambda: w(*ops, km, **kw), warmup=3, iters=20)
         plain_ms = cuda_event_ms(lambda: smk.spmm_strip_plain(*ops, km, **kw),
                                  warmup=1, iters=20)
@@ -1360,6 +1418,24 @@ def op_split(fn, *, iters: int = 3) -> dict:
                 and e.self_device_time_total > 0):
             split[e.key] = e.self_device_time_total / iters / 1e3
     return dict(sorted(split.items(), key=lambda kv: -kv[1]))
+
+
+def kernel_split(fn, *, iters: int = 10) -> dict:
+    """Device milliseconds per call of `fn` by CUDA kernel
+    (torch.profiler), for a wrapper that launches more than one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.replace("(anonymous namespace)::", "").split("(")[0]:
+            e.self_device_time_total / iters / 1e3
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
 def _time_lines(label, res, wall, numeric_ms, split, moved, bnd, lib_ms,
@@ -2580,12 +2656,10 @@ def compare_tile_shapes() -> dict:
             kmin = torch.from_numpy(pspmm._window_kmin(t, stats)).to("cuda")
             for k in (1, 128, 256):
                 width = smk.pack_width(k)
-                ops = pspmm._pack_spmm_operands(
-                    t, x[:, :k], width, torch.float32,
-                    block_rows).to_device("cuda")
+                ops, smap = _spmm_ops(t, x[:, :k], width, block_rows)
                 for form, km in (("resident", None), ("window", kmin)):
                     got = smk.spmm_strip(*ops, km, gm=t.gm,
-                                         block_rows=block_rows)
+                                         block_rows=block_rows, smap=smap)
                     exp = smk.spmm_strip_plain(*ops, km, gm=t.gm,
                                                block_rows=block_rows)
                     torch.cuda.synchronize()
@@ -2790,16 +2864,16 @@ def run_tile_shapes_phase(a, ref, ag, ref_g, banded, base_ms) -> dict:
         entry = {"launches": sw.kernel_launches}
         del y
         x2 = x[:, None] if vec else x
-        ops = pspmm._pack_spmm_operands(t, x2, smk.pack_width(k),
-                                        torch.float32,
-                                        block_rows).to_device("cuda")
+        ops, smap = _spmm_ops(t, x2, smk.pack_width(k), block_rows)
         km = (None if label != "window" else
               torch.from_numpy(pspmm._window_kmin(t, stats)).to("cuda"))
-        kw = dict(gm=t.gm, block_rows=block_rows)
+        kw = dict(gm=t.gm, block_rows=block_rows, smap=smap)
         got = sw(*ops, km, **kw)
         width = got.shape[2]
-        bnd = bound(f"spmm {shape} {label} width={width}", (*ops, km), (got,),
-                    _f32_mma_ops(float(t.nt) * t.tm * t.tn * width))
+        bnd = (spmv_bound(f"spmm {shape} {label}", t, ops, smap, got) if vec
+               else bound(f"spmm {shape} {label} width={width}", (*ops, km),
+                          (got,),
+                          _f32_mma_ops(float(t.nt) * t.tm * t.tn * width)))
         del got
         _chunk_time(f"spmm {shape} {label}", entry,
                     cuda_event_ms(lambda: sw(*ops, km, **kw), warmup=3,

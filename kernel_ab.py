@@ -13,12 +13,18 @@ rmat65536 A^2 (premul and mul), random65536 with standard-normal values
 (double-double), the cant-like A^2 at 64x128 with integer values (the
 strip kernel, and the pair kernel on the pair schedule with the bfloat16
 occupancy the pair backend uploads; both also with standard-normal
-values; the strip kernel also at 32x128, 16x128 and 8x128), and the suite's banded65536 at 16x128 tiles with standard-normal
-X, then with integer A and X, at k = 128 (resident form) and k = 256
-(window form; the SpMM kernel's 128-column form). The port's wrapper
-drives either side's library (both share a C interface; the pair
-kernel's is the one since its tensor-core redesign, which exports
-`pair_accumulate_abi`). For the strip, pair and 128-column SpMM kernels
+values; the strip kernel also at 32x128, 16x128 and 8x128), and the
+suite's banded65536 at 16x128 tiles with standard-normal X, then with
+integer A and X, at k = 128 (resident form) and k = 256 (window form; the
+SpMM kernel's 128-column form), and at k = 1 packed at width 8 (SpMV, the
+narrow form; device time by torch.profiler, as the call is shorter than a
+launch), then the new side alone at width 1, SpMV's width since the
+redesign. The port's wrapper drives the new side's library and every
+library whose C interface both sides share; the Ozaki and SpMM sources
+took new interfaces with their redesign for Hopper (the Ozaki kernel's
+K-major scratch for B, the narrow form's sector map), so a base side
+built from a source of before it is driven through its own interface
+(`_ozaki_old`, `_spmm_old`), on the same device tensors. For the strip, pair and 128-column SpMM kernels
 it also prints each side's worst error on long sums of positive products
 against the f64 product. Each kernel is first checked against its plain
 version (bit-equal with torch.equal, or with standard-normal values
@@ -68,9 +74,19 @@ def _build_all(jobs):
     return {k: lib for k, (lib, _) in built.items()}
 
 
-def _bind_ozaki(lib):
-    lib.ozaki_strip_f32.argtypes = ([ctypes.c_void_p] * 11
-                                    + [ctypes.c_int64] * 12
+# a word only the current C interfaces of the Ozaki and SpMM sources
+# name; a source without it is on the interface before their redesign
+NEW_ABI_MARK = {"ozaki_strip": "bt_occ", "spmm_strip": "smap"}
+
+
+def _old_abi(name, src):
+    return name in NEW_ABI_MARK and NEW_ABI_MARK[name] not in open(src).read()
+
+
+def _bind_ozaki(lib, old=False):
+    n_ptr, n_int = (11, 12) if old else (13, 14)
+    lib.ozaki_strip_f32.argtypes = ([ctypes.c_void_p] * n_ptr
+                                    + [ctypes.c_int64] * n_int
                                     + [ctypes.c_void_p])
     lib.ozaki_strip_f32.restype = ctypes.c_int
 
@@ -91,10 +107,57 @@ def _bind_strip(lib):
     lib.strip_numeric_f32.restype = ctypes.c_int
 
 
-def _bind_spmm(lib):
-    lib.spmm_strip_f32.argtypes = ([ctypes.c_void_p] * 6
+def _bind_spmm(lib, old=False):
+    lib.spmm_strip_f32.argtypes = ([ctypes.c_void_p] * (6 if old else 7)
                                    + [ctypes.c_int64] * 6 + [ctypes.c_void_p])
     lib.spmm_strip_f32.restype = ctypes.c_int
+
+
+def _stream():
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _ozaki_old(lib, ops, kw):
+    """A launch through the Ozaki kernel's interface before its redesign:
+    no K-major scratch. Returns the four planes."""
+    import torch
+
+    from spgemm_tpu_torch.ops import ozaki_kernels as ok
+
+    ntp, stack_rows, tm, tk, tn, n_blocks, pmax, _ = ok._geometry(
+        ops[0], ops[1], ops[3], gm=kw["gm"], max_b=kw["max_b"],
+        block_rows=kw["block_rows"], sa=kw["sa"], sb=kw["sb"],
+        pmax=kw["pmax"])
+    planes = [torch.empty(n_blocks * kw["max_cblock"], tm, tn,
+                          device=ops[0].device) for _ in range(4)]
+    err = lib.ozaki_strip_f32(
+        *[t.data_ptr() for t in ops], *[p.data_ptr() for p in planes],
+        kw["gm"], kw["block_rows"], kw["max_b"], kw["max_cblock"], n_blocks,
+        tm, tk, tn, stack_rows, kw["sa"], kw["sb"], pmax, _stream())
+    if err:
+        raise RuntimeError(f"Ozaki kernel (old interface): CUDA error {err}")
+    return tuple(planes)
+
+
+def _spmm_old(lib, ops, kmin, *, gm, block_rows):
+    """A launch through the SpMM kernel's interface before the narrow
+    form's sector map: (a, xb, aptr, ak, kmin, y, ...)."""
+    import torch
+
+    a_dense, xb = ops[0], ops[1]
+    n_rows = max(1, -(-gm // block_rows)) * block_rows
+    y = torch.empty(n_rows, a_dense.shape[1], xb.shape[2],
+                    device=a_dense.device)
+    err = lib.spmm_strip_f32(
+        a_dense.data_ptr(), xb.data_ptr(), ops[2].data_ptr(),
+        ops[3].data_ptr(), None if kmin is None else kmin.data_ptr(),
+        y.data_ptr(), gm, block_rows, n_rows, a_dense.shape[1],
+        a_dense.shape[2], xb.shape[2], _stream())
+    if err:
+        raise RuntimeError(f"SpMM kernel (old interface): CUDA error {err}")
+    return y
 
 
 def _bind_pair(lib):
@@ -154,7 +217,7 @@ def _ab(label, calls, plain, close=False):
     return times
 
 
-def _long_sums(libs) -> None:
+def _long_sums(libs, old_spmm: bool) -> None:
     """Prints each side's worst error on long sums of positive products,
     max |C - C64| / (1e-5 |C64| + 1e-6 max|C64|) against the f64 product
     of the f32-rounded operands (above 1 misses rtol 1e-5), for the strip
@@ -162,7 +225,8 @@ def _long_sums(libs) -> None:
     density with uniform values (about 370 products over 512 mma steps per
     entry), and for SpMM's 128-column form on Y = A X with a uniform X at
     k = 128, resident, and 256, windowed (about 1,230 products per
-    entry). `libs` maps (kernel, side) to a library."""
+    entry). `libs` maps (kernel, side) to a library; `old_spmm`: the base
+    SpMM library is on the interface before the sector map."""
     import torch
 
     import spgemm_tpu_torch as pt
@@ -198,7 +262,9 @@ def _long_sums(libs) -> None:
         ref = f32(a) @ f32(x)
         for side in ("base", "new"):
             smk._lib = libs["spmm_strip", side]
-            y = smk.spmm_strip(*ops, form, gm=t.gm, block_rows=8)
+            y = (_spmm_old(smk._lib, ops, form, gm=t.gm, block_rows=8)
+                 if side == "base" and old_spmm else
+                 smk.spmm_strip(*ops, form, gm=t.gm, block_rows=8))
             got = y.reshape(-1, k)[:256].double().cpu().numpy()
             print(f"spmm_strip k {k} long positive sums: {side} worst error"
                   f" / (1e-5|Y| + 1e-6 max|Y|) = {worst(got, ref)!r}")
@@ -224,21 +290,29 @@ def main(base_dir: str) -> int:
     from spgemm_tpu_torch.ops.ozaki import build_ozaki_strip
     from spgemm_tpu_torch.ops.symbolic import build_pair_schedule
     from spgemm_tpu_torch.utils.generators import cantlike, suite
+    from spgemm_tpu_torch.utils.timing import profiler_device_ms
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())
     jobs = {}
+    old = {}
     for name, mod, bind in (
             ("ozaki_strip", ok, _bind_ozaki),
             ("esc_scan", sk, _bind_scan),
             ("strip_numeric", kernels, _bind_strip),
             ("pair_accumulate", pk, _bind_pair),
             ("spmm_strip", smk, _bind_spmm)):
-        jobs[name, "base"] = (os.path.join(base_dir, name + ".cu"),
-                              f"lib{name}_base", mod.NVCC_FLAGS, bind)
+        base_src = os.path.join(base_dir, name + ".cu")
+        old[name] = _old_abi(name, base_src)
+        base_bind = (lambda lib, b=bind: b(lib, old=True)) if old[name] \
+            else bind
+        jobs[name, "base"] = (base_src, f"lib{name}_base", mod.NVCC_FLAGS,
+                              base_bind)
         jobs[name, "new"] = (mod.KERNEL_SRC, f"lib{name}_new",
                              mod.NVCC_FLAGS, bind)
+    print(f"base sides on the interface before the Hopper redesign: "
+          f"{[n for n, o in old.items() if o]}")
     libs = _build_all(jobs)
     sides = lambda name: {side: libs[name, side] for side in ("base", "new")}
     out = {}
@@ -254,9 +328,13 @@ def main(base_dir: str) -> int:
     ops = plan.to_device("cuda")
     kw = plan.kernel_kwargs()
     run = lambda: ok.ozaki_strip_numeric(*ops, **kw)
+    calls = {side: _swap(ok, lib, run)
+             for side, lib in sides("ozaki_strip").items()}
+    if old["ozaki_strip"]:
+        calls["base"] = lambda: _ozaki_old(libs["ozaki_strip", "base"], ops,
+                                           kw)
     out["ozaki_strip"] = _ab(
-        "ozaki_strip cant-like tm 32",
-        {side: _swap(ok, lib, run) for side, lib in sides("ozaki_strip").items()},
+        "ozaki_strip cant-like tm 32", calls,
         lambda: ok.ozaki_strip_numeric_plain(*ops, **kw))
     del ops, plan, run
     torch.cuda.empty_cache()
@@ -361,7 +439,7 @@ def main(base_dir: str) -> int:
         close=True)
     del f32_ops, bf16_ops, g_ops, grun, ag
     torch.cuda.empty_cache()
-    _long_sums(libs)
+    _long_sums(libs, old["spmm_strip"])
     torch.cuda.empty_cache()
 
     # banded65536 at 16x128: k 128 (resident) and 256 (window), with the
@@ -384,14 +462,50 @@ def main(base_dir: str) -> int:
                   if form == "window" else None)
             kw = dict(gm=t.gm, block_rows=block_rows)
             run = lambda: smk.spmm_strip(*ops, km, **kw)
+            calls = {side: _swap(smk, lib, run)
+                     for side, lib in sides("spmm_strip").items()}
+            if old["spmm_strip"]:
+                calls["base"] = lambda: _spmm_old(libs["spmm_strip", "base"],
+                                                  ops, km, **kw)
             out[f"spmm_strip_k{k}{values.replace(' ', '_')}"] = _ab(
-                f"spmm_strip banded65536 16x128 k {k} {form}{values}",
-                {side: _swap(smk, lib, run)
-                 for side, lib in sides("spmm_strip").items()},
+                f"spmm_strip banded65536 16x128 k {k} {form}{values}", calls,
                 lambda: smk.spmm_strip_plain(*ops, km, **kw),
                 close=not values)
-            del ops, run
+            del ops, run, calls
             torch.cuda.empty_cache()
+    # SpMV: k = 1 packed at width 8 on both sides (the narrow form; the new
+    # side reads A by its sector map), then the new side at width 1, the
+    # width spmv packs X at since the redesign
+    x = rng.standard_normal((band.n, 1)).astype(np.float32)
+    for width in (8, 1):
+        packed = pspmm._pack_spmm_operands(t, x, width, torch.float32,
+                                           block_rows)
+        ops, smap = packed.to_device("cuda"), packed.sector_map_to("cuda")
+        kw = dict(gm=t.gm, block_rows=block_rows)
+        run = lambda: smk.spmm_strip(*ops, **kw, smap=smap)
+        calls = {side: _swap(smk, lib, run)
+                 for side, lib in sides("spmm_strip").items()}
+        if old["spmm_strip"]:
+            calls["base"] = lambda: _spmm_old(libs["spmm_strip", "base"],
+                                              ops, None, **kw)
+        if width == 1:
+            calls = {"new": calls["new"]}
+        exp = smk.spmm_strip_plain(*ops, **kw)
+        for side, call in calls.items():
+            ok_ = _agree(_tuple(call()), (exp,), True)
+            print(f"spmm_strip spmv width {width}: {side} close={ok_}")
+            if not ok_:
+                raise SystemExit(f"spmv width {width}: the {side} kernel "
+                                 f"differs from its plain version")
+        times = {}
+        for side in ORDER:
+            if side in calls:
+                times.setdefault(side, []).append(
+                    profiler_device_ms(calls[side]))
+        print(f"spmm_strip spmv banded65536 16x128 width {width} device ms "
+              f"(torch.profiler): {times}")
+        out[f"spmm_strip_spmv_w{width}_device"] = times
+        del ops, smap, packed, exp
     print(json.dumps(out))
     return 0
 

@@ -19,60 +19,57 @@
 // layout (n_blocks*max_cblock, tm, tn); every slot no pair reaches is zero.
 // Padded pairs point at slot max_cblock, which no CTA owns.
 //
-// What differs from the TPU kernel, and why. The TPU kernel keeps a whole
-// block's group accumulators in VMEM ((max_cblock+1) x n_groups*tm x tn
-// int32, megabytes) over an in-order grid. One C slot's accumulators alone
-// are n_groups*tm*tn int32: 128 KB at the cant-like plan (8 groups, tm 32),
-// 240 KB with all 15 groups. So here a CTA owns h rows and 64 columns of
-// one C slot (grid.y = tn/64 column chunks, grid.z the row chunks), its
-// group sums in registers as int8 tensor-core accumulators: 8 groups
-// (the instantiation for n_groups <= 8, two CTAs per SM at h 32) or 15
-// (all groups, one CTA per SM).
+// What bounds it on the card. At the cant-like plan (tm 32, S = 8x8,
+// pmax 7, 11,688 pairs over 7,808 slots) the plan's inputs and outputs
+// are 914 MB (0.273 ms at 3.35 TB/s; the four f32 output planes alone
+// are 512 MB) and its kept slice products 2.2e11 int8 MACs (0.223 ms at
+// 1,979 TOP/s). Beside those: the operands a pair stages from L2 (its A
+// stack, 32 KB, the B slices, 128 KB, and both occupancy planes: about
+// 200 KB a pair, 2.3 GB in all), the shared-memory reads of the tensor-
+// core products (each int8 wgmma here reads a 2 KB B slice and a 1 KB A
+// slice for 64 x 32 x 32 products), and the TwoSum reduce (about 15 f32
+// operations per group and element). The mma.sync kernel this one
+// replaced ran its copies, products and reduce one after another
+// in the same warps, 16 warps a SM at 64 accumulator registers each.
 //
-// Tile shapes. Any tm % 8 == 0 and tn % 128 == 0 (every tn % 64 would
-// do). A tile of 16 or 32 rows and 128 columns runs as it always has (the
-// CHUNKED = false instantiations, tm and tn compile-time). Any other is
-// cut into row chunks of h = 32, 16 or 8 rows: as many 32-row chunks as
-// fit, then at most one of 16 and 8 rows (sm90_common.cuh:
-// for_each_row_part; 64 -> 32 + 32, 24 -> 16 + 8; one 64-row CTA would
-// need 512 threads at 128 registers), one launch per height. At h 8 the CTA keeps the 16-row
-// layout of h 16 (128 threads, every A slice padded to an m16 fragment in
-// shared memory, rows 8..15 zero and never written) and drops rows 8..15
-// at the store. A chunk of rows r .. r+h (r = row_base + blockIdx.z*h)
-// reads those rows of each A slice in the stacked av8 (slice s at rows
-// s*tm + r) and of a_occ, and writes them in the slot's tile. Each chunk
-// CTA gathers the slot's pairs itself, so a tile of q row chunks and n/64
-// column chunks scans the slot words q*n/64 times, stages each A chunk
-// n/64 times and each B chunk q times.
-//
-// Design.
-//   Pairs: all threads scan the block's slot words, one word each per
-//   pass, and compact the slot's (g, y) entries in order (ballot, popc,
-//   a prefix over the warps); up to 256 a gather, in as many gathers as
-//   the block needs.
-//   Staging: each pair's k range is cut into 32-deep chunks, and the
-//   chunks of all gathered pairs form one stream of steps through a ring of
-//   three stages in dynamic shared memory, filled by cp.async 16-byte
-//   copies with one barrier per step, so the next step's copies run under
-//   this step's products. A stage holds the pair's A slice stack once for
-//   the whole 64-column half (not once per 32 columns), its B slices as
-//   they lie in memory (k rows, n contiguous), and both bf16 occupancy
-//   planes.
-//   B without a transpose: int8 mma wants B k-contiguous per column, and
-//   bv8 is n-contiguous. ldmatrix.trans on the bytes taken as b16 pairs,
-//   fed k rows {0,1,4,5,8,9,12,13} (+2, +16, +18), hands each thread
-//   B[4i..4i+3] for columns 2j and 2j+1; two byte permutes per register
-//   pair then give the m16n8k32 B fragments of an even-column and an
-//   odd-column n8 tile. Each warp's 16 columns are those two tiles, so a
-//   thread ends up holding four adjacent columns of C (one 16-byte store
-//   per row and plane). The B slices' fragments are taken two at a time,
-//   so only 8 of their registers live beside the accumulators (two CTAs
-//   per SM need <= 128 a thread). The B rows are stored with their
-//   16-byte chunks XOR-swizzled by (k >> 2) & 3, and the A rows padded to
-//   48 bytes, so every ldmatrix is free of bank conflicts.
-//   Counts: bf16 mma.m16n8k16 straight on the 0/1 bf16 planes, A through
-//   ldmatrix and B through ldmatrix.trans (as csrc/strip_numeric.cu): no
-//   conversion pass, exact in f32 accumulators.
+// Design: warp-specialised, TMA-fed int8 wgmma on the transposed product.
+//   Transposed product. The kernel computes C^T = B^T . A^T: 64 of a C
+//   slot's columns are wgmma's M and the slot's h rows its N, so a row
+//   chunk of 8, 16 or 32 rows needs no padding to a 16-row fragment, and
+//   a consumer warpgroup holds every group p of its 64 x h block as an
+//   int32 accumulator of h/2 registers a thread (up to 128 at h 32, 8
+//   groups). The A stack lies in shared memory as sa*h rows (slice s at
+//   rows s*h): B slice t times rows s*h .. of the stack is one
+//   m64nhk32 wgmma into group t + s, four k steps a 128-deep chunk.
+//   K-major operands. int8 wgmma reads both operands K-major from shared
+//   memory. av8 and a_occ are k-contiguous already; bv8 and b_occ are
+//   n-contiguous, so each call first writes a K-major copy of both
+//   (transpose_kernel below: 480 MB moved at the cant-like plan; its time
+//   is part of the call's). Every operand then arrives by TMA in the
+//   128-byte-swizzled K-major layout wgmma reads without bank conflicts:
+//   rows of 128 k bytes (or 64 bf16), 8-row atoms of 1 KB.
+//   Producer and consumers. A persistent grid of one 384-thread CTA per
+//   SM walks the (slot, 128-column chunk, row chunk) items. Its producer
+//   warpgroup hands its registers to the two consumer warpgroups
+//   (setmaxnreg: 40 and 232); one of its warps counts an item's pairs (a
+//   ballot scan over the block's slot words), passes the count to the
+//   consumers through an mbarrier-guarded header, and keeps TMA loads in
+//   flight: per pair and 128-deep k chunk the A stack with its occupancy
+//   rows into a ring of two A entries (read by both consumers: a pair's A
+//   stack is staged once), then the two occupancy halves of B and its sb
+//   slices, 128 columns each, into a ring of eight 16 KB slots. Each
+//   consumer takes the 64 columns of its half of every slot, issues a
+//   slot's wgmmas as one asynchronous group, and frees the slot once the
+//   next slot's group is issued and its own is done, so the tensor cores
+//   do not drain between slots; the producer keeps loading the next item
+//   while the consumers run the TwoSum epilogue.
+//   Counts. bf16 wgmma (m64nhk16) on the 0/1 occupancy planes, the same
+//   K-major layout, exact in f32 accumulators.
+//   Epilogue. Where every group sum of a warp lies in [-2^22, 2^22), the
+//   common case, f32(M_p) is exact: its rest ml is +0 and is left out
+//   (adding +0 by TwoSum changes no bit, since no sum here is ever -0),
+//   and M_p * 2^(-7p) comes from integer and f32 adds instead of a
+//   conversion. Otherwise the warp runs the reference's full sequence.
 //
 // Exactness. Every int8 product and int32 group sum is exact; the host
 // plan guarantees |M_p| < 2^30 (ops/ozaki.py:_check_int32_bound), so the
@@ -81,112 +78,312 @@
 // --fmad=false and without --use_fast_math or flush-to-zero, so h, m and l
 // are bit-equal to the plain PyTorch version on any values.
 //
-// What bounds it on the card. At the cant-like plan (tm 32, S = 8x8,
-// pmax 7, 11,688 pairs) the plan's own inputs and outputs are 914 MB
-// (0.273 ms at 3.35 TB/s) and its kept slice products 2.2e11 int8 MACs
-// (0.223 ms at 1,979 TOP/s). Per pair the two column CTAs stage about
-// 240 KB from L2 (the A stack twice, B, the occupancy planes). Measured on
-// an H100 (PERF.md section 6), neither side bounds it alone: the copies, the
-// mma.sync products with their fragment loads, and the TwoSum reduce add
-// up more than they overlap, since the accumulators (64 registers a
-// thread) leave room for only 16 warps per SM, each step ends in a block
-// barrier, and a C slot has only ~1.5 pairs (6 steps) between gathers and
-// epilogues. Dead ends (same card): holding four B slices' fragments
-// (fewer A reloads, a few spills), two stages instead of three, skipping
-// zero TwoSum terms, a persistent grid that gathers the next slot during
-// this one's products, and int8 wgmma with the B fragments in registers
-// (A from shared memory) each ran as fast or slower. What is left is a
-// producer/consumer design with the B operand K-major in shared memory
-// (a transpose of bv8), asynchronous wgmma and TMA.
+// Tile shapes. Any tm % 8 == 0 and tn % 128 == 0: rows in chunks of h =
+// 32, 16 or 8 (as many 32-row chunks as fit, then at most one of 16 and
+// 8; sm90_common.cuh:for_each_row_part), one launch per height. Up to 8
+// groups (the plans' usual pmax 7) at every height; all 15 groups at h 16
+// and 8 (15 x 16 accumulator registers at h 32 would not fit beside the
+// rest), so a 32-row chunk then runs as two of 16. Any tk % 16 == 0 in
+// 128-deep k chunks: the TMA zero-fills k >= tk.
+//
+// Dead ends, on the same card. The mma.sync kernel before: four B
+// slices' fragments held at once, two cp.async stages instead of three,
+// skipping zero TwoSum terms, a persistent grid whose gather ran in the
+// same warps as the products, and int8 wgmma with the B fragments in
+// registers (A from shared memory) each ran as fast or slower. This
+// design: two CTAs a SM of one consumer warpgroup and a producer
+// warp (160 threads) were held to 168 registers and spilled the
+// accumulators; wgmmas spanning two or four slices (N 64, to read B_t
+// fewer times) made ptxas serialise every wgmma (C7511: windows of
+// accumulator registers that overlap from one t to the next, aligned or
+// not), so each wgmma takes one slice; a per-lane branch around each
+// group's rest, instead of one per warp, ran slower than always adding
+// the rests; waiting for all of a slot's wgmmas before freeing it
+// drained the tensor cores at every slot; and two independent pipelines
+// in the CTA (each consumer warpgroup on its own 64-column items, so one's
+// epilogue overlaps the other's products) ran slower than the shared one:
+// each stages its own A stacks, and the B ring halves.
 //
 // Limits (checked by the caller, spgemm_tpu_torch/ops/ozaki_kernels.py):
-//   tm % 8 == 0, tn % 128 == 0, tm/32 and tn/64 <= 65,535 (grid z and y);
-//   tk % 16 == 0; 1 <= sa, sb <= 8; stack_rows >= sa*tm;
-//   n_blocks*max_cblock < 2^31 (grid x).
+//   tm % 8 == 0, tn % 128 == 0, tk % 16 == 0; 1 <= sa, sb <= 8;
+//   stack_rows >= sa*tm; n_blocks*max_cblock*(tn/128)*(tm/8) < 2^31
+//   items; ntA_pad*tm, gk_pad*sb*max_b*tn < 2^31 (TMA row coordinates).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        --fmad=false -shared -Xcompiler -fPIC ozaki_strip.cu -o libozaki_strip.so
 
 #include <cstdint>
+#include <type_traits>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "sm90_common.cuh"
 
 namespace {
 
-constexpr int kTN = 128;            // tn is a multiple of this
-constexpr int kCN = 64;             // C columns per CTA (grid.y = tn/64)
-constexpr int kMaxChunks = 65535;   // grid.y and grid.z limit
-constexpr int kKC = 32;             // k depth of one pipeline step
-constexpr int kStages = 3;
 constexpr int kMaxSlices = 8;
-constexpr int kPart = 2;            // B slices whose fragments live at once
-constexpr int kMatchCap = 256;      // (g, y) entries gathered at once
-constexpr int kMaxDevices = 64;
-// shared-memory row strides in bytes (16-byte multiples for cp.async)
-constexpr int kAStride = kKC + 16;       // int8 A rows: 48, conflict-free
-constexpr int kBStride = kCN;            // int8 B rows: 64, chunks swizzled
-constexpr int kAoStride = 2 * kKC + 16;  // bf16 A occupancy rows: 80
-constexpr int kBoStride = 2 * kCN + 16;  // bf16 B occupancy rows: 144
+constexpr int kKC = 128;             // k bytes of one unit: one swizzled row
+constexpr int kCN = 128;             // C columns per item
+constexpr int kWM = 64;              // of them each consumer's: wgmma's M
+constexpr int kConsumers = 2;        // consumer warpgroups (warps 0-7)
+constexpr int kNA = 2;               // A ring entries
+constexpr int kNH = 2;               // item headers in flight
+constexpr int kBSlot = kCN * kKC;    // one B ring slot: 128 rows x 128 bytes
+constexpr int kThreads = 384;        // two consumer warpgroups, a producer one
+constexpr int kProducerWarp = 8;     // the producer warpgroup's one busy warp
+// registers a thread after the producer warpgroup hands its surplus to the
+// consumers (setmaxnreg): 168 at launch for one CTA of 384 threads a SM
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kSmemPerCta = 232448;  // an H100 CTA's shared memory at most
 
-// bytes of one ring stage for sa A slices and sb B slices of mr rows
-__host__ __device__ constexpr int stage_bytes(int mr, int sa, int sb) {
-  return sa * mr * kAStride + sb * kKC * kBStride + mr * kAoStride +
-         kKC * kBoStride;
+// one A ring entry: the A stack (up to 8 slices of h rows) and the two
+// 64-deep halves of the A occupancy rows, each row 128 bytes
+__host__ __device__ constexpr int a_entry_bytes(int h) {
+  return (kMaxSlices + 2) * h * kKC;
 }
 
-// the physical 16-byte chunk of logical chunk c in B row k
-__device__ __forceinline__ int b_chunk(int k, int c) {
-  return c ^ ((k >> 2) & 3);
+// B ring slots: what the CTA has beside the A ring, 1 KB of alignment
+// slack and 512 bytes of mbarriers (at most 8)
+__host__ __device__ constexpr int b_slots(int h) {
+  constexpr int kLeft = kSmemPerCta - 1024 - 512;
+  return (kLeft - kNA * a_entry_bytes(h)) / kBSlot < 8
+             ? (kLeft - kNA * a_entry_bytes(h)) / kBSlot
+             : 8;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n));
+// dynamic shared memory: 1 KB of alignment slack, the rings, mbarriers
+// and item headers
+__host__ __device__ constexpr int smem_bytes(int h) {
+  return 1024 + kNA * a_entry_bytes(h) + b_slots(h) * kBSlot +
+         (2 * kNA + 2 * b_slots(h) + 2 * kNH) * 8 + kNH * 4;
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+struct Params {
+  int64_t gm, block_rows, max_b, max_cblock, tm, tn, n_slots;
+  int64_t row_base, n_rc, n_cc, n_items;  // this launch's row chunks
+  int sa, sb, n_groups, nkc;
+};
+
+// ---- shared memory, mbarriers, TMA ---------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// waits for the phase of `parity` to complete; a wait that outlasts any
+// real one (2^26 tries, each up to the hardware's suspend time) traps, so
+// a broken protocol ends the launch with an error instead of hanging it
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    if (tries == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
+                                       uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
+                                       uint64_t* bar, int c0, int c1,
+                                       int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map,
+                                       uint64_t* bar, int c0, int c1, int c2,
+                                       int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---- wgmma ---------------------------------------------------------------
+
+// shared-memory matrix descriptor of a K-major operand in the 128-byte
+// swizzled layout: 128-byte rows, 8-row atoms 1 KB apart (the stride
+// byte offset); the leading byte offset is unused there. Adding 2 to it
+// moves the start 32 bytes along k, one k step of int8 (k32) or bf16 (k16)
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+__device__ __forceinline__ void wg_wait_all() { wg_wait<0>(); }
+
+// keeps the compiler from moving accesses of wgmma's accumulator
+// registers across the asynchronous products
+template <typename T, int R>
+__device__ __forceinline__ void fence_regs(T (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if constexpr (std::is_same_v<T, float>) {
+      asm volatile("" : "+f"(d[i])::"memory");
+    } else {
+      asm volatile("" : "+r"(d[i])::"memory");
+    }
+  }
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+// D (64 x N, s32) += A (64 x 32, s8) . B (32 x N, s8), both from shared
+// memory, K-major
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int32_t* d, uint64_t da,
+                                         uint64_t db) {
+  if constexpr (N == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+        "{%0, %1, %2, %3}, %4, %5, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "l"(da), "l"(db), "r"(1));
+  } else if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "l"(da), "l"(db), "r"(1));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15}, %16, %17, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15])
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    static_assert(N == 8, "no wgmma s8 shape instantiated for this N");
+  }
 }
 
-__device__ __forceinline__ void mma_s8(int32_t (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// D (64 x N, f32) += A (64 x 16, bf16) . B (16 x N, bf16), K-major
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da,
+                                           uint64_t db) {
+  if constexpr (N == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(1));
+  } else if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(1));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+        "%13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(da), "l"(db), "r"(1));
+  } else {
+    static_assert(N == 8, "no wgmma bf16 shape instantiated for this N");
+  }
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+template <int I, int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (I < N) {
+    f(std::integral_constant<int, I>{});
+    static_for<I + 1, N>(f);
+  }
+}
+
+// every product of B slice T (rows of `bslot`) with the ns first slices
+// of the A stack, four k steps of 32: one wgmma (N = H) a slice, into
+// group T + s. (Wider wgmmas over two or four slices, whose accumulator
+// windows overlap from one T to the next, made the compiler copy
+// accumulators between the asynchronous products and serialise them.)
+template <int H, int NG, int T>
+__device__ __forceinline__ void slice_products(int32_t (&acc)[NG * H / 2],
+                                               const unsigned char* bslot,
+                                               const unsigned char* stack,
+                                               int ns) {
+  const uint64_t da0 = sw128_desc(bslot);
+  const uint64_t db0 = sw128_desc(stack);
+#pragma unroll
+  for (int kk = 0; kk < kKC / 32; ++kk) {
+#pragma unroll
+    for (int s = 0; s < kMaxSlices && T + s < NG; ++s) {
+      if (s < ns) {
+        wgmma_s8<H>(&acc[(T + s) * H / 2], da0 + 2 * kk,
+                    db0 + s * H * kKC / 16 + 2 * kk);
+      }
+    }
+  }
 }
 
 __device__ __forceinline__ void two_sum(float a, float b, float& s,
@@ -196,343 +393,488 @@ __device__ __forceinline__ void two_sum(float a, float b, float& s,
   e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
 }
 
-// One CTA per (padded C slot, 64-column chunk, row chunk of TM rows);
-// CHUNKED false: tm = TM and tn = 128 (the arguments are not read).
-// Warp w owns rows (w/4)*16 .. +16 and columns (w%4)*16 .. +16 of the
-// chunk, for every group: an even-column and an odd-column n8 tile of the
-// int8 products (acc_e, acc_o: thread (gid, tig) holds columns
-// 4*tig .. 4*tig+3 of rows gid and gid+8), and two plain n8 tiles of
-// counts. At TM 8 the CTA is laid out for 16 rows (MR) and rows 8..15
-// stay zero.
-template <int TM, int NG, bool CHUNKED>
-__global__ void __launch_bounds__((TM < 16 ? 16 : TM) * 8, NG <= 8 ? 2 : 1)
-ozaki_strip_kernel(const int8_t* __restrict__ av8,
-                   const uint16_t* __restrict__ a_occ,
-                   const int8_t* __restrict__ bv8,
-                   const uint16_t* __restrict__ b_occ,
+// One CTA a SM: warps 0-3 and 4-7 the consumer warpgroups (consumer c
+// owns columns c*64 .. c*64+63 of the item), warps 8-11 the producer
+// warpgroup, of which warp 8 works and the others leave. Items (slot,
+// 128-column chunk cc, row chunk rc) in the order item = (slot * n_cc +
+// cc) * n_rc + rc, strided over the grid.
+template <int H, int NG>
+__global__ void __launch_bounds__(kThreads, 1)
+ozaki_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_ao,
+                   const __grid_constant__ CUtensorMap map_b,
+                   const __grid_constant__ CUtensorMap map_bo,
                    const int32_t* __restrict__ aptr,
                    const int32_t* __restrict__ ak,
                    const int32_t* __restrict__ slots,
                    float* __restrict__ c_h, float* __restrict__ c_m,
                    float* __restrict__ c_l, float* __restrict__ c_cnt,
-                   int64_t gm, int64_t block_rows, int64_t max_b,
-                   int64_t max_cblock, int64_t stack_rows, int64_t row_base,
-                   int64_t tm_arg, int64_t tk, int64_t tn_arg, int sa, int sb,
-                   int pmax, int n_groups) {
-  constexpr int MR = TM < 16 ? 16 : TM;  // rows of the m16 fragments
-  const int64_t tm = CHUNKED ? tm_arg : TM;
-  const int64_t tn = CHUNKED ? tn_arg : kTN;
-  constexpr int kThreads = MR * 8;
-  constexpr int kWarps = kThreads / 32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int32_t match_g[kMatchCap];  // A tile of each gathered entry
-  __shared__ int32_t match_y[kMatchCap];  // its B column block
-  __shared__ int32_t match_k[kMatchCap];  // and its k slab, ak[g]
-  __shared__ int32_t warp_hits[kWarps];
+                   const Params q) {
+  constexpr int NB = b_slots(H);
+  constexpr int AE = a_entry_bytes(H);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  unsigned char* a_ring = smem;
+  unsigned char* b_ring = smem + kNA * AE;
+  uint64_t* full_a = reinterpret_cast<uint64_t*>(b_ring + NB * kBSlot);
+  uint64_t* empty_a = full_a + kNA;
+  uint64_t* full_b = empty_a + kNA;
+  uint64_t* empty_b = full_b + NB;
+  uint64_t* full_h = empty_b + NB;
+  uint64_t* empty_h = full_h + kNH;
+  int32_t* hdr = reinterpret_cast<int32_t*>(empty_h + kNH);
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int rb = warp >> 2;  // 16-row block
-  const int cb = warp & 3;   // 16-column block of the half
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const int64_t slot_id = blockIdx.x;
-  const int c0 = blockIdx.y * kCN;
-  const int64_t row_off =
-      CHUNKED ? row_base + static_cast<int64_t>(blockIdx.z) * TM : 0;
-  const int64_t blk = slot_id / max_cblock;
-  const int32_t s_c = static_cast<int32_t>(slot_id - blk * max_cblock);
-  const int64_t r0 = blk * block_rows;
-  const int64_t r1 = r0 + block_rows < gm ? r0 + block_rows : gm;
-  const int64_t e_begin = static_cast<int64_t>(aptr[r0]) * max_b;
-  const int64_t e_end = static_cast<int64_t>(aptr[r1]) * max_b;
-  const int64_t ldb = static_cast<int64_t>(sb) * max_b * tn;
-  const int64_t ldbo = max_b * tn;
-  const int nch = static_cast<int>((tk + kKC - 1) / kKC);
-  const int a_bytes = sa * MR * kAStride;
-  const int b_bytes = sb * kKC * kBStride;
-  const int stage = stage_bytes(MR, sa, sb);
-
-  if (TM < 16) {
-    // rows TM..15 of every A slice and of the A occupancy are never
-    // copied: keep them zero (the gather's barriers land this first)
-    uint4* z = reinterpret_cast<uint4*>(smem);
-    for (int i = tid; i < kStages * stage / 16; i += kThreads) {
-      z[i] = make_uint4(0u, 0u, 0u, 0u);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    // full: the producer's expect_tx arrival; empty: lane 0 of each
+    // consumer warp once its products are done
+    constexpr int kWarps = 4 * kConsumers;
+    for (int i = 0; i < kNA; ++i) {
+      mbar_init(&full_a[i], 1);
+      mbar_init(&empty_a[i], kWarps);
     }
+    for (int i = 0; i < NB; ++i) {
+      mbar_init(&full_b[i], 1);
+      mbar_init(&empty_b[i], kWarps);
+    }
+    for (int i = 0; i < kNH; ++i) {
+      mbar_init(&full_h[i], 1);
+      mbar_init(&empty_h[i], kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  int32_t acc_e[NG][4];
-  int32_t acc_o[NG][4];
-  float cnt[2][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int p = 0; p < NG; ++p) {
-      acc_e[p][i] = 0;
-      acc_o[p][i] = 0;
-    }
-    cnt[0][i] = 0.f;
-    cnt[1][i] = 0.f;
-  }
-
-  // copies k chunk `step % nch` of gathered entry `step / nch` into stage
-  // `buf`
-  auto load_step = [&](int buf, int step) {
-    // an opaque copy of the thread index: the copy offsets below are then
-    // recomputed per step instead of held in registers across the loop
-    int tid = threadIdx.x;
-    asm volatile("" : "+r"(tid));
-    const int mi = step / nch;
-    const int64_t k0 = static_cast<int64_t>(step - mi * nch) * kKC;
-    const int64_t g = match_g[mi];
-    const int64_t y = match_y[mi];
-    const int64_t ks = match_k[mi];
-    unsigned char* st = smem + buf * stage;
-    unsigned char* s_a = st;
-    unsigned char* s_b = st + a_bytes;
-    unsigned char* s_ao = s_b + b_bytes;
-    unsigned char* s_bo = s_ao + MR * kAoStride;
-    const int8_t* a_g = av8 + (g * stack_rows + row_off) * tk + k0;
-    const int8_t* b_g = bv8 + (ks * tk + k0) * ldb + y * tn + c0;
-    const uint16_t* ao_g = a_occ + (g * tm + row_off) * tk + k0;
-    const uint16_t* bo_g = b_occ + (ks * tk + k0) * ldbo + y * tn + c0;
-    const int64_t kleft = tk - k0;
-    // A slice stack: TM rows of each of the sa slices (slice s at rows
-    // s*tm of av8, at rows s*MR here), two 16-byte chunks a row
-    for (int i = tid; i < sa * TM * 2; i += kThreads) {
-      const int r = i >> 1;
-      const int s = r / TM;
-      const int rr = r - s * TM;
-      const int c = i & 1;
-      const bool in = c * 16 < kleft;
-      cp_async16(s_a + (s * MR + rr) * kAStride + c * 16,
-                 in ? a_g + (s * tm + rr) * tk + c * 16 : av8, in);
-    }
-    // B slices: sb x 32 k rows of four 16-byte chunks (64 columns)
-    for (int i = tid; i < sb * kKC * 4; i += kThreads) {
-      const int t = i >> 7;
-      const int kr = (i >> 2) & (kKC - 1);
-      const int c = i & 3;
-      const bool in = kr < kleft;
-      cp_async16(s_b + (t * kKC + kr) * kBStride + b_chunk(kr, c) * 16,
-                 in ? b_g + kr * ldb + t * max_b * tn + c * 16 : bv8, in);
-    }
-    // A occupancy: TM rows of four chunks (8 bf16 each)
-    for (int i = tid; i < TM * 4; i += kThreads) {
-      const int r = i >> 2;
-      const int c = i & 3;
-      const bool in = c * 8 < kleft;
-      cp_async16(s_ao + r * kAoStride + c * 16,
-                 in ? ao_g + r * tk + c * 8 : a_occ, in);
-    }
-    // B occupancy: 32 k rows of eight chunks (64 columns)
-    for (int i = tid; i < kKC * 8; i += kThreads) {
-      const int kr = i >> 3;
-      const int c = i & 7;
-      const bool in = kr < kleft;
-      cp_async16(s_bo + kr * kBoStride + c * 16,
-                 in ? bo_g + kr * ldbo + c * 8 : b_occ, in);
-    }
-  };
-
-  // the warp's products over stage `buf`
-  auto compute_step = [&](int buf) {
-    const unsigned char* st = smem + buf * stage;
-    const unsigned char* s_a = st;
-    const unsigned char* s_b = st + a_bytes;
-    const unsigned char* s_ao = s_b + b_bytes;
-    const unsigned char* s_bo = s_ao + MR * kAoStride;
-    // B fragments: lane group q = lane/8 feeds the k rows
-    // (q&1)*2 + (q>>1)*16 + {0,1,4,5,8,9,12,13}
-    const int lr = lane & 7;
-    const int lq = lane >> 3;
-    const int kb = ((lq & 1) << 1) + ((lq >> 1) << 4) + ((lr >> 1) << 2) +
-                   (lr & 1);
-    const unsigned char* pb = s_b + kb * kBStride + b_chunk(kb, cb) * 16;
-    const unsigned char* pa =
-        s_a + (rb * 16 + (lane & 15)) * kAStride + (lane >> 4) * 16;
-    // B slices in parts of two, so that only two slices' fragments (8
-    // registers) live beside the accumulators; each part loads the A
-    // fragments of the slices s with s + t <= pmax for some t in it
-#pragma unroll
-    for (int th = 0; th < kMaxSlices; th += kPart) {
-      if (th < sb && th <= pmax) {
-        uint32_t bfe[kPart][2];
-        uint32_t bfo[kPart][2];
-#pragma unroll
-        for (int u = 0; u < kPart; ++u) {
-          if (th + u < sb) {
-            uint32_t r[4];
-            ldmatrix_x4_trans(r, pb + (th + u) * kKC * kBStride);
-            bfe[u][0] = __byte_perm(r[0], r[1], 0x6420);
-            bfe[u][1] = __byte_perm(r[2], r[3], 0x6420);
-            bfo[u][0] = __byte_perm(r[0], r[1], 0x7531);
-            bfo[u][1] = __byte_perm(r[2], r[3], 0x7531);
-          }
+  const int64_t per_slot = q.n_cc * q.n_rc;
+  if (warp >= 4 * kConsumers) {
+    // ---- producer ------------------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp != kProducerWarp) return;
+    int hs = 0, hph = 0, ai = 0, aph = 0, bi = 0, bph = 0;
+    for (int64_t item = blockIdx.x; item < q.n_items; item += gridDim.x) {
+      const int64_t slot_id = item / per_slot;
+      const int64_t rest = item - slot_id * per_slot;
+      const int cc = static_cast<int>(rest / q.n_rc);
+      const int64_t row_off =
+          q.row_base + (rest - static_cast<int64_t>(cc) * q.n_rc) * H;
+      const int64_t blk = slot_id / q.max_cblock;
+      const int32_t s_c = static_cast<int32_t>(slot_id - blk * q.max_cblock);
+      const int64_t r0 = blk * q.block_rows;
+      const int64_t r1 = r0 + q.block_rows < q.gm ? r0 + q.block_rows : q.gm;
+      const int64_t e_begin = static_cast<int64_t>(aptr[r0]) * q.max_b;
+      const int64_t e_end = static_cast<int64_t>(aptr[r1]) * q.max_b;
+      // count the slot's pairs, then hand the item's unit count over
+      int n = 0;
+      for (int64_t e0 = e_begin; e0 < e_end; e0 += 32) {
+        const int64_t e = e0 + lane;
+        n += __popc(__ballot_sync(0xffffffffu, e < e_end && slots[e] == s_c));
+      }
+      if (lane == 0) {
+        mbar_wait(&empty_h[hs], hph ^ 1);
+        hdr[hs] = n * q.nkc;
+        mbar_arrive(&full_h[hs]);
+        if (++hs == kNH) {
+          hs = 0;
+          hph ^= 1;
         }
-#pragma unroll
-        for (int s = 0; s < kMaxSlices; ++s) {
-          if (s < sa && s + th <= pmax) {
-            uint32_t af[4];
-            ldmatrix_x4(af, pa + s * MR * kAStride);
-#pragma unroll
-            for (int u = 0; u < kPart; ++u) {
-              constexpr int kLast = NG - 1;
-              const int t = th + u;
-              if (s + t <= kLast && t < sb && s + t <= pmax) {
-                const int p = s + t <= kLast ? s + t : kLast;
-                mma_s8(acc_e[p], af, bfe[u]);
-                mma_s8(acc_o[p], af, bfo[u]);
+      }
+      // stream the pairs in order: per pair and k chunk, the A stack and
+      // its occupancy rows, then the B occupancy halves and slices
+      const int c0 = cc * kCN;
+      for (int64_t e0 = e_begin; e0 < e_end; e0 += 32) {
+        const int64_t e = e0 + lane;
+        unsigned hits =
+            __ballot_sync(0xffffffffu, e < e_end && slots[e] == s_c);
+        if (lane == 0) {
+          while (hits) {
+            const int b = __ffs(hits) - 1;
+            hits &= hits - 1;
+            const int64_t g = (e0 + b) / q.max_b;
+            const int y = static_cast<int>(e0 + b - g * q.max_b);
+            const int ks = ak[g];
+            for (int kc = 0; kc < q.nkc; ++kc) {
+              const int k0 = kc * kKC;
+              mbar_wait(&empty_a[ai], aph ^ 1);
+              unsigned char* ae = a_ring + ai * AE;
+              mbar_expect_tx(&full_a[ai], (q.sa + 2) * H * kKC);
+              tma_4d(ae, &map_a, &full_a[ai], k0, static_cast<int>(row_off),
+                     0, static_cast<int>(g));
+              const int ao_row = static_cast<int>(g * q.tm + row_off);
+              tma_2d(ae + kMaxSlices * H * kKC, &map_ao, &full_a[ai], k0,
+                     ao_row);
+              tma_2d(ae + (kMaxSlices + 1) * H * kKC, &map_ao, &full_a[ai],
+                     k0 + 64, ao_row);
+              if (++ai == kNA) {
+                ai = 0;
+                aph ^= 1;
+              }
+              for (int u = 0; u < 2 + q.sb; ++u) {
+                mbar_wait(&empty_b[bi], bph ^ 1);
+                unsigned char* bs = b_ring + bi * kBSlot;
+                mbar_expect_tx(&full_b[bi], kBSlot);
+                if (u < 2) {
+                  tma_3d(bs, &map_bo, &full_b[bi], k0 + 64 * u,
+                         static_cast<int>(y * q.tn + c0), ks);
+                } else {
+                  tma_3d(bs, &map_b, &full_b[bi], k0,
+                         static_cast<int>(((u - 2) * q.max_b + y) * q.tn + c0),
+                         ks);
+                }
+                if (++bi == NB) {
+                  bi = 0;
+                  bph ^= 1;
+                }
               }
             }
           }
         }
+        __syncwarp();
       }
     }
-    // counts: two k16 steps of bf16 products on the 0/1 planes
-#pragma unroll
-    for (int kk = 0; kk < kKC; kk += 16) {
-      uint32_t af[4];
-      uint32_t bf[4];
-      ldmatrix_x4(af, s_ao + (rb * 16 + (lane & 15)) * kAoStride +
-                          (kk + (lane >> 4) * 8) * 2);
-      ldmatrix_x4_trans(bf, s_bo + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                       kBoStride +
-                                (cb * 16 + (lane >> 4) * 8) * 2);
-      mma_bf16(cnt[0], af, bf[0], bf[1]);
-      mma_bf16(cnt[1], af, bf[2], bf[3]);
-    }
-  };
-
-  for (int64_t e0 = e_begin; e0 < e_end;) {
-    // gather the slot's entries, one word per thread and pass, in order
-    int nm = 0;
-    while (e0 < e_end && nm + kThreads <= kMatchCap) {
-      const int64_t e = e0 + tid;
-      const bool hit = e < e_end && slots[e] == s_c;
-      const unsigned ball = __ballot_sync(0xffffffffu, hit);
-      if (lane == 0) warp_hits[warp] = __popc(ball);
-      __syncthreads();
-      int base = nm;
-      int total = 0;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const int h = warp_hits[w];
-        base += w < warp ? h : 0;
-        total += h;
-      }
-      if (hit) {
-        const int idx = base + __popc(ball & ((1u << lane) - 1u));
-        const int64_t g = e / max_b;
-        match_g[idx] = static_cast<int32_t>(g);
-        match_y[idx] = static_cast<int32_t>(e - g * max_b);
-        match_k[idx] = ak[g];
-      }
-      __syncthreads();  // matches visible; warp_hits free for the next pass
-      nm += total;
-      e0 += kThreads;
-    }
-    if (nm == 0) continue;
-
-    // the stream of (entry, k chunk) steps through the cp.async ring
-    const int steps = nm * nch;
-#pragma unroll
-    for (int p = 0; p < kStages - 1; ++p) {
-      if (p < steps) load_step(p, p);
-      cp_async_commit();
-    }
-    for (int step = 0; step < steps; ++step) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();  // this step's copies are visible; the buffer the
-                        // next copies overwrite is no longer read
-      const int next = step + kStages - 1;
-      if (next < steps) load_step(next % kStages, next);
-      cp_async_commit();
-      compute_step(step % kStages);
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // stages and matches are free for the next gather
+    return;
   }
 
-  // triple-float reduce of the group sums, in the reference's order; at
-  // TM 8 the rows 8..15 (half 1) are padding and are dropped
-  const int64_t base = slot_id * tm * tn + row_off * tn + c0 + cb * 16;
-#pragma unroll
-  for (int half = 0; half < (TM < 16 ? 1 : 2); ++half) {
-    const int64_t row_at = base + (rb * 16 + gid + half * 8) * tn;
-    float h[4], m[4], l[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      // column 4*tig + q: even tile for q = 0, 2, odd for q = 1, 3
-      const int i = half * 2 + (q >> 1);
-      float hh = 0.f, mm = 0.f, ll = 0.f;
-#pragma unroll
-      for (int p = 0; p < NG; ++p) {
-        if (p < n_groups) {
-          const int32_t mp = (q & 1) ? acc_o[p][i] : acc_e[p][i];
-          const float mh = __int2float_rn(mp);
-          const float ml = __int2float_rn(mp - __float2int_rz(mh));
-          const float scale = __int_as_float((127 - 7 * p) << 23);
-          float e, e2;
-          two_sum(hh, __fmul_rn(mh, scale), hh, e);
-          two_sum(mm, e, mm, e2);
-          ll = __fadd_rn(ll, e2);
-          two_sum(hh, __fmul_rn(ml, scale), hh, e);
-          two_sum(mm, e, mm, e2);
-          ll = __fadd_rn(ll, e2);
-        }
-      }
-      h[q] = hh;
-      m[q] = mm;
-      l[q] = ll;
+  // ---- consumer warpgroups ------------------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  int32_t acc[NG * H / 2];
+  float cnt[H / 2];
+  int hs = 0, hph = 0, ai = 0, aph = 0, bi = 0, bph = 0;
+  const int wg = warp >> 2;   // consumer: its 64 rows of each B slot
+  const int fa = lane >> 2;   // accumulator fragment: row n = 16*(warp%4)
+  const int fb = lane & 3;    // + fa (+8), column m = 8j + 2*fb (+1)
+  const int b_rows = wg * kWM * kKC;
+  for (int64_t item = blockIdx.x; item < q.n_items; item += gridDim.x) {
+    const int64_t slot_id = item / per_slot;
+    const int64_t rest = item - slot_id * per_slot;
+    const int cc = static_cast<int>(rest / q.n_rc);
+    const int64_t row_off =
+        q.row_base + (rest - static_cast<int64_t>(cc) * q.n_rc) * H;
+    mbar_wait(&full_h[hs], hph);
+    const int n_units = hdr[hs];
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty_h[hs]);
+    if (++hs == kNH) {
+      hs = 0;
+      hph ^= 1;
     }
-    const int64_t off = row_at + 4 * tig;
-    *reinterpret_cast<float4*>(c_h + off) = make_float4(h[0], h[1], h[2], h[3]);
-    *reinterpret_cast<float4*>(c_m + off) = make_float4(m[0], m[1], m[2], m[3]);
-    *reinterpret_cast<float4*>(c_l + off) = make_float4(l[0], l[1], l[2], l[3]);
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      *reinterpret_cast<float2*>(c_cnt + row_at + nt * 8 + 2 * tig) =
-          make_float2(cnt[nt][half * 2], cnt[nt][half * 2 + 1]);
+    for (int i = 0; i < NG * H / 2; ++i) acc[i] = 0;
+#pragma unroll
+    for (int i = 0; i < H / 2; ++i) cnt[i] = 0.f;
+
+    fence_regs(acc);
+    fence_regs(cnt);
+    for (int u = 0; u < n_units; ++u) {
+      mbar_wait(&full_a[ai], aph);
+      const unsigned char* stack = a_ring + ai * AE;
+      const unsigned char* a_occ = stack + kMaxSlices * H * kKC;
+      // one batch of wgmmas a B slot, committed as a group; a slot is
+      // freed once the batch after it is issued and its own is done, so
+      // the tensor cores never drain between two batches of a unit
+      int held = -1;  // the slot of the batch still in flight
+      auto next_slot = [&]() {
+        wg_commit();
+        wg_wait<1>();
+        __syncwarp();
+        if (held >= 0 && lane == 0) mbar_arrive(&empty_b[held]);
+        held = bi;
+        if (++bi == NB) {
+          bi = 0;
+          bph ^= 1;
+        }
+      };
+      // counts: the two 64-deep halves, four k16 steps each
+      for (int half = 0; half < 2; ++half) {
+        mbar_wait(&full_b[bi], bph);
+        const uint64_t da = sw128_desc(b_ring + bi * kBSlot + b_rows);
+        const uint64_t db = sw128_desc(a_occ + half * H * kKC);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          wgmma_bf16<H>(cnt, da + 2 * kk, db + 2 * kk);
+        }
+        next_slot();
+      }
+      // products: B slice t against the A slices s with t + s < n_groups
+      static_for<0, kMaxSlices>([&](auto tc) {
+        constexpr int T = decltype(tc)::value;
+        if (T < q.sb) {
+          int ns = q.n_groups - T < q.sa ? q.n_groups - T : q.sa;
+          mbar_wait(&full_b[bi], bph);
+          wg_fence();
+          slice_products<H, NG, T>(acc, b_ring + bi * kBSlot + b_rows,
+                                   stack, ns);
+          next_slot();
+        }
+      });
+      wg_wait_all();
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(&empty_b[held]);
+        mbar_arrive(&empty_a[ai]);
+      }
+      if (++ai == kNA) {
+        ai = 0;
+        aph ^= 1;
+      }
+    }
+    fence_regs(acc);
+    fence_regs(cnt);
+
+    // triple-float reduce of the group sums, in the reference's order;
+    // register 4j + 2i + e holds row n = 16*(warp%4) + fa + 8i, column
+    // m = 8j + 2*fb + e of the consumer's transposed 64 x h block.
+    // Where every group sum of a warp lies in [-2^22, 2^22) (the common
+    // case), mh = f32(M_p) is exact and its rest ml is +0; adding +0 by
+    // TwoSum changes no bit (no sum here is ever -0), so the rests are
+    // left out, and mh * 2^(-7p) is formed exactly without a conversion:
+    // the bits of 1.5 * 2^(23-7p) plus M_p, less 1.5 * 2^(23-7p)
+    const int64_t base = slot_id * q.tm * q.tn + row_off * q.tn + cc * kCN +
+                         wg * kWM + 16 * (warp & 3) + fa;
+    bool rounded = false;
+#pragma unroll
+    for (int i = 0; i < NG * H / 2; ++i) {
+      rounded |= static_cast<uint32_t>(acc[i] + (1 << 22)) >= (1u << 23);
+    }
+    // in two halves of the registers, each unrolled, so fewer values are
+    // live at once
+    auto reduce_store = [&](auto with_rests, auto part) {
+      constexpr int R0 = decltype(part)::value * H / 4;
+#pragma unroll
+      for (int r = R0; r < R0 + H / 4; ++r) {
+        float hh = 0.f, mm = 0.f, ll = 0.f;
+#pragma unroll
+        for (int p = 0; p < NG; ++p) {
+          if (p < q.n_groups) {
+            const int32_t mp = acc[p * H / 2 + r];
+            float e, e2;
+            if constexpr (decltype(with_rests)::value) {
+              const float mh = __int2float_rn(mp);
+              const float scale = __int_as_float((127 - 7 * p) << 23);
+              const float ml = __int2float_rn(mp - __float2int_rz(mh));
+              two_sum(hh, __fmul_rn(mh, scale), hh, e);
+              two_sum(mm, e, mm, e2);
+              ll = __fadd_rn(ll, e2);
+              two_sum(hh, __fmul_rn(ml, scale), hh, e);
+              two_sum(mm, e, mm, e2);
+              ll = __fadd_rn(ll, e2);
+            } else {
+              const int magic = ((150 - 7 * p) << 23) | 0x400000;
+              const float x = __fsub_rn(__int_as_float(magic + mp),
+                                        __int_as_float(magic));
+              two_sum(hh, x, hh, e);
+              two_sum(mm, e, mm, e2);
+              ll = __fadd_rn(ll, e2);
+            }
+          }
+        }
+        const int m = 8 * (r >> 2) + 2 * fb + (r & 1);
+        const int64_t off = base + m * q.tn + 8 * ((r >> 1) & 1);
+        c_h[off] = hh;
+        c_m[off] = mm;
+        c_l[off] = ll;
+        c_cnt[off] = cnt[r];
+      }
+    };
+    using Lo = std::integral_constant<int, 0>;
+    using Hi = std::integral_constant<int, 1>;
+    if (__any_sync(0xffffffffu, rounded)) {
+      reduce_store(std::true_type{}, Lo{});
+      reduce_store(std::true_type{}, Hi{});
+    } else {
+      reduce_store(std::false_type{}, Lo{});
+      reduce_store(std::false_type{}, Hi{});
     }
   }
 }
 
-template <int TM, int NG, bool CHUNKED>
-int launch(dim3 grid, cudaStream_t stream, const int8_t* av8,
-           const uint16_t* a_occ, const int8_t* bv8, const uint16_t* b_occ,
-           const int32_t* aptr, const int32_t* ak, const int32_t* slots,
-           float* c_h, float* c_m, float* c_l, float* c_cnt, int64_t gm,
-           int64_t block_rows, int64_t max_b, int64_t max_cblock,
-           int64_t stack_rows, int64_t row_base, int64_t tm, int64_t tk,
-           int64_t tn, int sa, int sb, int pmax, int n_groups) {
-  constexpr int MR = TM < 16 ? 16 : TM;
-  // the shared-memory attributes are set once per device, for the largest
-  // stage (sa = sb = 8), so every plan launches under them
-  static bool ready[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices || !ready[dev]) {
-    err = cudaFuncSetAttribute(ozaki_strip_kernel<TM, NG, CHUNKED>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kStages * stage_bytes(MR, kMaxSlices,
-                                                     kMaxSlices));
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(ozaki_strip_kernel<TM, NG, CHUNKED>,
-                                 cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 cudaSharedmemCarveoutMaxShared);
+// out[b][n][k] = in[b][k][n] (batch b, K x N -> N x K) for elements of
+// E = 1 or 2 bytes: a tile of 64 k rows and 128 bytes of n goes through
+// shared memory as 32-bit words; each thread turns 4x4 bytes (E 1) or 2x2
+// halves (E 2) around with byte permutes, and the threads of a warp write
+// whole 64- or 128-byte runs of output rows. Needs N*E % 128 == 0 and
+// K*E % 4 == 0 (K a multiple of 16 here); rows k >= K are not written.
+template <int E>
+__global__ void __launch_bounds__(256)
+transpose_kernel(const uint8_t* __restrict__ in, uint8_t* __restrict__ out,
+                 int64_t K, int64_t N, int64_t n_tiles) {
+  constexpr int S = 33;           // words a tile row: 32 and one of skew
+  constexpr int B = 4 / E;        // the square block a thread turns
+  constexpr int KW = 64 / B;      // k blocks of the tile (words a row out)
+  __shared__ uint32_t tile[64 * S];
+  const int64_t b = blockIdx.x / n_tiles;
+  const int64_t n0 = (blockIdx.x - b * n_tiles) * (128 / E);  // elements
+  const int64_t k0 = static_cast<int64_t>(blockIdx.y) * 64;
+  const uint8_t* src = in + (b * K * N + n0) * E;
+  uint8_t* dst = out + b * N * K * E;
+  for (int i = threadIdx.x; i < 64 * 8; i += 256) {
+    const int kr = i >> 3;
+    const int c = i & 7;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (k0 + kr < K) {
+      v = *reinterpret_cast<const uint4*>(src + (k0 + kr) * N * E + c * 16);
     }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < kMaxDevices) ready[dev] = true;
+    uint32_t* t = tile + kr * S + c * 4;
+    t[0] = v.x;
+    t[1] = v.y;
+    t[2] = v.z;
+    t[3] = v.w;
   }
-  const size_t smem = static_cast<size_t>(kStages) * stage_bytes(MR, sa, sb);
-  ozaki_strip_kernel<TM, NG, CHUNKED><<<grid, MR * 8, smem, stream>>>(
-      av8, a_occ, bv8, b_occ, aptr, ak, slots, c_h, c_m, c_l, c_cnt, gm,
-      block_rows, max_b, max_cblock, stack_rows, row_base, tm, tk, tn, sa, sb,
-      pmax, n_groups);
+  __syncthreads();
+  // block (kq, nw): k rows kq*B .. +B, the n elements of word nw
+  for (int i = threadIdx.x; i < KW * 32; i += 256) {
+    const int kq = i % KW;
+    const int nw = i / KW;
+    if (k0 + kq * B >= K) continue;
+    uint32_t w[B];
+#pragma unroll
+    for (int j = 0; j < B; ++j) w[j] = tile[(kq * B + j) * S + nw];
+    uint32_t o[B];
+    if constexpr (E == 1) {
+      const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
+      const uint32_t t1 = __byte_perm(w[2], w[3], 0x5140);
+      const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362);
+      const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
+      o[0] = __byte_perm(t0, t1, 0x5410);
+      o[1] = __byte_perm(t0, t1, 0x7632);
+      o[2] = __byte_perm(t2, t3, 0x5410);
+      o[3] = __byte_perm(t2, t3, 0x7632);
+    } else {
+      o[0] = __byte_perm(w[0], w[1], 0x5410);
+      o[1] = __byte_perm(w[0], w[1], 0x7632);
+    }
+#pragma unroll
+    for (int j = 0; j < B; ++j) {
+      const int64_t n = n0 + nw * B + j;
+      *reinterpret_cast<uint32_t*>(dst + (n * K + k0) * E + kq * 4) = o[j];
+    }
+  }
+}
+
+template <int E>
+int launch_transpose(const void* in, void* out, int64_t batch, int64_t K,
+                     int64_t N, cudaStream_t stream) {
+  const int64_t n_tiles = N * E / 128;
+  const dim3 grid(static_cast<unsigned>(batch * n_tiles),
+                  static_cast<unsigned>((K + 63) / 64));
+  transpose_kernel<E><<<grid, 256, 0, stream>>>(
+      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), K, N,
+      n_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- host: tensor maps and launches --------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (no link against libcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
+#endif
+    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// a tensor map over `base` with `rank` dims (innermost first), byte
+// strides of dims 1.., the box, 128-byte swizzle, zero fill outside
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+              int rank, const uint64_t* dims, const uint64_t* strides,
+              const uint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  return fn(map, type, static_cast<cuuint32_t>(rank),
+            const_cast<void*>(base),
+            reinterpret_cast<const cuuint64_t*>(dims),
+            reinterpret_cast<const cuuint64_t*>(strides),
+            reinterpret_cast<const cuuint32_t*>(box), ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Operands {
+  const void *av8, *a_occ, *bt8, *bt_occ;
+  const int32_t *aptr, *ak, *slots;
+  float *c_h, *c_m, *c_l, *c_cnt;
+  int64_t ntp, stack_rows, gk, tk;
+};
+
+template <int H, int NG>
+int launch_height(const Operands& o, Params q, int64_t row_base,
+                  unsigned n_rc, cudaStream_t stream) {
+  constexpr int smem = smem_bytes(H);
+  static bool ready[sm90::kMaxDevices] = {};
+  cudaError_t err = sm90::set_smem_once(ozaki_wgmma_kernel<H, NG>, smem,
+                                        true, ready);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint64_t tk = static_cast<uint64_t>(o.tk);
+  const uint64_t tm = static_cast<uint64_t>(q.tm);
+  const uint64_t nb = static_cast<uint64_t>(q.sb * q.max_b * q.tn);
+  const uint64_t no = static_cast<uint64_t>(q.max_b * q.tn);
+  CUtensorMap map_a, map_ao, map_b, map_bo;
+  // av8 as (k, row in slice, slice, tile): the A stack of a row chunk is
+  // one box, slice s at rows s*h
+  const uint64_t a_dims[4] = {tk, tm, static_cast<uint64_t>(o.stack_rows) / tm,
+                              static_cast<uint64_t>(o.ntp)};
+  const uint64_t a_strides[3] = {tk, tm * tk,
+                                 static_cast<uint64_t>(o.stack_rows) * tk};
+  const uint32_t a_box[4] = {kKC, H, static_cast<uint32_t>(q.sa), 1};
+  // a_occ as (k, row), 64-deep boxes
+  const uint64_t ao_dims[2] = {tk, static_cast<uint64_t>(o.ntp) * tm};
+  const uint64_t ao_strides[1] = {2 * tk};
+  const uint32_t ao_box[2] = {64, H};
+  // the K-major B copies as (k, column, slab)
+  const uint64_t b_dims[3] = {tk, nb, static_cast<uint64_t>(o.gk)};
+  const uint64_t b_strides[2] = {tk, nb * tk};
+  const uint32_t b_box[3] = {kKC, kCN, 1};
+  const uint64_t bo_dims[3] = {tk, no, static_cast<uint64_t>(o.gk)};
+  const uint64_t bo_strides[2] = {2 * tk, 2 * no * tk};
+  const uint32_t bo_box[3] = {64, kCN, 1};
+  if (!make_map(&map_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, o.av8, 4, a_dims,
+                a_strides, a_box) ||
+      !make_map(&map_ao, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, o.a_occ, 2,
+                ao_dims, ao_strides, ao_box) ||
+      !make_map(&map_b, CU_TENSOR_MAP_DATA_TYPE_UINT8, o.bt8, 3, b_dims,
+                b_strides, b_box) ||
+      !make_map(&map_bo, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, o.bt_occ, 3,
+                bo_dims, bo_strides, bo_box)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  q.row_base = row_base;
+  q.n_rc = n_rc;
+  q.n_items = q.n_slots * q.n_cc * q.n_rc;
+  const unsigned grid =
+      static_cast<unsigned>(q.n_items < sms ? q.n_items : sms);
+  ozaki_wgmma_kernel<H, NG><<<grid, kThreads, smem, stream>>>(
+      map_a, map_ao, map_b, map_bo, o.aptr, o.ak, o.slots, o.c_h, o.c_m,
+      o.c_l, o.c_cnt, q);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -540,64 +882,76 @@ int launch(dim3 grid, cudaStream_t stream, const int8_t* av8,
 
 extern "C" {
 
-// Returns a cudaError_t: 0 when the launch was accepted. Launches on
+// Returns a cudaError_t: 0 when the launches were accepted. `bt8` (gk,
+// sb*max_b*tn, tk) int8 and `bt_occ` (gk, max_b*tn, tk) bf16 are scratch
+// the caller allocates: the K-major copies of bv8 and b_occ. Launches on
 // `stream`, does not synchronise, allocates nothing.
 int ozaki_strip_f32(const void* av8, const void* a_occ, const void* bv8,
                     const void* b_occ, const void* aptr, const void* ak,
-                    const void* slots, void* c_h, void* c_m, void* c_l,
-                    void* c_cnt, int64_t gm, int64_t block_rows,
-                    int64_t max_b, int64_t max_cblock, int64_t n_blocks,
-                    int64_t tm, int64_t tk, int64_t tn, int64_t stack_rows,
-                    int64_t sa, int64_t sb, int64_t pmax, void* stream) {
+                    const void* slots, void* bt8, void* bt_occ, void* c_h,
+                    void* c_m, void* c_l, void* c_cnt, int64_t gm,
+                    int64_t block_rows, int64_t max_b, int64_t max_cblock,
+                    int64_t n_blocks, int64_t tm, int64_t tk, int64_t tn,
+                    int64_t stack_rows, int64_t sa, int64_t sb, int64_t pmax,
+                    int64_t ntp, int64_t gk, void* stream) {
   const int64_t n_slots = n_blocks * max_cblock;
-  if (n_slots <= 0 || n_slots > INT32_MAX || tm < 8 || tm % 8 != 0 ||
-      tm / 32 > kMaxChunks || tn < kTN || tn % kTN != 0 ||
-      tn / kCN > kMaxChunks || tk < 16 || tk % 16 != 0 || max_b < 1 ||
-      block_rows < 1 || gm < 1 || sa < 1 || sa > kMaxSlices || sb < 1 ||
-      sb > kMaxSlices || pmax < 0 || stack_rows < sa * tm) {
+  const int64_t n_cc = tn / kCN;
+  if (n_slots <= 0 || tm < 8 || tm % 8 != 0 || tn < 128 || tn % 128 != 0 ||
+      tk < 16 || tk % 16 != 0 || max_b < 1 || block_rows < 1 || gm < 1 ||
+      sa < 1 || sa > kMaxSlices || sb < 1 || sb > kMaxSlices || pmax < 0 ||
+      stack_rows < sa * tm || ntp < 1 || gk < 1 ||
+      n_slots * n_cc * (tm / 8) > INT32_MAX || ntp * tm > INT32_MAX ||
+      sb * max_b * tn > INT32_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t ng64 = sa + sb - 1 < pmax + 1 ? sa + sb - 1 : pmax + 1;
-  const int n_groups = static_cast<int>(ng64);
-  const int pm = static_cast<int>(pmax < 2 * kMaxSlices ? pmax : 2 * kMaxSlices);
   auto st = static_cast<cudaStream_t>(stream);
-  const auto* a8 = static_cast<const int8_t*>(av8);
-  const auto* ao = static_cast<const uint16_t*>(a_occ);
-  const auto* b8 = static_cast<const int8_t*>(bv8);
-  const auto* bo = static_cast<const uint16_t*>(b_occ);
-  const auto* ap = static_cast<const int32_t*>(aptr);
-  const auto* kk = static_cast<const int32_t*>(ak);
-  const auto* sl = static_cast<const int32_t*>(slots);
-  auto* ch = static_cast<float*>(c_h);
-  auto* cm = static_cast<float*>(c_m);
-  auto* cl = static_cast<float*>(c_l);
-  auto* cc = static_cast<float*>(c_cnt);
-  const int isa = static_cast<int>(sa);
-  const int isb = static_cast<int>(sb);
-  const bool wide = n_groups > 8;
-  const auto col_chunks = static_cast<unsigned>(tn / kCN);
-#define OZAKI_LAUNCH(TM, NG, CHUNKED, GRID, ROW0)                             \
-  launch<TM, NG, CHUNKED>(GRID, st, a8, ao, b8, bo, ap, kk, sl, ch, cm, cl,   \
-                          cc, gm, block_rows, max_b, max_cblock, stack_rows, \
-                          ROW0, tm, tk, tn, isa, isb, pm, n_groups)
-  if ((tm == 16 || tm == 32) && tn == kTN) {
-    const dim3 grid(static_cast<unsigned>(n_slots), col_chunks);
-    if (tm == 32) {
-      return wide ? OZAKI_LAUNCH(32, 15, false, grid, 0)
-                  : OZAKI_LAUNCH(32, 8, false, grid, 0);
-    }
-    return wide ? OZAKI_LAUNCH(16, 15, false, grid, 0)
-                : OZAKI_LAUNCH(16, 8, false, grid, 0);
+  // the K-major copies of B's slices and occupancy
+  int err = launch_transpose<1>(bv8, bt8, gk, tk, sb * max_b * tn, st);
+  if (err == 0) {
+    err = launch_transpose<2>(b_occ, bt_occ, gk, tk, max_b * tn, st);
   }
-  // as many 32-row chunks as fit, then one each of 16 and 8 rows
-  return sm90::for_each_row_part<32, 16, 8>(
+  if (err != 0) return err;
+  const int64_t ng64 = sa + sb - 1 < pmax + 1 ? sa + sb - 1 : pmax + 1;
+  Params q{};
+  q.gm = gm;
+  q.block_rows = block_rows;
+  q.max_b = max_b;
+  q.max_cblock = max_cblock;
+  q.tm = tm;
+  q.tn = tn;
+  q.n_cc = n_cc;
+  q.sa = static_cast<int>(sa);
+  q.sb = static_cast<int>(sb);
+  q.n_groups = static_cast<int>(ng64);
+  q.nkc = static_cast<int>((tk + kKC - 1) / kKC);
+  q.n_slots = n_slots;
+  const Operands o{av8,
+                   a_occ,
+                   bt8,
+                   bt_occ,
+                   static_cast<const int32_t*>(aptr),
+                   static_cast<const int32_t*>(ak),
+                   static_cast<const int32_t*>(slots),
+                   static_cast<float*>(c_h),
+                   static_cast<float*>(c_m),
+                   static_cast<float*>(c_l),
+                   static_cast<float*>(c_cnt),
+                   ntp,
+                   stack_rows,
+                   gk,
+                   tk};
+  if (ng64 <= 8) {
+    // as many 32-row chunks as fit, then one each of 16 and 8 rows
+    return sm90::for_each_row_part<32, 16, 8>(
+        tm, [&](auto h, int64_t row_base, unsigned n) {
+          return launch_height<decltype(h)::value, 8>(o, q, row_base, n, st);
+        });
+  }
+  // all 15 groups: 16-row chunks at most
+  return sm90::for_each_row_part<16, 8>(
       tm, [&](auto h, int64_t row_base, unsigned n) {
-        constexpr int H = decltype(h)::value;
-        const dim3 grid(static_cast<unsigned>(n_slots), col_chunks, n);
-        return wide ? OZAKI_LAUNCH(H, 15, true, grid, row_base)
-                    : OZAKI_LAUNCH(H, 8, true, grid, row_base);
+        return launch_height<decltype(h)::value, 15>(o, q, row_base, n, st);
       });
-#undef OZAKI_LAUNCH
 }
 
 }  // extern "C"

@@ -79,22 +79,35 @@
 //
 // Narrow form (k <= 32, SpMV first). The TPU pads k to 128 lanes; the
 // 128-column form above would then spend 127/128 of its work on padding
-// at k = 1. For k <= 32 the caller packs X and Y at a width W of 8, 16 or
-// 32 (k rounded up to a power of two) and spmm_narrow_kernel runs: one
-// CTA per tile row, A and X streamed through a cp.async ring in shared
-// memory, every thread on a k slice of 8 output columns, and the k slices
-// of each output summed once in shared memory (see its comment).
-// There the bytes bound it: at SpMV on banded65536 the 67 MB of dense
-// 16x128 A tiles, about 20 us at 3.35 TB/s, where cuSPARSE's SpMV reads
-// about 35 MB of CSR. The tile format's padding is the price of the
-// format, not of the kernel.
+// at k = 1. For k <= 32 the caller packs X and Y at a width W of 1 (SpMV),
+// 8, 16 or 32 (k rounded up to a power of two) and spmm_narrow_kernel
+// runs (see its comment). What bounds it is bytes, and the dense tiles
+// are most of them: at SpMV on banded65536 the 16x128 A tiles hold 67 MB,
+// of which only 35 MB lie in 32-byte sectors (8 values of a tile row)
+// holding a stored entry; torch.mv reads 34 MB of CSR. So the form reads
+// A by sector: the caller packs a sector map (one bit per 32-byte
+// sector, from the tile's row masks) beside the tiles, and a thread
+// copies its sector only where the sector's bit is set. A skipped sector
+// holds zeros, whose products add nothing, unless X holds inf or NaN
+// (0*inf is NaN): a batch of steps whose X chunks hold a non-finite value
+// reads every sector, so Y stays the dense product's. Bytes alone do not
+// set its time, though: a tile row's loads wait on aptr, then on the
+// sector map and ak, so the form keeps many rows in flight on each SM,
+// their sectors staged by cp.async rather than held in registers. At
+// SpMV the X slabs and Y are one column wide (packing them at 8, as
+// before, moved and multiplied 8 times the X and Y the product needs).
+// Dead ends measured on an H100 (each slower than this form):
+// the sectors' A values held in registers (4 or 8 steps a thread, one or
+// two rows a CTA), X read through L1 instead of staged, and SpMV at
+// width 8.
 //
 // Limits (checked by the caller, spgemm_tpu_torch/ops/spmm_kernels.py):
 //   tm % 8 == 0; any tk >= 1 (16-byte copies of A rows where tk % 4 == 0,
-//   4-byte copies otherwise); k_pad a multiple of 128, or 8, 16 or 32
-//   (narrow form); n_blocks*block_rows*q < 2^31 (grid size, the virtual
-//   rows) and ntA_pad*q < 2^31 (sub-tile indices); k_pad/128 < 65536.
-//   All element offsets are int64.
+//   4-byte copies otherwise; the narrow form's sectors 16-byte copies
+//   where tk % 8 == 0); k_pad a multiple of 128, or 1, 8, 16 or 32
+//   (narrow form, with its sector map); n_blocks*block_rows*q < 2^31 (the
+//   virtual rows) and ntA_pad*q < 2^31 (sub-tile indices); k_pad/128 <
+//   65536. All element offsets are int64.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC spmm_strip.cu -o libspmm_strip.so
@@ -415,189 +428,327 @@ int launch(cudaStream_t stream, const float* a, const float* xb,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- narrow form: X and Y W = 8, 16 or 32 columns wide (k <= 32) ------
+// ---- narrow form: X and Y W = 1, 8, 16 or 32 columns wide (k <= 32) ---
 //
-// One 256-thread CTA per virtual tile row (sub-tiles of TM rows); the
-// row's A tiles and their X slabs
-// stream through a 3-stage cp.async ring in shared memory, in k chunks of
-// NarrowCfg::KCH, one barrier per chunk, so two chunks' loads are in
-// flight while one is multiplied. Thread t owns A row r = t % tm, columns
-// cc*8 .. cc*8+7 of Y and the k slice k = i*KS + ks of each chunk
-// (KS = 256 / (tm * W/8) slices), and keeps 8 partial sums in registers
-// across all the row's tiles. The lanes of a warp differ in r first, so
-// they read one X row segment together (a broadcast) and A words in
-// distinct banks. The KS slices of each output are summed once, at the
-// end, through shared memory. So the A bytes stream once with many loads
-// in flight, and the multiply-adds (8 per 3 shared loads) stay far below
-// them. At most 64 registers a thread (__launch_bounds__(256, 4)) keep
-// four CTAs, 1,024 threads, on each SM.
+// A 256-thread CTA runs two virtual tile rows (sub-tiles of TM rows), one
+// in each 128-thread half; the halves share nothing and sync on their own
+// named barriers. In a half, thread (r, q) owns A row r of the sub-tile
+// and one 32-byte sector, values 8q .. 8q+7, of each k chunk of KC = 8*Q
+// values (Q = 128/TM threads a row), so the sector map's bit for that
+// sector alone decides whether the thread reads anything, and the warp's
+// copies of a step cover whole sectors of consecutive rows. Steps (tile,
+// k chunk) go in batches of NB. The thread copies its occupied sectors of
+// the batch into shared memory with cp.async (nothing is read for an
+// empty sector), while the half copies the batch's X chunks (KC rows of W
+// floats) beside them; so a row's loads are all in flight at once and
+// hold no registers, and more rows fit on a SM. Each thread checks the X
+// values it copied for inf or NaN and one barrier ORs those checks: where
+// X held one, the skipped sectors of the batch are copied too, so 0*inf
+// and 0*NaN give the NaN the dense product gives. Then the products of
+// each loaded sector with its eight X rows into W running sums; the Q
+// partial sums of each output are added by shuffles at the end and each Y
+// row is written once. No atomics. What the form waits on is latency (a
+// row's loads depend on aptr, then on the sector map and ak), which the
+// rows in flight on each SM hide.
 
 constexpr int kNarrowThreads = 256;
-constexpr int kNarrowStages = 3;
+constexpr int kNarrowHalf = 128;  // threads on one virtual row
 
 template <int TM, int W>
 struct NarrowCfg {
-  static constexpr int CC = W / 8;                        // column groups
-  static constexpr int KS = kNarrowThreads / (TM * CC);   // k slices
-  static constexpr int KCH = TM * W >= 1024 ? 64 : 128;   // k per stage
-  static constexpr int AS = KCH + 4;  // A row stride: 16-byte rows
-  static constexpr int STAGE = (TM * AS + KCH * W) * 4;   // bytes
-  static constexpr int SMEM = kNarrowStages * STAGE;
-  static_assert(CC * 8 == W && KS * TM * CC == kNarrowThreads && KS <= 32 &&
-                    (KS & (KS - 1)) == 0 && KCH % KS == 0,
-                "the thread layout must cover the tile");
-  static_assert((TM * AS * 4) % 16 == 0, "X must stay 16-byte aligned");
-  static_assert(KS * TM * W <= SMEM / 4, "the slice sums must fit");
+  static constexpr int Q = kNarrowHalf / TM;     // threads on one A row
+  static constexpr int KC = 8 * Q;               // k of one step
+  // a staged X row of W floats at k*W + (k/8)*4: the pad of 4 floats
+  // every 8 rows puts each thread's sector rows in their own banks
+  static constexpr int XSTEP = KC * W + KC / 2;  // floats a staged step
+  static constexpr int X4 = KC * W / 4;          // float4 copies a step
+  static constexpr int VPR = W >= 4 ? W / 4 : 1;  // float4s a row (W >= 4)
+  static constexpr int RPV = W >= 4 ? 1 : 4 / W;  // rows a float4 (W 1)
+  static constexpr int ASTEP = kNarrowHalf * 8;  // floats of A a step
+  // steps a batch: 4, fewer where the two halves' stages would pass 96 KB
+  static constexpr int NB_FIT = 12288 / (XSTEP + ASTEP);
+  static constexpr int NB = NB_FIT < 1 ? 1 : NB_FIT < 4 ? NB_FIT : 4;
+  static constexpr int SMEM = 2 * NB * (XSTEP + ASTEP) * 4;  // bytes
+  static constexpr int MIN_CTAS = W <= 8 ? 4 : 2;
+  static_assert(Q * TM == kNarrowHalf && Q >= 2 && (Q & (Q - 1)) == 0,
+                "a row's threads must be a power-of-two part of a warp");
+  // the staged offset of float4 copy i of a step: row kr = (i/VPR)*RPV,
+  // column 4*(i%VPR), a pad of 4 floats after every 8 rows
+  static __device__ __forceinline__ int x_off(int i) {
+    const int kr = (i / VPR) * RPV;
+    return kr * W + (kr / 8) * 4 + 4 * (i % VPR);
+  }
 };
 
+__device__ __forceinline__ bool nonfinite(float v) {
+  return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u;
+}
+
+// copies the `left` (<= 8) A values at p into the thread's 8 staged
+// floats at dst, zero past `left`; 16-byte copies with `vec` (p then
+// 16-byte aligned and left == 8)
+__device__ __forceinline__ void copy_sector(float* dst, const float* p,
+                                            int left, bool vec) {
+  if (vec) {
+    sm90::cp_async16(dst, p, true);
+    sm90::cp_async16(dst + 4, p + 4, true);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) sm90::cp_async4(dst + i, i < left ? p + i : p,
+                                              i < left);
+}
+
+// barrier `id` over the 128 threads of one half; returns whether any of
+// them passed `pred`
+__device__ __forceinline__ bool half_sync_or(int id, bool pred) {
+  uint32_t any;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 q, %1, 0;\n"
+      "barrier.red.or.pred p, %2, %3, q;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(any)
+      : "r"(static_cast<uint32_t>(pred)), "r"(id), "n"(kNarrowHalf)
+      : "memory");
+  return any != 0;
+}
+
+__device__ __forceinline__ void half_sync(int id) {
+  asm volatile("barrier.sync %0, %1;\n" ::"r"(id), "n"(kNarrowHalf)
+               : "memory");
+}
+
 template <int TM, int W>
-__global__ void __launch_bounds__(kNarrowThreads, 4)
+__global__ void __launch_bounds__(kNarrowThreads, NarrowCfg<TM, W>::MIN_CTAS)
 spmm_narrow_kernel(const float* __restrict__ a,
                    const float* __restrict__ xb,
                    const int32_t* __restrict__ aptr,
                    const int32_t* __restrict__ ak,
-                   const int32_t* __restrict__ kmin,
-                   float* __restrict__ y,
-                   int64_t gm, int64_t block_rows, int64_t tk,
-                   int64_t n_sub) {
-  // gm counts tile rows, blockIdx.x virtual rows (sub j of tile row i)
+                   const uint32_t* __restrict__ smap,
+                   float* __restrict__ y, int64_t gm, int64_t tk,
+                   int64_t n_sub, int64_t n_rows, int64_t map_words) {
+  // gm counts tile rows, n_rows virtual rows (sub of tile row ti)
   using C = NarrowCfg<TM, W>;
-  extern __shared__ __align__(16) unsigned char smem[];
-
-  const int tid = threadIdx.x;
-  const int r = tid % TM;
-  const int cc = (tid / TM) % C::CC;
-  const int ks = tid / (TM * C::CC);
-  const int64_t row = blockIdx.x;
-  const int64_t ti = row / n_sub;       // tile row
-  const int64_t sub = row - ti * n_sub;  // and sub-tile
-  float acc[8];
+  extern __shared__ __align__(16) unsigned char narrow_smem[];
+  const int half = threadIdx.x / kNarrowHalf;
+  const int tid = threadIdx.x % kNarrowHalf;
+  const int bar = 1 + half;  // named barrier of the half
+  const int q = tid % C::Q;
+  const int r = tid / C::Q;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * 2 + half;
+  if (row >= n_rows) return;
+  const int64_t ti = row / n_sub;
+  const int64_t sub = row - ti * n_sub;
+  // the half's stage: NB X chunks, then NB steps of A sectors (a thread's
+  // 8 floats at tid*8)
+  float* xs = reinterpret_cast<float*>(narrow_smem) +
+              half * C::NB * (C::XSTEP + C::ASTEP);
+  float* as = xs + C::NB * C::XSTEP + tid * 8;
+  // the thread's bit of a tile's sector map at k chunk 0: (tm, ceil(tk/8))
+  // bits a tile
+  const int64_t bit0 = (sub * TM + r) * ((tk + 7) / 8) + q;
+  const bool vec = (tk & 7) == 0;
+  float acc[W];
 #pragma unroll
-  for (int q = 0; q < 8; ++q) acc[q] = 0.f;
+  for (int c = 0; c < W; ++c) acc[c] = 0.f;
 
   if (ti < gm) {
-    const int64_t g0 = aptr[ti];
-    const int64_t nkc = (tk + C::KCH - 1) / C::KCH;
-    const int64_t steps = (aptr[ti + 1] - g0) * nkc;
-    const int64_t klo = kmin != nullptr ? kmin[ti / block_rows] : 0;
-    const float* xwin = xb + klo * tk * W;
-    // chunk c: k0 = (c % nkc) * KCH of tile g0 + c / nkc, into stage buf
-    auto load_step = [&](int buf, int64_t c) {
-      const int64_t g = g0 + c / nkc;
-      const int64_t k0 = (c % nkc) * C::KCH;
-      const float* a_g = a + (g * n_sub + sub) * TM * tk + k0;
-      const float* x_g = xwin + ((ak[g] - klo) * tk + k0) * W;
-      float* as = reinterpret_cast<float*>(smem + buf * C::STAGE);
-      float* xs = as + TM * C::AS;
-      if ((tk & 3) == 0) {  // A rows 16-byte aligned: 16-byte copies
-        for (int i = tid; i < TM * C::KCH / 4; i += kNarrowThreads) {
-          const int rr = i / (C::KCH / 4);
-          const int kk = (i % (C::KCH / 4)) * 4;
-          const bool in = k0 + kk < tk;
-          cp_async16(as + rr * C::AS + kk, in ? a_g + rr * tk + kk : a, in);
-        }
-      } else {
+    int g = aptr[ti];                 // tile and k chunk of the next step
+    const int g_end = aptr[ti + 1];
+    int k0 = 0;
+    // the thread's sector of tile g, k chunk k0: a_row + g*n_sub*TM*tk + k0
+    const float* a_row = a + (sub * TM + r) * tk + 8 * q;
+    while (g < g_end) {
+      // the batch's steps (tile, k chunk), then their sector words and
+      // slabs, then the copies of the occupied sectors and the X chunks
+      int gs[C::NB];
+      int ks[C::NB];
+      int nb = 0;
 #pragma unroll
-        for (int j = 0; j < TM * C::KCH / kNarrowThreads; ++j) {
-          const int i = tid + j * kNarrowThreads;
-          const int rr = i / C::KCH;
-          const int kk = i % C::KCH;
-          const bool in = k0 + kk < tk;
-          cp_async4(as + rr * C::AS + kk, in ? a_g + rr * tk + kk : a, in);
+      for (int j = 0; j < C::NB; ++j) {
+        gs[j] = g;
+        ks[j] = k0;
+        if (g < g_end) {
+          nb = j + 1;
+          k0 += C::KC;
+          if (k0 >= tk) {
+            k0 = 0;
+            ++g;
+          }
         }
       }
-      for (int i = tid; i < C::KCH * W / 4; i += kNarrowThreads) {
-        const bool in = k0 + (i * 4) / W < tk;
-        cp_async16(xs + i * 4, in ? x_g + i * 4 : xb, in);
-      }
-    };
+      uint32_t word[C::NB];
+      int slab[C::NB];
 #pragma unroll
-    for (int p = 0; p < kNarrowStages - 1; ++p) {
-      if (p < steps) load_step(p, p);
-      cp_async_commit();
-    }
-    for (int64_t c = 0; c < steps; ++c) {
-      cp_async_wait<kNarrowStages - 2>();
-      __syncthreads();  // chunk c is visible; chunk c-1's buffer is free
-      if (c + kNarrowStages - 1 < steps) {
-        load_step(static_cast<int>((c + kNarrowStages - 1) % kNarrowStages),
-                  c + kNarrowStages - 1);
+      for (int j = 0; j < C::NB; ++j) {
+        word[j] = 0u;
+        slab[j] = 0;
+        if (j < nb) {
+          const int64_t b = bit0 + ks[j] / 8;
+          if (ks[j] + 8 * q < tk) {
+            word[j] = smap[static_cast<int64_t>(gs[j]) * map_words +
+                           (b >> 5)] >> (b & 31);
+          }
+          slab[j] = ak[gs[j]];
+        }
       }
-      cp_async_commit();
-      const float* as = reinterpret_cast<const float*>(
-          smem + static_cast<int>(c % kNarrowStages) * C::STAGE);
-      const float* xs = as + TM * C::AS;
+      unsigned used = 0u;  // bit j: step j's sector is copied
 #pragma unroll
-      for (int i = 0; i < C::KCH / C::KS; ++i) {
-        const int k = i * C::KS + ks;
-        const float av = as[r * C::AS + k];
-        const float4* xr = reinterpret_cast<const float4*>(xs + k * W + cc * 8);
-        const float4 x0 = xr[0];
-        const float4 x1 = xr[1];
-        acc[0] = fmaf(av, x0.x, acc[0]);
-        acc[1] = fmaf(av, x0.y, acc[1]);
-        acc[2] = fmaf(av, x0.z, acc[2]);
-        acc[3] = fmaf(av, x0.w, acc[3]);
-        acc[4] = fmaf(av, x1.x, acc[4]);
-        acc[5] = fmaf(av, x1.y, acc[5]);
-        acc[6] = fmaf(av, x1.z, acc[6]);
-        acc[7] = fmaf(av, x1.w, acc[7]);
+      for (int j = 0; j < C::NB; ++j) {
+        const int64_t k = ks[j] + 8 * q;
+        const int left = j < nb && k < tk ? (tk - k < 8 ? static_cast<int>(
+                                                              tk - k)
+                                                        : 8)
+                                          : 0;
+        if (left > 0 && (word[j] & 1u)) {
+          used |= 1u << j;
+          copy_sector(as + j * C::ASTEP, a_row + gs[j] * n_sub * TM * tk +
+                                             ks[j], left, vec);
+        }
+        if (j < nb) {
+          // stage the chunk's X rows (zero past tk): row kr at
+          // kr*W + (kr/8)*4
+          const float* xg =
+              xb + (static_cast<int64_t>(slab[j]) * tk + ks[j]) * W;
+          if (W == 1 && (tk & 3) != 0) {
+            // X rows not 16-byte aligned: 4-byte copies
+            for (int i = tid; i < C::KC; i += kNarrowHalf) {
+              const bool in = ks[j] + i < tk;
+              sm90::cp_async4(xs + j * C::XSTEP + i + (i / 8) * 4,
+                              in ? xg + i : xb, in);
+            }
+          } else {
+            for (int i = tid; i < C::X4; i += kNarrowHalf) {
+              const bool in = ks[j] + (i / C::VPR) * C::RPV < tk;
+              sm90::cp_async16(xs + j * C::XSTEP + C::x_off(i),
+                               in ? xg + 4 * i : xb, in);
+            }
+          }
+        }
       }
+      sm90::cp_async_commit();
+      sm90::cp_async_wait<0>();
+      // the X values this thread copied, then the half's OR of the checks
+      // (the barrier also makes every copy visible)
+      bool bad = false;
+#pragma unroll
+      for (int j = 0; j < C::NB; ++j) {
+        if (j >= nb) continue;
+        for (int i = tid; i < C::X4; i += kNarrowHalf) {
+          const float4 x = *reinterpret_cast<const float4*>(
+              xs + j * C::XSTEP + C::x_off(i));
+          bad |= nonfinite(x.x) || nonfinite(x.y) || nonfinite(x.z) ||
+                 nonfinite(x.w);
+        }
+      }
+      if (half_sync_or(bar, bad)) {
+        // inf or NaN in X: every sector of the batch, as the dense
+        // product reads them
+#pragma unroll
+        for (int j = 0; j < C::NB; ++j) {
+          const int64_t k = ks[j] + 8 * q;
+          if (j < nb && k < tk && !(used >> j & 1u)) {
+            used |= 1u << j;
+            copy_sector(as + j * C::ASTEP,
+                        a_row + gs[j] * n_sub * TM * tk + ks[j],
+                        tk - k < 8 ? static_cast<int>(tk - k) : 8, vec);
+          }
+        }
+        sm90::cp_async_commit();
+        sm90::cp_async_wait<0>();
+      }
+#pragma unroll
+      for (int j = 0; j < C::NB; ++j) {
+        if (!(used >> j & 1u)) continue;
+        const int64_t k = ks[j] + 8 * q;
+        const int left = tk - k < 8 ? static_cast<int>(tk - k) : 8;
+        const float4 a0 = *reinterpret_cast<const float4*>(as + j * C::ASTEP);
+        const float4 a1 =
+            *reinterpret_cast<const float4*>(as + j * C::ASTEP + 4);
+        const float v[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        const float* xr = xs + j * C::XSTEP + q * (8 * W + 4);
+        if constexpr (W == 1) {
+          // the sector's 8 X values lie next to each other
+          const float4 x0 = *reinterpret_cast<const float4*>(xr);
+          const float4 x1 = *reinterpret_cast<const float4*>(xr + 4);
+          const float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            if (i < left) acc[0] = fmaf(v[i], x[i], acc[0]);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            if (i < left) {
+#pragma unroll
+              for (int c = 0; c < W / 4; ++c) {
+                const float4 x =
+                    *reinterpret_cast<const float4*>(xr + i * W + 4 * c);
+                acc[4 * c] = fmaf(v[i], x.x, acc[4 * c]);
+                acc[4 * c + 1] = fmaf(v[i], x.y, acc[4 * c + 1]);
+                acc[4 * c + 2] = fmaf(v[i], x.z, acc[4 * c + 2]);
+                acc[4 * c + 3] = fmaf(v[i], x.w, acc[4 * c + 3]);
+              }
+            }
+          }
+        }
+      }
+      if (g < g_end) half_sync(bar);  // the stage is free for the next batch
     }
-    cp_async_wait<0>();
   }
-  // sum the KS slices of each output through shared memory (the stages
-  // are free once every thread is past the last chunk), then write the
-  // row's tm x W block of Y, coalesced
-  __syncthreads();
-  float* red = reinterpret_cast<float*>(smem);  // (KS, TM, W)
-  float4* mine = reinterpret_cast<float4*>(red + (ks * TM + r) * W + cc * 8);
-  mine[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  mine[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
-  __syncthreads();
-  float* y_row = y + row * TM * W;
-  for (int o = tid; o < TM * W; o += kNarrowThreads) {
-    float v = 0.f;
+  // the Q partial sums of each output (the row's Q lanes, Q-aligned in
+  // the warp), then lane q writes columns q, q+Q, ... of its Y row
 #pragma unroll
-    for (int k = 0; k < C::KS; ++k) v += red[k * TM * W + o];
-    y_row[o] = v;
+  for (int c = 0; c < W; ++c) {
+#pragma unroll
+    for (int o = C::Q / 2; o > 0; o >>= 1) {
+      acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], o);
+    }
+  }
+  float* y_row = y + (row * TM + r) * W;
+#pragma unroll
+  for (int c = 0; c < W; ++c) {
+    if (c % C::Q == q) y_row[c] = acc[c];
   }
 }
 
 template <int TM, int W>
 int launch_narrow_w(cudaStream_t stream, const float* a, const float* xb,
                     const int32_t* aptr, const int32_t* ak,
-                    const int32_t* kmin, float* y, int64_t gm,
-                    int64_t block_rows, int64_t tk, int64_t n_rows,
-                    int64_t n_sub) {
-  // n_rows counts virtual rows
-  constexpr int smem = NarrowCfg<TM, W>::SMEM;
-  static bool ready[kMaxDevices] = {};  // the attribute is set once a device
+                    const uint32_t* smap, float* y, int64_t gm, int64_t tk,
+                    int64_t n_rows, int64_t n_sub, int64_t map_words) {
+  // n_rows counts virtual rows, two a CTA; the stage is dynamic shared
+  // memory (past 48 KB at some widths), the carveout all shared, set once
+  // a device
+  using C = NarrowCfg<TM, W>;
+  static bool ready[kMaxDevices] = {};
   const cudaError_t err =
-      set_smem_once(spmm_narrow_kernel<TM, W>, smem, false, ready);
+      set_smem_once(spmm_narrow_kernel<TM, W>, C::SMEM, true, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
   spmm_narrow_kernel<TM, W>
-      <<<static_cast<unsigned>(n_rows), kNarrowThreads, smem, stream>>>(
-          a, xb, aptr, ak, kmin, y, gm, block_rows, tk, n_sub);
+      <<<static_cast<unsigned>((n_rows + 1) / 2), kNarrowThreads, C::SMEM,
+         stream>>>(a, xb, aptr, ak, smap, y, gm, tk, n_sub, n_rows,
+                   map_words);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int TM>
 int launch_narrow(int64_t width, cudaStream_t stream, const float* a,
                   const float* xb, const int32_t* aptr, const int32_t* ak,
-                  const int32_t* kmin, float* y, int64_t gm,
-                  int64_t block_rows, int64_t tk, int64_t n_rows,
-                  int64_t n_sub) {
+                  const uint32_t* smap, float* y, int64_t gm, int64_t tk,
+                  int64_t n_rows, int64_t n_sub, int64_t map_words) {
   switch (width) {
+    case 1:
+      return launch_narrow_w<TM, 1>(stream, a, xb, aptr, ak, smap, y, gm,
+                                    tk, n_rows, n_sub, map_words);
     case 8:
-      return launch_narrow_w<TM, 8>(stream, a, xb, aptr, ak, kmin, y, gm,
-                                    block_rows, tk, n_rows, n_sub);
+      return launch_narrow_w<TM, 8>(stream, a, xb, aptr, ak, smap, y, gm,
+                                    tk, n_rows, n_sub, map_words);
     case 16:
-      return launch_narrow_w<TM, 16>(stream, a, xb, aptr, ak, kmin, y, gm,
-                                     block_rows, tk, n_rows, n_sub);
+      return launch_narrow_w<TM, 16>(stream, a, xb, aptr, ak, smap, y, gm,
+                                     tk, n_rows, n_sub, map_words);
     case 32:
-      return launch_narrow_w<TM, 32>(stream, a, xb, aptr, ak, kmin, y, gm,
-                                     block_rows, tk, n_rows, n_sub);
+      return launch_narrow_w<TM, 32>(stream, a, xb, aptr, ak, smap, y, gm,
+                                     tk, n_rows, n_sub, map_words);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -608,20 +759,24 @@ int launch_narrow(int64_t width, cudaStream_t stream, const float* a,
 extern "C" {
 
 // Returns a cudaError_t: 0 when the launch was accepted. `kmin` may be
-// null (resident form). `k_pad` is the packed width of X and Y: 8, 16 or
-// 32 runs the narrow form, a multiple of 128 the 128-column form. `tm` is
-// any multiple of 8: the kernels run its sub-tiles of height
-// chunk_rows(tm). Launches on `stream`, does not synchronise, allocates
-// nothing.
+// null (resident form); neither form reads it (both read slab ak[g]).
+// `smap` is the narrow form's sector map, (ntA_pad, ceil(tm*ceil(tk/8)/32))
+// uint32 words (bit (r*ceil(tk/8) + s) of a tile's words: row r's values
+// 8s .. 8s+7 hold a stored entry); the 128-column form does not read it.
+// `k_pad` is the packed width of X and Y: 1, 8, 16 or 32 runs the narrow
+// form, a multiple of 128 the 128-column form. `tm` is any multiple of 8:
+// the kernels run its sub-tiles of height chunk_rows(tm). Launches on
+// `stream`, does not synchronise, allocates nothing.
 int spmm_strip_f32(const void* a, const void* xb, const void* aptr,
-                   const void* ak, const void* kmin, void* y, int64_t gm,
-                   int64_t block_rows, int64_t n_rows, int64_t tm,
-                   int64_t tk, int64_t k_pad, void* stream) {
-  const bool narrow = k_pad == 8 || k_pad == 16 || k_pad == 32;
+                   const void* ak, const void* kmin, const void* smap,
+                   void* y, int64_t gm, int64_t block_rows, int64_t n_rows,
+                   int64_t tm, int64_t tk, int64_t k_pad, void* stream) {
+  (void)kmin;
+  const bool narrow = k_pad == 1 || k_pad == 8 || k_pad == 16 || k_pad == 32;
   const int h = tm >= 8 ? chunk_rows(tm) : 0;
   const int64_t q = h > 0 ? tm / h : 0;
   if (h == 0 || n_rows <= 0 || n_rows > INT32_MAX / q || n_rows < gm ||
-      gm < 1 || block_rows < 1 || tk < 1 ||
+      gm < 1 || block_rows < 1 || tk < 1 || (narrow && smap == nullptr) ||
       (!narrow && (k_pad < kCols || k_pad % kCols != 0 ||
                    k_pad / kCols > 65535))) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -631,23 +786,24 @@ int spmm_strip_f32(const void* a, const void* xb, const void* aptr,
   const auto* xv = static_cast<const float*>(xb);
   const auto* ap = static_cast<const int32_t*>(aptr);
   const auto* kk = static_cast<const int32_t*>(ak);
-  const auto* km = static_cast<const int32_t*>(kmin);
   auto* yv = static_cast<float*>(y);
   const int64_t rows_v = n_rows * q;  // virtual rows
   if (narrow) {
+    const auto* sm = static_cast<const uint32_t*>(smap);
+    const int64_t words = (tm * ((tk + 7) / 8) + 31) / 32;
     switch (h) {
       case 64:
-        return launch_narrow<64>(k_pad, st, av, xv, ap, kk, km, yv, gm,
-                                 block_rows, tk, rows_v, q);
+        return launch_narrow<64>(k_pad, st, av, xv, ap, kk, sm, yv, gm, tk,
+                                 rows_v, q, words);
       case 32:
-        return launch_narrow<32>(k_pad, st, av, xv, ap, kk, km, yv, gm,
-                                 block_rows, tk, rows_v, q);
+        return launch_narrow<32>(k_pad, st, av, xv, ap, kk, sm, yv, gm, tk,
+                                 rows_v, q, words);
       case 16:
-        return launch_narrow<16>(k_pad, st, av, xv, ap, kk, km, yv, gm,
-                                 block_rows, tk, rows_v, q);
+        return launch_narrow<16>(k_pad, st, av, xv, ap, kk, sm, yv, gm, tk,
+                                 rows_v, q, words);
       default:
-        return launch_narrow<8>(k_pad, st, av, xv, ap, kk, km, yv, gm,
-                                block_rows, tk, rows_v, q);
+        return launch_narrow<8>(k_pad, st, av, xv, ap, kk, sm, yv, gm, tk,
+                                rows_v, q, words);
     }
   }
   // the 128-column form reads no kmin: both forms read slab ak[g]

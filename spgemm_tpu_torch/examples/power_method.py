@@ -5,8 +5,9 @@ output vectors stay on the device (only the final eigenvalue reaches the
 host).
 
 The JAX example calls its SpMM kernel directly with X padded to 128
-columns; here X is packed at spmm_kernels.pack_width(1) = 8 columns, the
-width the port's spmv uses, which runs the kernel's narrow form.
+columns; here X is packed at spmm_kernels.pack_width(1) = 1 column, the
+width the port's spmv uses, which runs the kernel's narrow form (reading
+A by its sector map).
 
     python -m spgemm_tpu_torch.examples.power_method [n] [band] [--device cpu]
 """
@@ -57,13 +58,14 @@ class PowerStep:
                                   self.width, torch.float32, BLOCK_ROWS)
         self.a_dense, self.xb, self.aptr, self.ak, self.arow = \
             ops.to_device(self.device)
+        self.smap = ops.sector_map_to(self.device)
 
     def step(self, x: torch.Tensor):
         xs = self.xb.view(-1, self.width)
         xs[: self.n, 0] = x
         y4 = spmm_kernels.spmm_strip(self.a_dense, self.xb, self.aptr,
                                      self.ak, self.arow, gm=self.gm,
-                                     block_rows=BLOCK_ROWS)
+                                     block_rows=BLOCK_ROWS, smap=self.smap)
         y = y4.view(-1, self.width)[: self.n, 0]
         return y / torch.linalg.vector_norm(y), torch.dot(x, y)
 

@@ -5,19 +5,24 @@ PyTorch version.
 ozaki_strip_pallas` (:1137), which reaches the Pallas kernel
 `_ozaki_strip_kernel_factory` (:971). Its source, `csrc/ozaki_strip.cu`,
 says what the kernel computes, what bounds it on an H100 and what its
-design does about it. It reads its pairs from the plan's `ak` and `slots`
-(as csrc/strip_numeric.cu does), not from the TPU kernel's `kmin`/`meta`.
+design does about it: int8 wgmma on the transposed product C^T = B^T A^T,
+fed by TMA from a producer warpgroup to two consumer warpgroups, one
+persistent CTA per SM. It reads its pairs from the plan's `ak` and
+`slots` (as csrc/strip_numeric.cu does), not from the TPU kernel's
+`kmin`/`meta`.
 
 For CPU tensors the wrapper runs the plain PyTorch version; for CUDA
 tensors it launches the kernel or raises. It never falls back. Both
 versions sum exact int32 group products and reduce them with the same
 TwoSum sequence (the kernel is built with --fmad=false), so h, m, l and
 the counts are bit-equal. The kernel takes every tm % 8 == 0, tn % 128
-== 0 tile (`ozaki_kernel_takes`), one CTA per 64 columns and h rows of a
-C slot (h 32, 16 or 8: `ozaki_grid`). Each
-height has an instantiation for up to 8 pair groups (the plans' usual
-pmax 7) and one for all 15; the launch picks by the plan's group count. The library is built with nvcc at first
-use (never at import) into `spgemm_tpu_torch/_build/`.
+== 0 tile (`ozaki_kernel_takes`) as items of 128 columns and h rows of a
+C slot (h 32, 16 or 8; 16 or 8 with all 15 pair groups: `ozaki_grid`).
+int8 wgmma reads both operands K-major, so each call first writes the
+K-major copies of bv8 and b_occ (`k_major_b_plain` is that step's plain
+version) into scratch the wrapper allocates; the copy's time is part of
+the call's. The library is built with nvcc at first use (never at
+import) into `spgemm_tpu_torch/_build/`.
 
 Launch counters: `ozaki_strip_numeric.kernel_launches` counts kernel
 launches and `ozaki_strip_numeric.plain_launches` dispatches to the plain
@@ -34,10 +39,12 @@ import torch
 
 from spgemm_tpu_torch.ops.kernels import build_cuda_library, chunk_grid
 
-# chunk heights the CUDA kernel is instantiated for (a 64-row CTA would
-# need 512 threads at 128 registers) and its columns per CTA
+# chunk heights the CUDA kernel is instantiated for (the wgmma N of one
+# slice; all 15 pair groups take 16 rows at most) and its columns per item
+# (two consumer warpgroups of 64, wgmma's M)
 OZAKI_HEIGHTS = (32, 16, 8)
-OZAKI_COLS = 64
+OZAKI_WIDE_HEIGHTS = (16, 8)
+OZAKI_COLS = 128
 TK_MULTIPLE = 16    # k32 int8 products over 16-byte runs of bf16 counts
 MAX_SLICES = 8      # 7 bits/slice * 8 = 56 >= f64's 53 significand bits
 # bytes of f64 temporaries the plain version allows per chunk of pairs
@@ -65,7 +72,7 @@ def load_ozaki_kernel():
         lib, info = build_cuda_library(KERNEL_SRC, "libozaki_strip",
                                        NVCC_FLAGS)
         lib.ozaki_strip_f32.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 12
+            [ctypes.c_void_p] * 13 + [ctypes.c_int64] * 14
             + [ctypes.c_void_p])
         lib.ozaki_strip_f32.restype = ctypes.c_int
         build_info.update(info)
@@ -73,13 +80,14 @@ def load_ozaki_kernel():
         return _lib
 
 
-def ozaki_grid(tm: int, tn: int):
-    """(64-column chunks, [(h, row_base, n)]) of a tm x tn tile: the grid's
-    y and, per launch, the row chunks in its z (csrc/ozaki_strip.cu:
-    tm 16 and 32 at tn 128 in one launch, other tiles in row chunks of
-    32, 16 and 8 rows, as ops/kernels.py:row_parts picks them); None where
-    the kernel does not take the tile."""
-    grid = chunk_grid(tm, tn, OZAKI_HEIGHTS, OZAKI_COLS)
+def ozaki_grid(tm: int, tn: int, wide: bool = False):
+    """(128-column chunks, [(h, row_base, n)]) of a tm x tn tile: the
+    items of a C slot, one launch per height (csrc/ozaki_strip.cu: row
+    chunks of 32, 16 and 8 rows, as ops/kernels.py:row_parts picks them;
+    16 and 8 with all 15 pair groups, `wide`); None where the kernel does
+    not take the tile."""
+    grid = chunk_grid(tm, tn, OZAKI_WIDE_HEIGHTS if wide else OZAKI_HEIGHTS,
+                      OZAKI_COLS)
     return None if grid is None else grid[::-1]
 
 
@@ -222,6 +230,15 @@ def ozaki_strip_numeric_plain(av8, a_occ, bv8, b_occ, aptr, ak, slots, *,
     return c_h, c_m, c_l, c_cnt
 
 
+def k_major_b_plain(bv8, b_occ):
+    """The K-major copies of B the kernel reads (its transpose step's plain
+    version): bv8 (gk, tk, sb*max_b*tn) -> (gk, sb*max_b*tn, tk) and b_occ
+    (gk, tk, max_b*tn) -> (gk, max_b*tn, tk), each column's tk values
+    contiguous."""
+    return (bv8.transpose(1, 2).contiguous(),
+            b_occ.transpose(1, 2).contiguous())
+
+
 def ozaki_strip_numeric(av8, a_occ, bv8, b_occ, aptr, ak, slots, *,
                         gm: int, max_b: int, max_cblock: int,
                         block_rows: int, sa: int, sb: int,
@@ -249,22 +266,31 @@ def ozaki_strip_numeric(av8, a_occ, bv8, b_occ, aptr, ak, slots, *,
         raise ValueError(f"Ozaki strip kernel takes tm % 8 == 0, tn % 128 "
                          f"== 0 (at most 65535 chunks of each) and tk % "
                          f"{TK_MULTIPLE} == 0, got ({tm}, {tn}), tk={tk}")
-    if n_blocks * max_cblock >= 2 ** 31:
-        raise ValueError("Ozaki strip kernel grid exceeds 2^31-1 C slots")
     if any(t.data_ptr() % 16 for t in (av8, a_occ, bv8, b_occ)):
         raise ValueError("the Ozaki strip kernel copies 16-byte runs: av8, "
                          "a_occ, bv8 and b_occ must start 16-byte aligned")
+    if (n_blocks * max_cblock * (tn // OZAKI_COLS) * (tm // 8) >= 2 ** 31
+            or ntp * tm >= 2 ** 31 or bv8.shape[2] >= 2 ** 31):
+        raise ValueError("Ozaki strip kernel items or TMA rows exceed "
+                         "2^31-1")
     lib = load_ozaki_kernel()
+    dev = av8.device
     planes = [torch.empty(n_blocks * max_cblock, tm, tn, dtype=torch.float32,
-                          device=av8.device) for _ in range(4)]
-    with torch.cuda.device(av8.device):
+                          device=dev) for _ in range(4)]
+    # scratch: the K-major copies of bv8 and b_occ the kernel writes first
+    gk = bv8.shape[0]
+    bt8 = torch.empty(gk, bv8.shape[2], tk, dtype=torch.int8, device=dev)
+    bt_occ = torch.empty(gk, b_occ.shape[2], tk, dtype=torch.bfloat16,
+                         device=dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ozaki_strip_f32(
             av8.data_ptr(), a_occ.data_ptr(), bv8.data_ptr(),
             b_occ.data_ptr(), aptr.data_ptr(), ak.data_ptr(),
-            slots.data_ptr(), *[p.data_ptr() for p in planes],
+            slots.data_ptr(), bt8.data_ptr(), bt_occ.data_ptr(),
+            *[p.data_ptr() for p in planes],
             gm, block_rows, max_b, max_cblock, n_blocks, tm, tk, tn,
-            stack_rows, sa, sb, pmax, stream)
+            stack_rows, sa, sb, pmax, ntp, gk, stream)
     if err != 0:
         raise RuntimeError(f"Ozaki strip kernel launch failed: CUDA error "
                            f"{err}")

@@ -248,10 +248,29 @@ def spmm_gather(a_csr, x, *, dtype=torch.float32, device=None) -> torch.Tensor:
     return _gather_apply(a_csr, xd, dev_classes, k_pad)[:, :k]
 
 
+def sector_map(a: TileMat, n_tiles: int) -> np.ndarray:
+    """The narrow SpMM form's sector map: per tile, one bit per 32-byte
+    sector (8 values of a tile row) that holds a stored entry, from the row
+    masks (a sector's bit is its mask byte being nonzero), tm rows of
+    ceil(tn/8) bits packed LSB-first into spmm_kernels.map_words(tm, tn)
+    uint32 words. Returns (n_tiles, words) int32; tiles past a.nt (the
+    packed zero tail) are zero."""
+    nsec = -(-a.tn // 8)
+    words = spmm_kernels.map_words(a.tm, a.tn)
+    occupied = (np.ascontiguousarray(a.mask, dtype="<u4").view(np.uint8)
+                .reshape(a.nt, a.tm, 4 * a.mask_words)[:, :, :nsec] != 0)
+    bits = np.packbits(occupied.reshape(a.nt, a.tm * nsec), axis=1,
+                       bitorder="little")
+    out = np.zeros((n_tiles, words * 4), dtype=np.uint8)
+    out[: a.nt, : bits.shape[1]] = bits
+    return out.view("<u4").view(np.int32)
+
+
 @dataclasses.dataclass
 class SpmmOperands:
     """The strip SpMM kernel's packed host planes (the tuple the JAX
-    package's _pack_spmm_operands returns, in its order)."""
+    package's _pack_spmm_operands returns, in its order), and for the
+    narrow widths the sector map the kernel's narrow form reads A by."""
 
     a_dense: np.ndarray   # (nt + max_ablock, tm, tk), zero tail
     xb: np.ndarray        # (gn, tn, width), width from pack_width(k)
@@ -259,6 +278,7 @@ class SpmmOperands:
     ak: np.ndarray        # (nt + max_ablock,) int32 tile column
     arow: np.ndarray      # (nt + max_ablock,) int32 tile row
     max_ablock: int
+    smap: np.ndarray | None = None   # (nt + max_ablock, words) int32
 
     def to_device(self, device) -> tuple[torch.Tensor, ...]:
         """(a_dense, xb, aptr, ak, arow) on `device`, contiguous, in the
@@ -267,13 +287,18 @@ class SpmmOperands:
                      for v in (self.a_dense, self.xb, self.aptr, self.ak,
                                self.arow))
 
+    def sector_map_to(self, device) -> torch.Tensor | None:
+        """The sector map on `device` (spmm_strip's `smap`), or None."""
+        return (None if self.smap is None
+                else torch.from_numpy(self.smap).to(device))
+
 
 def _pack_spmm_operands(a: TileMat, x: np.ndarray, k_pad: int, dtype,
                         block_rows: int,
                         max_ablock: int | None = None) -> SpmmOperands:
     """Operand packing for the strip SpMM kernel and its timer, X at
     `k_pad` columns (the JAX package's 128-padded width, or a narrow
-    width from spmm_kernels.pack_width)."""
+    width from spmm_kernels.pack_width, which adds the sector map)."""
     k = x.shape[1]
     np_dtype = np.float64 if is_f64(dtype) else np.float32
     xb = np.zeros((a.gn, a.tn, k_pad), dtype=np_dtype)
@@ -289,7 +314,9 @@ def _pack_spmm_operands(a: TileMat, x: np.ndarray, k_pad: int, dtype,
     arow = np.zeros(a.nt + max_ablock, dtype=INDEX_DTYPE)
     arow[: a.nt] = a.trow
     aptr = a.tptr.astype(INDEX_DTYPE)
-    return SpmmOperands(a_dense, xb, aptr, ak, arow, max_ablock)
+    smap = (sector_map(a, a.nt + max_ablock)
+            if k_pad in spmm_kernels.NARROW_WIDTHS else None)
+    return SpmmOperands(a_dense, xb, aptr, ak, arow, max_ablock, smap)
 
 
 def _window_kmin(a: TileMat, stats) -> np.ndarray:
@@ -315,7 +342,8 @@ def _spmm_strip(a: TileMat, x: np.ndarray, k_pad: int, dtype,
     if mode == "window":
         kmin = torch.from_numpy(_window_kmin(a, stats)).to(device)
     y = spmm_kernels.spmm_strip(*ops.to_device(device), kmin, gm=a.gm,
-                                block_rows=block_rows)
+                                block_rows=block_rows,
+                                smap=ops.sector_map_to(device))
     return y.reshape(-1, width)[: a.gm * a.tm]
 
 
@@ -335,11 +363,13 @@ def time_spmm(a: TileMat, x, *, warmup: int = 3, iters: int = 20,
     if mode != "resident":
         raise ValueError("strip SpMM (resident X) infeasible for this "
                          "matrix/k; time the window mode via spmm()")
-    ops = _pack_spmm_operands(a, x, spmm_kernels.pack_width(x.shape[1]),
-                              torch.float32, block_rows,
-                              max_ablock=stats[0]).to_device(dev)
+    packed = _pack_spmm_operands(a, x, spmm_kernels.pack_width(x.shape[1]),
+                                 torch.float32, block_rows,
+                                 max_ablock=stats[0])
+    ops, smap = packed.to_device(dev), packed.sector_map_to(dev)
     return cuda_event_ms(
-        lambda: spmm_kernels.spmm_strip(*ops, gm=a.gm, block_rows=block_rows),
+        lambda: spmm_kernels.spmm_strip(*ops, gm=a.gm, block_rows=block_rows,
+                                        smap=smap),
         warmup=warmup, iters=iters)
 
 

@@ -7,10 +7,13 @@ spmm_strip_pallas` (:757, X resident, reaching `_spmm_kernel_factory`
 `_spmm_window_kernel_factory` :805). Both compute the same Y = A·X from the
 same (aptr, ak, arow) plan, so one CUDA source, `csrc/spmm_strip.cu`,
 serves both: `kmin` None is the resident form, `kmin` set the window form.
-The packed width of X and Y picks the kernel: 8, 16 or 32 columns (k up
-to 32, `pack_width`) the narrow form, a multiple of 128 the 128-column
-form. The source's header says what bounds each on an H100 and what its
-design does about it.
+The packed width of X and Y picks the kernel: 1, 8, 16 or 32 columns (k
+up to 32, `pack_width`; 1 for SpMV) the narrow form, a multiple of 128
+the 128-column form. The narrow form reads A only in the 32-byte sectors (8 values of a
+tile row) that hold a stored entry, by the sector map
+(ops/spmm.py:sector_map) the caller packs beside the tiles. The source's
+header says what bounds each on an H100 and what its design does about
+it.
 
 For CPU tensors the wrapper runs the plain PyTorch version; for CUDA
 tensors it launches the kernel or raises. It never falls back. The library
@@ -35,7 +38,7 @@ import torch
 from spgemm_tpu_torch.ops.kernels import CHUNK_HEIGHTS, build_cuda_library
 
 KCOLS = 128          # k_pad is a multiple of this (one CTA per 128 columns)
-NARROW_WIDTHS = (8, 16, 32)  # packed widths of the narrow form (k <= 32)
+NARROW_WIDTHS = (1, 8, 16, 32)  # packed widths of the narrow form (k <= 32)
 # bytes of temporaries the plain version allows per chunk of A tiles
 _PLAIN_CHUNK_BYTES = 256 << 20
 
@@ -60,7 +63,7 @@ def load_spmm_kernel():
         lib, info = build_cuda_library(KERNEL_SRC, "libspmm_strip",
                                        NVCC_FLAGS)
         lib.spmm_strip_f32.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 6 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 6 + [ctypes.c_void_p])
         lib.spmm_strip_f32.restype = ctypes.c_int
         build_info.update(info)
         _lib = lib
@@ -84,15 +87,22 @@ def spmm_kernel_takes(tm: int) -> bool:
 
 
 def pack_width(k: int) -> int:
-    """The width X and Y are packed at for k columns: k rounded up to a
-    power of two of at least 8 while k <= 32 (the narrow form), else k
-    rounded up to a multiple of 128 (the JAX package's k_pad)."""
+    """The width X and Y are packed at for k columns: 1 for SpMV, k rounded
+    up to a power of two of at least 8 while k <= 32 (the narrow form),
+    else k rounded up to a multiple of 128 (the JAX package's k_pad)."""
     if k <= NARROW_WIDTHS[-1]:
         return next(w for w in NARROW_WIDTHS if w >= k)
     return -(-k // KCOLS) * KCOLS
 
 
-def _check_operands(a_dense, xb, aptr, ak, arow, kmin, *, gm, block_rows):
+def map_words(tm: int, tk: int) -> int:
+    """32-bit words of one tile's sector map: tm rows of ceil(tk/8) bits
+    (csrc/spmm_strip.cu:spmm_strip_f32)."""
+    return -(-tm * -(-tk // 8) // 32)
+
+
+def _check_operands(a_dense, xb, aptr, ak, arow, kmin, *, gm, block_rows,
+                    smap=None):
     dev = a_dense.device
     if a_dense.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"a_dense: need float32 or float64, got "
@@ -102,6 +112,8 @@ def _check_operands(a_dense, xb, aptr, ak, arow, kmin, *, gm, block_rows):
              ("arow", arow, torch.int32)]
     if kmin is not None:
         named.append(("kmin", kmin, torch.int32))
+    if smap is not None:
+        named.append(("smap", smap, torch.int32))
     for name, t, dt in named:
         if t.dtype != dt or t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name}: need a contiguous {dt} tensor on "
@@ -113,23 +125,27 @@ def _check_operands(a_dense, xb, aptr, ak, arow, kmin, *, gm, block_rows):
             or ak.numel() != a_dense.shape[0]
             or arow.numel() != a_dense.shape[0]
             or (kmin is not None and kmin.numel() != n_blocks)
+            or (smap is not None and tuple(smap.shape) != (
+                a_dense.shape[0], map_words(*a_dense.shape[1:])))
             or min(gm, block_rows) < 1):
         raise ValueError(
             f"inconsistent SpMM operands: a_dense {tuple(a_dense.shape)}, "
             f"xb {tuple(xb.shape)}, aptr {aptr.numel()}, ak {ak.numel()}, "
             f"arow {arow.numel()}, kmin "
-            f"{None if kmin is None else kmin.numel()}, gm={gm} "
+            f"{None if kmin is None else kmin.numel()}, smap "
+            f"{None if smap is None else tuple(smap.shape)}, gm={gm} "
             f"block_rows={block_rows}")
     return n_blocks
 
 
 def spmm_strip_plain(a_dense, xb, aptr, ak, arow, kmin=None, *, gm: int,
-                     block_rows: int):
+                     block_rows: int, smap=None):
     """Plain PyTorch version of the strip SpMM kernel, on any device: for
     the plan's real A tiles g < aptr[gm], in chunks, A_g @ X slab ak[g] by
     `bmm`, index_add_ed into tile-row arow[g]. The window form reads the
     same slab (kmin[blk] + (ak[g] - kmin[blk]) is ak[g]), so kmin changes
-    no value. Returns Y (n_blocks*block_rows, tm, k_pad) in a_dense's
+    no value; the dense product reads every sector, so smap changes none
+    either. Returns Y (n_blocks*block_rows, tm, k_pad) in a_dense's
     dtype; rows past gm are zero."""
     ntp, tm, tk = a_dense.shape
     k_pad = xb.shape[2]
@@ -147,17 +163,20 @@ def spmm_strip_plain(a_dense, xb, aptr, ak, arow, kmin=None, *, gm: int,
 
 
 def spmm_strip(a_dense, xb, aptr, ak, arow, kmin=None, *, gm: int,
-               block_rows: int):
+               block_rows: int, smap=None):
     """Strip SpMM Y = A·X on the packed operands (see
     ops/spmm.py:SpmmOperands.to_device): a_dense (ntA_pad, tm, tk), xb
-    (gk, tk, k_pad), aptr (gm+1,), ak and arow (ntA_pad,), and for the
-    window form kmin (n_blocks,). Returns Y (n_blocks*block_rows, tm,
-    k_pad); rows past gm are zero. k_pad is xb's packed width: 8, 16 or 32
-    launches the narrow form, a multiple of 128 the 128-column form. CPU
-    tensors run spmm_strip_plain (f32 or f64, any width); CUDA tensors
-    launch csrc/spmm_strip.cu (f32 only)."""
+    (gk, tk, k_pad), aptr (gm+1,), ak and arow (ntA_pad,), for the window
+    form kmin (n_blocks,), and for the narrow form the sector map smap
+    (ntA_pad, map_words(tm, tk)) int32 (SpmmOperands.sector_map_to).
+    Returns Y (n_blocks*block_rows, tm, k_pad); rows past gm are zero.
+    k_pad is xb's packed width: 1, 8, 16 or 32 launches the narrow form,
+    a multiple of 128 the 128-column form. CPU tensors run spmm_strip_plain
+    (f32 or f64, any width); CUDA tensors launch csrc/spmm_strip.cu (f32
+    only)."""
     kw = dict(gm=gm, block_rows=block_rows)
-    n_blocks = _check_operands(a_dense, xb, aptr, ak, arow, kmin, **kw)
+    n_blocks = _check_operands(a_dense, xb, aptr, ak, arow, kmin, smap=smap,
+                               **kw)
     if a_dense.device.type == "cpu":
         spmm_strip.plain_launches += 1
         return spmm_strip_plain(a_dense, xb, aptr, ak, arow, kmin, **kw)
@@ -176,6 +195,9 @@ def spmm_strip(a_dense, xb, aptr, ak, arow, kmin=None, *, gm: int,
         raise ValueError(f"the SpMM kernel takes tm % 8 == 0 and k_pad in "
                          f"{NARROW_WIDTHS} or a multiple of {KCOLS}, got "
                          f"tm={tm} k_pad={k_pad}")
+    if narrow and smap is None:
+        raise ValueError("the SpMM kernel's narrow form reads A by its "
+                         "sector map: pass smap")
     _, q = sub_tiles(tm)
     if n_rows * q >= 2 ** 31 or a_dense.shape[0] * q >= 2 ** 31:
         raise ValueError(f"SpMM kernel grid exceeds 2^31-1 rows of "
@@ -191,7 +213,8 @@ def spmm_strip(a_dense, xb, aptr, ak, arow, kmin=None, *, gm: int,
         err = lib.spmm_strip_f32(
             a_dense.data_ptr(), xb.data_ptr(), aptr.data_ptr(),
             ak.data_ptr(), None if kmin is None else kmin.data_ptr(),
-            y.data_ptr(), gm, block_rows, n_rows, tm, tk, k_pad, stream)
+            None if smap is None else smap.data_ptr(), y.data_ptr(), gm,
+            block_rows, n_rows, tm, tk, k_pad, stream)
     if err != 0:
         raise RuntimeError(f"SpMM kernel launch failed: CUDA error {err}")
     spmm_strip.kernel_launches += 1

@@ -484,18 +484,24 @@ def test_ozaki_kernel_padded_slots_are_zero(card, tm, pmax):
 
 
 def test_ozaki_kernel_registers(card):
-    # the main plan's instantiation (tm 32 at tn 128, up to 8 groups): two
-    # 256-thread CTAs per SM need <= 128 registers a thread, and no
-    # spills; beside it tm 16 at tn 128 and the chunked heights 32, 16 and
-    # 8, each for 8 and for 15 groups
+    # one 384-thread CTA per SM (two consumer warpgroups and a producer
+    # one) launches at <= 168 registers a thread; ptxas must not
+    # serialise the wgmmas (C7511); the heights 32, 16 and 8 for up to 8
+    # groups, 16 and 8 for all 15. Only the main plan's instantiation (32
+    # rows, 8 groups: 144 accumulator registers) spills, 72 bytes of loop
+    # state on an H100 build (PERF.md)
     ozaki_kernels.load_ozaki_kernel()
-    usage = kernels.ptxas_usage(ozaki_kernels.build_info["ptxas"])
-    inst = {fn: v for fn, v in usage.items() if "ozaki_strip_kernel" in fn}
-    assert len(inst) == 10
-    main = [v for fn, v in inst.items() if "ILi32ELi8ELb0E" in fn]
-    assert len(main) == 1
-    regs, spill_stores, spill_loads = main[0]
-    assert regs <= 128 and spill_stores == 0 and spill_loads == 0
+    log = ozaki_kernels.build_info["ptxas"]
+    usage = kernels.ptxas_usage(log)
+    inst = {fn: v for fn, v in usage.items() if "ozaki_wgmma_kernel" in fn}
+    assert len(inst) == 5
+    assert log.count("C7511") == 0
+    for fn, (regs, spill_stores, spill_loads) in inst.items():
+        assert regs <= 168
+        if "ILi32ELi8EE" not in fn:
+            assert spill_stores == spill_loads == 0
+        else:
+            assert spill_stores <= 72
 
 
 def test_ozaki_entry_points_on_card_match_cpu(card):
@@ -644,8 +650,8 @@ def test_spmm_kernel_wide_range_values(card):
 
 @pytest.mark.parametrize("tm", [8, 16, 64])
 @pytest.mark.parametrize("tk", [18, 128])
-@pytest.mark.parametrize("width,k", [(8, 1), (8, 5), (16, 1), (16, 5),
-                                     (32, 1), (32, 5), (32, 32)])
+@pytest.mark.parametrize("width,k", [(1, 1), (8, 1), (8, 5), (16, 1),
+                                     (16, 5), (32, 1), (32, 5), (32, 32)])
 def test_spmm_narrow_kernel_matches_plain(card, tm, tk, width, k):
     rng = np.random.default_rng(33)
     for values in ("integer", "gaussian"):
@@ -655,13 +661,14 @@ def test_spmm_narrow_kernel_matches_plain(card, tm, tk, width, k):
              if values == "integer" else rng.standard_normal((a.n, k)))
         block_rows = 8
         stats = pspmm._spmm_block_stats(t, block_rows)
-        ops = pspmm._pack_spmm_operands(t, x, width, torch.float32,
-                                        block_rows).to_device(card)
+        packed = pspmm._pack_spmm_operands(t, x, width, torch.float32,
+                                           block_rows)
+        ops, smap = packed.to_device(card), packed.sector_map_to(card)
         kmin = torch.from_numpy(pspmm._window_kmin(t, stats)).to(card)
         w = spmm_kernels.spmm_strip
         for form in (None, kmin):
             before = (w.kernel_launches, w.narrow_launches, w.plain_launches)
-            got = w(*ops, form, gm=t.gm, block_rows=block_rows)
+            got = w(*ops, form, gm=t.gm, block_rows=block_rows, smap=smap)
             exp = spmm_kernels.spmm_strip_plain(*ops, form, gm=t.gm,
                                                 block_rows=block_rows)
             torch.cuda.synchronize()
@@ -670,6 +677,93 @@ def test_spmm_narrow_kernel_matches_plain(card, tm, tk, width, k):
                                           before[2])
             assert got.shape == exp.shape and got.shape[2] == width
             _assert_close(got, exp, values)
+
+
+def _narrow_case(tm, width, seed, *, density=0.3):
+    """A 1024^2 matrix in tm x 128 tiles: every third 8-column sector
+    empty, the rest at `density`, and the first tile row fully dense."""
+    rng = np.random.default_rng(seed)
+    n = 1024
+    d = (rng.random((n, n)) < density) * rng.integers(1, 9, (n, n))
+    d[:, (np.arange(n) // 8) % 3 == 0] = 0           # empty sectors
+    d[:tm, :] = rng.integers(1, 9, (tm, n))          # dense tiles
+    a = pt.CSR.from_dense(d.astype(np.float64))
+    return a, pt.csr_to_tiles(a, tm, 128), rng
+
+
+@pytest.mark.parametrize("tm", [8, 16, 24, 64, 128])
+@pytest.mark.parametrize("width", [1, 8, 16, 32])
+def test_spmm_narrow_sectors_dense_and_empty(card, tm, width):
+    """The narrow form at every width and tile height: integer values are
+    bit-equal to the plain version with empty sectors skipped and fully
+    dense tiles read whole; the sector map marks both."""
+    a, t, rng = _narrow_case(tm, width, 61)
+    x = rng.integers(-4, 5, (a.n, width)).astype(np.float64)
+    packed = pspmm._pack_spmm_operands(t, x, width, torch.float32, 4)
+    bits = np.unpackbits(packed.smap.view(np.uint8), axis=1,
+                         bitorder="little")
+    assert bits[:t.nt].any(axis=1).all() and not bits[:t.nt].all()
+    ops, smap = packed.to_device(card), packed.sector_map_to(card)
+    got = spmm_kernels.spmm_strip(*ops, gm=t.gm, block_rows=4, smap=smap)
+    exp = spmm_kernels.spmm_strip_plain(*ops, gm=t.gm, block_rows=4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, exp)
+
+
+@pytest.mark.parametrize("tm", [8, 16, 64, 128])
+@pytest.mark.parametrize("width", [1, 8, 16, 32])
+def test_spmm_narrow_nonfinite_x_as_plain(card, tm, width):
+    """inf and NaN in X reach Y as the dense product gives them: 0 * inf in
+    a skipped sector is NaN there too."""
+    a, t, rng = _narrow_case(tm, width, 62)
+    x = rng.standard_normal((a.n, width))
+    x[5, 0] = np.inf
+    x[300, 1 % width] = -np.inf
+    x[301, 1 % width] = np.inf
+    x[700, width - 1] = np.nan
+    packed = pspmm._pack_spmm_operands(t, x, width, torch.float32, 4)
+    ops, smap = packed.to_device(card), packed.sector_map_to(card)
+    got = spmm_kernels.spmm_strip(*ops, gm=t.gm, block_rows=4, smap=smap)
+    exp = spmm_kernels.spmm_strip_plain(*ops, gm=t.gm, block_rows=4)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(got), torch.isnan(exp))
+    assert torch.equal(torch.isinf(got), torch.isinf(exp))
+    fin = torch.isfinite(exp)
+    assert bool(torch.isnan(exp).any())
+    # at width 1 every row meets a non-finite X value in some tile (0*inf
+    # where its sector is empty), so no value is finite there
+    assert bool(fin.any()) == (width > 1)
+    _assert_close(torch.where(fin, got, 0), torch.where(fin, exp, 0),
+                  "gaussian")
+
+
+@pytest.mark.parametrize("tm", [16, 128])
+@pytest.mark.parametrize("width", [1, 8])
+def test_spmm_narrow_long_positive_sums(card, tm, width):
+    a, _ = long_positive_sums()
+    x = np.random.default_rng(23).random((a.n, 1))
+    t = pt.csr_to_tiles(a, tm, 128)
+    packed = pspmm._pack_spmm_operands(t, x, width, torch.float32, 8)
+    y = spmm_kernels.spmm_strip(*packed.to_device(card), gm=t.gm,
+                                block_rows=8,
+                                smap=packed.sector_map_to(card))
+    got = y.reshape(-1, width)[: a.m, :1].double().cpu().numpy()
+    f32 = lambda v: v.astype(np.float32).astype(np.float64)
+    ref = f32(a.to_dense()) @ f32(x)
+    np.testing.assert_allclose(got, ref, rtol=1e-5,
+                               atol=1e-6 * np.abs(ref).max())
+
+
+def test_spmm_narrow_needs_the_sector_map(card):
+    a = _matrix("integer", 400, 8)
+    t = pt.csr_to_tiles(a, 16, 128)
+    packed = pspmm._pack_spmm_operands(t, np.ones((a.n, 1)), 8,
+                                       torch.float32, 4)
+    w = spmm_kernels.spmm_strip
+    before = (w.kernel_launches, w.plain_launches)
+    with pytest.raises(ValueError, match="sector map"):
+        w(*packed.to_device(card), gm=t.gm, block_rows=4)
+    assert (w.kernel_launches, w.plain_launches) == before
 
 
 def _pair_ops(at, bt, sched, card, occ):
@@ -740,6 +834,11 @@ def test_pair_and_spmm_kernel_registers(card):
     spmm = [v for fn, v in usage.items() if "spmm_strip_kernel" in fn]
     assert len(spmm) == 4
     assert all(regs <= 128 and st == ld == 0 for regs, st, ld in spmm)
+    # the narrow form: every height and width (1, 8, 16, 32), none
+    # spilling
+    narrow = [v for fn, v in usage.items() if "spmm_narrow_kernel" in fn]
+    assert len(narrow) == 16
+    assert all(st == ld == 0 for _, st, ld in narrow)
 
 
 def test_spmm_and_pair_kernels_reject(card):
@@ -1387,6 +1486,24 @@ def test_ozaki_kernel_chunked_tiles_match_plain(card, tm, tn, case, sizes,
         assert torch.equal(g, e)
 
 
+@pytest.mark.parametrize("tm", [8, 16, 24, 32, 64])
+@pytest.mark.parametrize("tn", [128, 256])
+@pytest.mark.parametrize("pmax", [None, 4, 14])
+def test_ozaki_wgmma_tiles_bit_equal(card, tm, tn, pmax):
+    """The wgmma kernel at every chunk height it runs (32, 16, 8 and their
+    sums), one and two 128-column items, up to 8 pair groups (the plan's
+    pmax 7, and 4: truncated) and all 15: (h, m, l, cnt) bit-equal to the
+    plain version, Gaussian values, S = 8x8."""
+    rng = np.random.default_rng(25)
+    a = banded(rng, 1200, 64)
+    a = a.with_data(rng.standard_normal(a.nnz))
+    plan = build_ozaki_strip(pt.csr_to_tiles(a, tm, 128),
+                             pt.csr_to_tiles(a, 128, tn))
+    assert (plan.sa, plan.sb) == (8, 8)
+    got = _ozaki_check(card, plan, pmax)
+    assert bool((got[3] > 0).any())
+
+
 @pytest.mark.parametrize("tm", [24, 40, 128, 256])
 @pytest.mark.parametrize("width,k", [(8, 1), (32, 20), (128, 100),
                                      (256, 256)])
@@ -1399,13 +1516,14 @@ def test_spmm_kernel_chunked_tiles_match_plain(card, tm, width, k):
              if values == "integer" else rng.standard_normal((a.n, k)))
         block_rows = 3
         stats = pspmm._spmm_block_stats(t, block_rows)
-        ops = pspmm._pack_spmm_operands(t, x, width, torch.float32,
-                                        block_rows).to_device(card)
+        packed = pspmm._pack_spmm_operands(t, x, width, torch.float32,
+                                           block_rows)
+        ops, smap = packed.to_device(card), packed.sector_map_to(card)
         kmin = torch.from_numpy(pspmm._window_kmin(t, stats)).to(card)
         w = spmm_kernels.spmm_strip
         for form in (None, kmin):
             before = (w.kernel_launches, w.narrow_launches, w.plain_launches)
-            got = w(*ops, form, gm=t.gm, block_rows=block_rows)
+            got = w(*ops, form, gm=t.gm, block_rows=block_rows, smap=smap)
             exp = spmm_kernels.spmm_strip_plain(*ops, form, gm=t.gm,
                                                 block_rows=block_rows)
             torch.cuda.synchronize()

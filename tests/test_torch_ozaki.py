@@ -29,6 +29,7 @@ import spgemm_tpu_torch as pt
 from spgemm_tpu_torch.ops import ozaki as po
 from spgemm_tpu_torch.ops import ozaki_kernels as ok
 from spgemm_tpu_torch.utils import native as pnative
+from spgemm_tpu_torch.utils.generators import banded as p_banded
 
 STRIP_FIELDS = ("aptr", "ak", "slots", "gather_idx", "ctrow", "ctcol",
                 "nt_c", "num_pairs", "gm", "gn_c", "tm", "tk", "tn",
@@ -394,3 +395,232 @@ def test_non_finite_values_raise():
     with pytest.raises(ValueError, match="finite"):
         po.build_ozaki_strip(pt.csr_to_tiles(bad, 16, 128),
                              pt.csr_to_tiles(bad, 128, 128))
+
+
+# --- the wgmma kernel's schedule (csrc/ozaki_strip.cu) --------------------
+
+def _wgmma_emulation(av8, a_occ, bv8, b_occ, aptr, ak, slots, *, gm, max_b,
+                     max_cblock, block_rows, sa, sb, pmax, grid=5):
+    """csrc/ozaki_strip.cu:ozaki_wgmma_kernel in NumPy: per launch height
+    (ozaki_grid), persistent CTAs walking items (slot, 128-column chunk,
+    row chunk) with a stride of `grid`; per item the slot's pairs found by
+    scanning its block's slot words, per pair and 128-deep k chunk the A
+    stack (slice s at rows s*h) and the K-major B copies as the TMA boxes
+    hold them (zero past tk); each consumer's transposed products D (64 x
+    N) += B_t (its 64 rows x 32 k) . stack rows (N x 32 k)^T in wgmma
+    windows of up to C slices (C = 2 at h 32, else 4) whose groups start
+    at a multiple of C (the first at t), into groups t + s, exact in
+    int64; the counts as bf16 products; then the triple-float reduce of
+    the groups in order. Returns (c_h, c_m, c_l, c_cnt) like the plain
+    version."""
+    av8, bv8 = av8.numpy().astype(np.int64), bv8
+    a_occ = a_occ.float().numpy()
+    bt8, bt_occ = ok.k_major_b_plain(bv8, b_occ)
+    bt8, bt_occ = bt8.numpy().astype(np.int64), bt_occ.float().numpy()
+    aptr, ak, slots = aptr.numpy(), ak.numpy(), slots.numpy()
+    ntp, stack_rows, tk = av8.shape
+    tm, tn = a_occ.shape[1], bt_occ.shape[1] // max_b
+    n_groups = min(sa + sb - 1, (sa + sb - 2 if pmax is None else pmax) + 1)
+    ng = 15 if n_groups > 8 else 8
+    cols, parts = ok.ozaki_grid(tm, tn, wide=ng == 15)
+    n_slots = -(-gm // block_rows) * max_cblock
+    planes = [np.zeros((n_slots, tm, tn), np.float32) for _ in range(4)]
+    nkc = -(-tk // 128)
+    kpad = nkc * 128
+    pad = lambda m: np.concatenate(
+        [m, np.zeros(m.shape[:-1] + (kpad - tk,), m.dtype)], axis=-1)
+    av8p, a_occp, bt8p, bt_occp = map(pad, (av8, a_occ, bt8, bt_occ))
+    for h, row_base, n_rc in parts:
+        c = 2 if h == 32 else 4
+        n_items = n_slots * cols * n_rc
+        for cta in range(grid):
+            for item in range(cta, n_items, grid):
+                slot, rest = divmod(item, cols * n_rc)
+                cc, rc = divmod(rest, n_rc)
+                row_off = row_base + rc * h
+                blk, s_c = divmod(slot, max_cblock)
+                r0, r1 = blk * block_rows, min(blk * block_rows + block_rows,
+                                               gm)
+                acc = np.zeros((ng, 128, h), np.int64)
+                cnt = np.zeros((128, h), np.float32)
+                for e in range(aptr[r0] * max_b, aptr[r1] * max_b):
+                    if slots[e] != s_c:
+                        continue
+                    g, y = divmod(e, max_b)
+                    ks = ak[g]
+                    rows = [s * tm + row_off + r for s in range(sa)
+                            for r in range(h)]
+                    n_cols = slice(y * tn + cc * 128, y * tn + cc * 128 + 128)
+                    for kc in range(nkc):
+                        kk = slice(kc * 128, kc * 128 + 128)
+                        stack = av8p[g, rows, kk]                 # sa*h x 128
+                        cnt += (bt_occp[ks, n_cols, kk]
+                                @ a_occp[g, row_off:row_off + h, kk].T)
+                        for t in range(sb):
+                            col0 = (t * max_b + y) * tn + cc * 128
+                            bslot = bt8p[ks, col0:col0 + 128, kk]  # 128 x 128
+                            ns = min(sa, n_groups - t)
+                            # windows: groups [t, next multiple of c), then
+                            # [p, p + c) from there
+                            starts = [t] + list(range((t // c + 1) * c, ng, c))
+                            for k32 in range(4):
+                                ksl = slice(32 * k32, 32 * k32 + 32)
+                                for p0 in starts:
+                                    s0 = p0 - t
+                                    end = min((p0 // c + 1) * c, ng)
+                                    r = min(end - p0, 8 - s0,
+                                            max(ns - s0, 0))
+                                    if s0 >= 8 or r <= 0:
+                                        continue
+                                    d = (bslot[:, ksl]
+                                         @ stack[s0 * h:(s0 + r) * h, ksl].T)
+                                    for j in range(r):
+                                        acc[p0 + j] += d[:, j * h:
+                                                         (j + 1) * h]
+                assert np.abs(acc).max(initial=0) < 2 ** 31
+                red = ok.triple_float_reduce(torch.from_numpy(
+                    acc[None, :n_groups].transpose(0, 1, 3, 2)
+                    .astype(np.int32).copy()))
+                cs = slice(cc * 128, cc * 128 + 128)
+                for plane, v in zip(planes, [x[0].numpy() for x in red]
+                                    + [cnt.T]):
+                    plane[slot, row_off:row_off + h, cs] = v
+    return tuple(torch.from_numpy(p) for p in planes)
+
+
+def test_k_major_b_copies():
+    """The K-major copies the kernel writes first: column (t*max_b + y)*tn
+    + n of slab ks holds its tk values k contiguous, as bv8 and b_occ hold
+    them n-contiguous."""
+    a, b = _pair("gaussian", "gaussian", n=260)
+    _, (pa, pb) = _tiles(a, b, 16)
+    ops = po.build_ozaki_strip(pa, pb).to_device("cpu")
+    bv8, b_occ = ops[2], ops[3]
+    bt8, bt_occ = ok.k_major_b_plain(bv8, b_occ)
+    assert bt8.shape == (bv8.shape[0], bv8.shape[2], bv8.shape[1])
+    assert bt_occ.shape == (b_occ.shape[0], b_occ.shape[2], b_occ.shape[1])
+    assert bt8.is_contiguous() and bt_occ.is_contiguous()
+    rng = np.random.default_rng(5)
+    for ks, k, n in zip(*(rng.integers(0, m, 50) for m in bv8.shape)):
+        assert bt8[ks, n, k] == bv8[ks, k, n]
+    np.testing.assert_array_equal(bt8.numpy(),
+                                  bv8.numpy().transpose(0, 2, 1))
+    np.testing.assert_array_equal(
+        bt_occ.view(torch.int16).numpy(),
+        b_occ.view(torch.int16).numpy().transpose(0, 2, 1))
+
+
+@pytest.mark.parametrize("tm,pmax,groups", [
+    (32, None, 8), (32, 14, 15), (16, None, 8), (16, 14, 15)])
+def test_wgmma_schedule_emulation_matches_plain_and_pallas(tm, pmax, groups):
+    """The kernel's walk emulated (persistent items, slice ranges per
+    wgmma, transposed int32 groups reduced in order) is bit-equal to the
+    plain version on h, m, l and the counts, and to the Pallas kernel in
+    interpret mode on h, m, l, at 8 and at all 15 pair groups."""
+    a, b = _pair("gaussian", "gaussian", n=260, band=20)
+    (ja, jb), _ = _tiles(a, b, tm)
+    jp = jo.build_ozaki_strip(ja, jb, block_rows=8)
+    assert (jp.sa, jp.sb) == (8, 8)
+    pp = _port_plan(jp)
+    kw = pp.kernel_kwargs()
+    jkw = jp.kernel_kwargs()
+    if pmax is not None:
+        kw["pmax"] = jkw["pmax"] = pmax
+    assert min(pp.sa + pp.sb - 1, kw["pmax"] + 1) == groups
+    ops = pp.to_device("cpu")
+    emu = _wgmma_emulation(*ops, **kw)
+    plain = ok.ozaki_strip_numeric_plain(*ops, **kw)
+    for x, y in zip(emu, plain):
+        assert torch.equal(x, y)
+    s = jp.sargs
+    exp = ozaki_strip_pallas(
+        *map(jnp.asarray, (jp.av8, s.a_occ, jp.bv8, s.b_occ, s.aptr,
+                           s.kmin, s.meta)), interpret=True, **jkw)
+    g = s.gather_idx
+    for x, y in zip(emu[:3], exp[:3]):
+        np.testing.assert_array_equal(x.numpy()[g],
+                                      np.asarray(y, np.float32)[g])
+
+
+def test_wgmma_schedule_emulation_at_chunked_tiles():
+    """24-row tiles at tn 256 (row chunks of 16 and 8, two 128-column
+    chunks) and tk 48 (one k chunk, zero past tk): the emulated walk is
+    bit-equal to the plain version."""
+    rng = np.random.default_rng(9)
+    a = p_banded(rng, 400, 30)
+    a = a.with_data(rng.standard_normal(a.nnz))
+    for tm, tk, tn in ((24, 128, 256), (32, 48, 128)):
+        plan = po.build_ozaki_strip(pt.csr_to_tiles(a, tm, tk),
+                                    pt.csr_to_tiles(a, tk, tn))
+        ops = plan.to_device("cpu")
+        kw = plan.kernel_kwargs()
+        emu = _wgmma_emulation(*ops, **kw, grid=3)
+        plain = ok.ozaki_strip_numeric_plain(*ops, **kw)
+        for x, y in zip(emu, plain):
+            assert torch.equal(x, y)
+
+
+def _reduce_np(groups, *, rests):
+    """The kernel's epilogue in NumPy f32 on (n_groups, ...) int32 group
+    sums: x = M_p * 2^(-7p) by TwoSum into (h, m, l), with the rests
+    ml = f32(M_p - i32(f32(M_p))) or without them (the fast path), and x
+    formed as the fast path forms it (bits of 1.5 * 2^(23-7p) plus M_p,
+    less 1.5 * 2^(23-7p)) when `rests` is False."""
+    f32 = np.float32
+
+    def two_sum(a, b):
+        s = f32(a + b)
+        bb = f32(s - a)
+        return s, f32(f32(a - f32(s - bb)) + f32(b - bb))
+
+    h = np.zeros(groups.shape[1:], f32)
+    m = np.zeros_like(h)
+    low = np.zeros_like(h)
+    for p, mp in enumerate(groups):
+        scale = f32(2.0 ** (-7 * p))
+        if rests:
+            mh = mp.astype(f32)
+            ml = (mp - mh.astype(np.int32)).astype(f32)
+            terms = (f32(mh * scale), f32(ml * scale))
+        else:
+            magic = np.int32(((150 - 7 * p) << 23) | 0x400000)
+            x = f32((magic + mp).view(f32) - np.array(magic).view(f32))
+            terms = (x,)
+        for x in terms:
+            h, e = two_sum(h, x)
+            m, e2 = two_sum(m, e)
+            low = f32(low + e2)
+    return h, m, low
+
+
+def test_epilogue_fast_path_is_exact():
+    """The Ozaki kernel's fast epilogue (every group sum of a warp within
+    [-2^22, 2^22)): the magic-constant scaling equals f32(M_p) * 2^(-7p)
+    bit for bit at the range's ends and inside, for p = 0 .. 14, and
+    leaving out the +0 rests gives the plain reduce's (h, m, l) bit for
+    bit."""
+    rng = np.random.default_rng(31)
+    edge = np.array([-2 ** 22, -2 ** 22 + 1, -1, 0, 1, 2 ** 22 - 1],
+                    np.int32)
+    for p in range(15):
+        mp = np.concatenate([edge, rng.integers(-2 ** 22, 2 ** 22, 2000,
+                                                dtype=np.int32)])
+        magic = np.int32(((150 - 7 * p) << 23) | 0x400000)
+        x = np.float32((magic + mp).view(np.float32)
+                       - np.array(magic).view(np.float32))
+        want = np.float32(mp.astype(np.float32) * np.float32(2.0 ** (-7 * p)))
+        np.testing.assert_array_equal(x.view(np.uint32), want.view(np.uint32))
+    for n_groups in (8, 15):
+        groups = rng.integers(-2 ** 22, 2 ** 22, (n_groups, 64, 32),
+                              dtype=np.int32)
+        groups[:, :4] = 0                       # zero groups
+        groups[3, 5] = -(2 ** 22)               # the range's ends
+        groups[1, 6] = 2 ** 22 - 1
+        fast = _reduce_np(groups, rests=False)
+        full = _reduce_np(groups, rests=True)
+        plain = ok.triple_float_reduce(torch.from_numpy(groups[None]))
+        for f, g, pl in zip(fast, full, plain):
+            np.testing.assert_array_equal(f.view(np.uint32),
+                                          g.view(np.uint32))
+            np.testing.assert_array_equal(f.view(np.uint32),
+                                          pl[0].numpy().view(np.uint32))

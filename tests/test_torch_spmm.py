@@ -345,7 +345,7 @@ def test_timers_need_a_card(make_random_csr):
 def test_pack_width():
     widths = {k: spmm_kernels.pack_width(k)
               for k in (1, 3, 8, 9, 16, 17, 32, 33, 128, 129)}
-    assert widths == {1: 8, 3: 8, 8: 8, 9: 16, 16: 16, 17: 32, 32: 32,
+    assert widths == {1: 1, 3: 8, 8: 8, 9: 16, 16: 16, 17: 32, 32: 32,
                       33: 128, 128: 128, 129: 256}
 
 
@@ -416,7 +416,7 @@ def test_narrow_spmm_and_spmv_match_jax(monkeypatch, make_random_csr, rng, k,
         v = pt.spmv(pt.csr_to_tiles(to_port(a), 16, 16), x[:, 0],
                     device="cpu")
         jv = np.asarray(jspmm.spmv(jtile.csr_to_tiles(a, 16, 16), x[:, 0]))
-        assert v.shape == (120,) and widths[-1] == 8
+        assert v.shape == (120,) and widths[-1] == 1    # SpMV at width 1
         _assert_close(v.numpy(), jv, values)
 
 

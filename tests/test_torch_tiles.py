@@ -133,19 +133,24 @@ def test_spmm_sub_tiles(tm, sub):
 
 
 @pytest.mark.parametrize("tm,tn,grid", [
-    (16, 128, (2, [(16, 0, 1)])), (32, 128, (2, [(32, 0, 1)])),
-    (8, 128, (2, [(8, 0, 1)])), (64, 128, (2, [(32, 0, 2)])),
-    (24, 256, (4, [(16, 0, 1), (8, 16, 1)])),
-    (128, 384, (6, [(32, 0, 4)])), (56, 128, (2, [(32, 0, 1), (16, 32, 1),
+    (16, 128, (1, [(16, 0, 1)])), (32, 128, (1, [(32, 0, 1)])),
+    (8, 128, (1, [(8, 0, 1)])), (64, 128, (1, [(32, 0, 2)])),
+    (24, 256, (2, [(16, 0, 1), (8, 16, 1)])),
+    (128, 384, (3, [(32, 0, 4)])), (56, 128, (1, [(32, 0, 1), (16, 32, 1),
                                                   (8, 48, 1)])),
     (12, 128, None), (32, 64, None)])
 def test_ozaki_grid(tm, tn, grid):
+    # items of 128 columns (two consumer warpgroups of 64) and row chunks
+    # of 32, 16 and 8 rows; with all 15 pair groups 16 and 8
     assert ok.ozaki_grid(tm, tn) == grid
     assert ok.ozaki_kernel_takes(tm, 128, tn) == (grid is not None)
     if grid is not None:
         assert not ok.ozaki_kernel_takes(tm, 120, tn)   # tk % 16
         cols, parts = grid
-        assert (_cover(parts, cols, 64, tm, tn) == 1).all()
+        assert (_cover(parts, cols, 128, tm, tn) == 1).all()
+        wcols, wparts = ok.ozaki_grid(tm, tn, wide=True)
+        assert wcols == cols and all(h <= 16 for h, _, _ in wparts)
+        assert (_cover(wparts, wcols, 128, tm, tn) == 1).all()
 
 
 # --- the router and the gates on CUDA ------------------------------------
@@ -364,7 +369,7 @@ def test_plain_ozaki_matches_pallas(tm, tn, values):
 def test_ozaki_chunk_addressing_emulation():
     """csrc/ozaki_strip.cu's chunk offsets (A slice s of the row chunk from
     row r at av8 rows s*tm + r, B slice t at columns (t*max_b + y)*tn +
-    z*64) give
+    z*128) give
     the plain version's exact int32 group sums, through the same
     triple-float reduce: h, m, l bit-equal."""
     tm, tn = 24, 256
@@ -403,10 +408,10 @@ def test_ozaki_chunk_addressing_emulation():
                             if s + t > pmax:
                                 continue
                             b_idx = ((ak[g] * tk + r_k[:, None]) * ldb
-                                     + y * tn + z * 64 + t * max_b * tn
-                                     + np.arange(64)[None, :])
+                                     + y * tn + z * 128 + t * max_b * tn
+                                     + np.arange(128)[None, :])
                             acc[slot, s + t, r:r + h,
-                                z * 64:(z + 1) * 64] += a8[a_idx] @ b8[b_idx]
+                                z * 128:(z + 1) * 128] += a8[a_idx] @ b8[b_idx]
     assert np.abs(acc).max() < 2 ** 31
     hh, mm, ll = ok.triple_float_reduce(torch.from_numpy(
         acc.astype(np.int32)))
