@@ -8,11 +8,12 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      kernel, the SpMM strip kernel, the pair kernel and the gather kernel
      from spgemm_tpu_torch/csrc with nvcc (one nvcc per source, all six
      started together) and print the build seconds and each kernel's
-     ptxas registers and spills (the tm 64 pair kernel must stay within
-     128 registers, and it, the three scan kernels, the four 128-column
-     and sixteen narrow SpMM instantiations must not spill; the five
-     Ozaki instantiations must launch at <= 168 registers and ptxas must
-     not serialise their wgmmas);
+     ptxas registers and spills (the four strip and four pair
+     instantiations, one per chunk height, must launch at <= 168
+     registers, and they, the three scan kernels, the four 128-column and
+     sixteen narrow SpMM instantiations must not spill; the five Ozaki
+     instantiations must launch at <= 168 registers; ptxas must not
+     serialise the strip, pair or Ozaki kernels' wgmmas);
   3. compare the strip kernel with its plain PyTorch version on the card,
      on random banded plans: 64x128 and 16x128 A tiles (B 128x128),
      integer values (equal exactly) and Gaussian values (rtol 1e-5, atol
@@ -25,11 +26,12 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      exactly equal (integer model), the kernel must have launched and
      the plain version must not have run;
   5. time it: symbolic_ms (host, best of 5), the kernel's numeric_ms and
-     the plain version's on the same plan (CUDA events, median), and
-     GFLOPS = 2*nnzCub / (symbolic_ms + numeric_ms) as bench.py counts it;
-     print ptxas's registers and spills per tile height (the 64x128
-     instantiation must stay within 128 registers with no spills, so two
-     CTAs share an SM) and time torch.sparse.mm(A, A) on the same matrix;
+     the plain version's on the same plan (CUDA events, median), the
+     kernel's device time (torch.profiler), its bound and the bound's
+     share of the kernel's time, and GFLOPS = 2*nnzCub / (symbolic_ms +
+     numeric_ms) as bench.py counts it; print ptxas's registers and
+     spills per tile height and time torch.sparse.mm(A, A) on the same
+     matrix;
      then time the kernel on the window=False plan and on the main plan
      with standard-normal values (the integer model's operands are TF32
      values and take one tensor-core product per k step; Gaussian values
@@ -348,21 +350,30 @@ def build_kernels() -> None:
     check(len(oz) == 5 and all(v[0] <= 168 for v in oz.values()),
           f"an Ozaki kernel instantiation needs more than 168 registers: "
           f"{oz}")
-    oz_log = ozaki_kernels.build_info["ptxas"]
+    oz_serial = kernels.serialised_wgmma(ozaki_kernels.build_info["ptxas"])
     print(f"phase build: Ozaki kernel, ptxas reports of serialised wgmma "
-          f"(C7511): {oz_log.count('C7511')}")
-    check(oz_log.count("C7511") == 0,
+          f"(C7511, C7513, C7515): {oz_serial}")
+    check(oz_serial == 0,
           "ptxas serialised the Ozaki kernel's wgmma instructions")
     check(len(scan) == 3 and all(v[1:] == (0, 0) for v in scan),
           f"the scan kernels spill: {scan}")
-    # the pair kernel at the main plan's tm 64 (two CTAs per SM: <= 128
-    # registers) and every 128-column SpMM instantiation must not spill
-    pair = [v for fn, v in usage.items()
-            if "pair_accumulate_kernelILi64E" in fn]
+    # the strip and pair kernels' pipeline (one 384-thread CTA a SM: <=
+    # 168 registers at launch) at every height: no spills, and ptxas must
+    # not serialise their wgmmas; every 128-column SpMM instantiation must
+    # not spill
+    for name, info in (("strip_numeric_kernel", kernels.build_info),
+                       ("pair_accumulate_kernel", pair_kernels.build_info)):
+        inst = {fn: v for fn, v in usage.items() if name in fn}
+        serial = kernels.serialised_wgmma(info["ptxas"])
+        print(f"phase build: {name}, (registers at launch, spill stores, "
+              f"spill loads) by height: {sorted(inst.values())}; ptxas "
+              f"reports of serialised wgmma (C7511, C7513, C7515): {serial}")
+        check(len(inst) == 4 and all(v[0] <= 168 and v[1:] == (0, 0)
+                                     for v in inst.values()),
+              f"a {name} instantiation needs more than 168 registers or "
+              f"spills: {inst}")
+        check(serial == 0, f"ptxas serialised the {name}'s wgmmas")
     spmm = [v for fn, v in usage.items() if "spmm_strip_kernelILi" in fn]
-    check(len(pair) == 1 and pair[0][0] <= 128 and pair[0][1:] == (0, 0),
-          f"the tm 64 pair kernel needs <= 128 registers and no spills: "
-          f"{pair}")
     check(len(spmm) == 4 and all(v[1:] == (0, 0) for v in spmm),
           f"a 128-column SpMM instantiation spills: {spmm}")
     narrow = {fn: v for fn, v in usage.items() if "spmm_narrow_kernel" in fn}
@@ -1248,7 +1259,7 @@ def run_pair_path(a, ref, lib_ms) -> dict:
     from spgemm_tpu_torch.models.tile import csr_to_tiles
     from spgemm_tpu_torch.ops import pair_kernels as pk
     from spgemm_tpu_torch.ops.spgemm import spgemm_csr
-    from spgemm_tpu_torch.utils.timing import cuda_event_ms
+    from spgemm_tpu_torch.utils.timing import cuda_event_ms, profiler_device_ms
 
     w = pk.pair_accumulate_cuda
     torch.cuda.empty_cache()
@@ -1302,10 +1313,13 @@ def run_pair_path(a, ref, lib_ms) -> dict:
                       "bound_ref_ms)", ref_ops, (gv, gc), pair_ops)
     del gv, gc, pv, pc, ref_ops
     ms = cuda_event_ms(lambda: w(*ops, **kw), warmup=3, iters=20)
+    dev_ms = profiler_device_ms(lambda: w(*ops, **kw))
     plain_ms = cuda_event_ms(lambda: pk.pair_accumulate_plain(*ops, **kw),
                              warmup=1, iters=10)
     flop = 2.0 * 2 * sched.num_pairs * tm * tk * TN  # values and counts
-    print(f"phase pair-time: kernel_ms={ms!r} plain_ms={plain_ms!r} "
+    print(f"{CARD} | phase pair-time: kernel_ms={ms!r} device_ms={dev_ms!r} "
+          f"bound_ms={b_ms!r} ({100.0 * b_ms / ms!r}% of the kernel's time) "
+          f"plain_ms={plain_ms!r} "
           f"max_abs_err={err!r} dense-tile TFLOP/s={flop / (ms * 1e9)!r} "
           f"(values and counts, {flop!r} FLOP); peak device memory "
           f"{torch.cuda.max_memory_allocated()!r} bytes")
@@ -1324,15 +1338,18 @@ def run_pair_path(a, ref, lib_ms) -> dict:
     check(g_ok and g_cnt, f"the pair kernel differs from its plain version "
                           f"on Gaussian values: {g_err}, counts {g_cnt}")
     g_ms = cuda_event_ms(lambda: w(*g_ops, **kw), warmup=3, iters=20)
-    print(f"phase pair-time: Gaussian values kernel_ms={g_ms!r} "
-          f"max_abs_err={g_err!r} max_abs={g_scale!r}, counts equal")
+    g_dev_ms = profiler_device_ms(lambda: w(*g_ops, **kw))
+    print(f"{CARD} | phase pair-time: Gaussian values kernel_ms={g_ms!r} "
+          f"device_ms={g_dev_ms!r} max_abs_err={g_err!r} "
+          f"max_abs={g_scale!r}, counts equal")
     del g_ops
     return dict(name="pair_accumulate", route="cuda",
                 source="spgemm_tpu_torch/csrc/pair_accumulate.cu",
                 replaces="spgemm_tpu/ops/pallas_kernels.py:32",
                 launches=pallas_launches, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                bound_ref_ms=ref_ms, library_ms=lib_ms, gaussian_ms=g_ms,
+                device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, bound_ref_ms=ref_ms, library_ms=lib_ms,
+                gaussian_ms=g_ms, gaussian_device_ms=g_dev_ms,
                 gaussian_max_abs_err=g_err)
 
 
@@ -3042,7 +3059,8 @@ def run() -> dict:
     from spgemm_tpu_torch.ops.spgemm import spgemm_csr
     from spgemm_tpu_torch.utils import generators as pgen
     from spgemm_tpu_torch.utils.generators import cantlike
-    from spgemm_tpu_torch.utils.timing import card_line, cuda_event_ms
+    from spgemm_tpu_torch.utils.timing import (card_line, cuda_event_ms,
+                                               profiler_device_ms)
 
     global CARD
     CARD = card_line()
@@ -3113,20 +3131,25 @@ def run() -> dict:
                         _f32_mma_ops(products) + [(2 * products, "bf16")])
     del cv, cc, pv, pc
     numeric_ms = ex.time_numeric(warmup=5, iters=50)
+    device_ms = profiler_device_ms(lambda: kernels.strip_numeric(*ops, **kw))
     plain_ms = cuda_event_ms(
         lambda: kernels.strip_numeric_plain(*ops, **kw), warmup=2, iters=10)
     gflops = 2.0 * nnz_cub / ((sym_ms + numeric_ms) * 1e6)
-    print(f"phase time: symbolic_ms={sym_ms!r} numeric_ms={numeric_ms!r} "
-          f"plain_numeric_ms={plain_ms!r} gflops={gflops!r} "
-          f"(2*nnzCub/(symbolic+numeric); reference GPU bar 52.63)")
+    print(f"{CARD} | phase time: symbolic_ms={sym_ms!r} "
+          f"numeric_ms={numeric_ms!r} (CUDA events) device_ms={device_ms!r} "
+          f"(torch.profiler) plain_numeric_ms={plain_ms!r} "
+          f"bound_ms={strip_bound[0]!r} ({strip_bound[1]}; "
+          f"{100.0 * strip_bound[0] / numeric_ms!r}% of the kernel's time) "
+          f"gflops={gflops!r} (2*nnzCub/(symbolic+numeric); reference GPU "
+          f"bar 52.63)")
     usage = kernels.ptxas_usage(kernels.build_info["ptxas"])
     for fn, (regs, spill_st, spill_ld) in sorted(usage.items()):
         print(f"phase time: ptxas {fn}: {regs} registers, {spill_st} bytes "
               f"spill stores, {spill_ld} bytes spill loads")
     tm64 = [u for fn, u in usage.items() if "strip_numeric_kernelILi64E" in fn]
-    check(len(tm64) == 1 and tm64[0][0] <= 128 and tm64[0][1:] == (0, 0),
-          f"the 64x128 strip kernel needs <= 128 registers and no spills "
-          f"for two CTAs per SM: {tm64}")
+    check(len(tm64) == 1 and tm64[0][0] <= 168 and tm64[0][1:] == (0, 0),
+          f"the 64x128 strip kernel needs <= 168 registers at launch and no "
+          f"spills for one 384-thread CTA per SM: {tm64}")
     a_t = _torch_csr(a, torch.float32)
     strip_lib_ms = library_ms("torch.sparse.mm(A_csr, A_csr) f32 at the "
                               "cant-like", lambda: torch.sparse.mm(a_t, a_t),
@@ -3171,10 +3194,12 @@ def run() -> dict:
                           f"plan: max_abs_err {g_err}, counts equal {g_cnt}")
     g_ms = cuda_event_ms(lambda: kernels.strip_numeric(*g_ops, **g_kw),
                          warmup=5, iters=50)
-    print(f"phase time: Gaussian values on the main plan (kwin={gs.kwin} "
-          f"pairs={gs.num_pairs}) kernel_ms={g_ms!r} (the three-way split "
-          f"on every k step) max_abs_err={g_err!r} max_abs={g_scale!r}, "
-          f"counts equal")
+    g_device_ms = profiler_device_ms(
+        lambda: kernels.strip_numeric(*g_ops, **g_kw))
+    print(f"{CARD} | phase time: Gaussian values on the main plan "
+          f"(kwin={gs.kwin} pairs={gs.num_pairs}) kernel_ms={g_ms!r} "
+          f"device_ms={g_device_ms!r} (the three-way split on every k "
+          f"step) max_abs_err={g_err!r} max_abs={g_scale!r}, counts equal")
     del g_ops
     print(f"phase time: peak device memory "
           f"{torch.cuda.max_memory_allocated()!r} bytes")
@@ -3252,12 +3277,15 @@ def run() -> dict:
             "launches": launches,
             "max_abs_err": max_abs_err,
             "ms": numeric_ms,
+            "device_ms": device_ms,
             "plain_ms": plain_ms,
             "bound_ms": strip_bound[0],
             "bound_by": strip_bound[1],
             "library_ms": strip_lib_ms,
             "gaussian_ms": g_ms,
+            "gaussian_device_ms": g_device_ms,
             "gaussian_max_abs_err": g_err,
+            "registers": tm64[0][0],
         }] + esc_entries + [dd_entry, oz_entry] + spmm_entries + [
             pair_entry, gather_entry]
     for e in entries:

@@ -24,7 +24,10 @@ library whose C interface both sides share; the Ozaki and SpMM sources
 took new interfaces with their redesign for Hopper (the Ozaki kernel's
 K-major scratch for B, the narrow form's sector map), so a base side
 built from a source of before it is driven through its own interface
-(`_ozaki_old`, `_spmm_old`), on the same device tensors. For the strip, pair and 128-column SpMM kernels
+(`_ozaki_old`, `_spmm_old`), on the same device tensors. The strip and
+pair sources kept their C interfaces when their shared pipeline moved to
+TMA and wgmma, so both sides of those run through the wrapper. For the
+strip, pair and 128-column SpMM kernels
 it also prints each side's worst error on long sums of positive products
 against the f64 product. Each kernel is first checked against its plain
 version (bit-equal with torch.equal, or with standard-normal values

@@ -117,9 +117,12 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include "sm90_async.cuh"
 #include "sm90_common.cuh"
 
 namespace {
+
+using namespace sm90;
 
 constexpr int kMaxSlices = 8;
 constexpr int kKC = 128;             // k bytes of one unit: one swizzled row
@@ -164,203 +167,6 @@ struct Params {
   int64_t row_base, n_rc, n_cc, n_items;  // this launch's row chunks
   int sa, sb, n_groups, nkc;
 };
-
-// ---- shared memory, mbarriers, TMA ---------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// waits for the phase of `parity` to complete; a wait that outlasts any
-// real one (2^26 tries, each up to the hardware's suspend time) traps, so
-// a broken protocol ends the launch with an error instead of hanging it
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    if (tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
-                                       uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
-                                       uint64_t* bar, int c0, int c1,
-                                       int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map,
-                                       uint64_t* bar, int c0, int c1, int c2,
-                                       int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// ---- wgmma ---------------------------------------------------------------
-
-// shared-memory matrix descriptor of a K-major operand in the 128-byte
-// swizzled layout: 128-byte rows, 8-row atoms 1 KB apart (the stride
-// byte offset); the leading byte offset is unused there. Adding 2 to it
-// moves the start 32 bytes along k, one k step of int8 (k32) or bf16 (k16)
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void wg_wait_all() { wg_wait<0>(); }
-
-// keeps the compiler from moving accesses of wgmma's accumulator
-// registers across the asynchronous products
-template <typename T, int R>
-__device__ __forceinline__ void fence_regs(T (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    if constexpr (std::is_same_v<T, float>) {
-      asm volatile("" : "+f"(d[i])::"memory");
-    } else {
-      asm volatile("" : "+r"(d[i])::"memory");
-    }
-  }
-}
-
-// D (64 x N, s32) += A (64 x 32, s8) . B (32 x N, s8), both from shared
-// memory, K-major
-template <int N>
-__device__ __forceinline__ void wgmma_s8(int32_t* d, uint64_t da,
-                                         uint64_t db) {
-  if constexpr (N == 8) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
-        "{%0, %1, %2, %3}, %4, %5, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "l"(da), "l"(db), "r"(1));
-  } else if constexpr (N == 16) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-          "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
-        : "l"(da), "l"(db), "r"(1));
-  } else if constexpr (N == 32) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-        "%13, %14, %15}, %16, %17, p;\n}\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-          "+r"(d[15])
-        : "l"(da), "l"(db), "r"(1));
-  } else {
-    static_assert(N == 8, "no wgmma s8 shape instantiated for this N");
-  }
-}
-
-// D (64 x N, f32) += A (64 x 16, bf16) . B (16 x N, bf16), K-major
-template <int N>
-__device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da,
-                                           uint64_t db) {
-  if constexpr (N == 8) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(da), "l"(db), "r"(1));
-  } else if constexpr (N == 16) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "l"(da), "l"(db), "r"(1));
-  } else if constexpr (N == 32) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
-        "%13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15])
-        : "l"(da), "l"(db), "r"(1));
-  } else {
-    static_assert(N == 8, "no wgmma bf16 shape instantiated for this N");
-  }
-}
-
-template <int I, int N, typename F>
-__device__ __forceinline__ void static_for(F&& f) {
-  if constexpr (I < N) {
-    f(std::integral_constant<int, I>{});
-    static_for<I + 1, N>(f);
-  }
-}
 
 // every product of B slice T (rows of `bslot`) with the ns first slices
 // of the A stack, four k steps of 32: one wgmma (N = H) a slice, into
@@ -766,52 +572,6 @@ int launch_transpose(const void* in, void* out, int64_t batch, int64_t K,
 }
 
 // ---- host: tensor maps and launches --------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
-// query (no link against libcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// a tensor map over `base` with `rank` dims (innermost first), byte
-// strides of dims 1.., the box, 128-byte swizzle, zero fill outside
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
-              int rank, const uint64_t* dims, const uint64_t* strides,
-              const uint32_t* box) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return fn(map, type, static_cast<cuuint32_t>(rank),
-            const_cast<void*>(base),
-            reinterpret_cast<const cuuint64_t*>(dims),
-            reinterpret_cast<const cuuint64_t*>(strides),
-            reinterpret_cast<const cuuint32_t*>(box), ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 struct Operands {
   const void *av8, *a_occ, *bt8, *bt_occ;

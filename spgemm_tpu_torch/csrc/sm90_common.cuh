@@ -1,11 +1,11 @@
 // Device building blocks shared by the tensor-core kernels of the port
-// (strip_numeric.cu, pair_accumulate.cu, spmm_strip.cu), for sm_90a.
+// (spmm_strip.cu, and strip_numeric.cu / pair_accumulate.cu through
+// tile_pipeline.cuh), for sm_90a.
 //
 //   cp.async copies into shared memory, with zero fill for the ragged edge;
 //   the TF32 splits of an f32 value (hi/lo, and the exact hi/mid/lo) and
 //   the TF32-exactness test;
-//   mma.sync.m16n8k8 (tf32) and m16n8k16 (bf16) with f32 accumulation;
-//   ldmatrix (plain and .trans) for 16-bit fragments;
+//   mma.sync.m16n8k8 (tf32) with f32 accumulation;
 //   a host helper that sets a kernel's shared-memory attributes once per
 //   device instead of before every launch, and one that launches a tile's
 //   row chunks by height (for_each_row_part).
@@ -78,31 +78,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
 }
 
 constexpr int kMaxDevices = 64;

@@ -5,14 +5,18 @@ gustavson_strip_pallas` (:538), which reaches the two Pallas strip kernels
 `_strip_window_kernel_factory` (:406, windowed B) and
 `_strip_kernel_factory` (:219, cached B). One CUDA kernel,
 `csrc/strip_numeric.cu`, replaces both: they compute the same function
-from the same plan. It runs on the tensor cores: values as TF32
-products of an exact three-way split of each f32 operand (products exact
-far below f32 rounding, summed as accurately as a sequential f32 sum),
-counts as bf16 products of the 0/1 occupancy planes. It takes every tile
-the reference's strip gate takes on the TPU (tm % 8 == 0, tn % 128 == 0;
-`strip_kernel_takes`), each C tile cut into h x 128 chunks of the heights
-it is instantiated for (`chunk_grid`). The source file's header says what
-bounds the kernel on an H100 and what its design does about it.
+from the same plan. It runs the tile pipeline it shares with the pair
+kernel (`csrc/tile_pipeline.cuh`): one persistent, warp-specialised CTA
+per SM walks the work items (C slot, 128-column chunk, row chunk;
+`item_coords`, `cta_items`), TMA feeds a ring of stages, and tf32 wgmma
+computes C^T = B^T . A^T: values as TF32 products of an exact three-way
+split of each f32 operand (products exact far below f32 rounding, summed
+as accurately as a sequential f32 sum), counts as bf16 products of the
+0/1 occupancy planes. It takes every tile the reference's strip gate
+takes on the TPU (tm % 8 == 0, tn % 128 == 0; `strip_kernel_takes`),
+each C tile cut into h x 128 chunks of the heights it is instantiated for
+(`chunk_grid`). The source files' headers say what bounds the kernel on
+an H100 and what its design does about it.
 
 For a CPU tensor the wrapper runs the plain PyTorch version; for a CUDA
 tensor it launches the kernel or raises. It never falls back. The kernel
@@ -41,11 +45,11 @@ from spgemm_tpu_torch.utils.native import build_shared_library
 
 # The kernel takes any tm % 8 == 0 and tn % COL_CHUNK == 0 tile, cut into
 # chunks of h x 128 (h in CHUNK_HEIGHTS, the instantiated heights: row
-# chunks as row_parts picks them); tk is any multiple of TK_MULTIPLE (its
-# staging copies 16-byte runs of bf16).
+# chunks as row_parts picks them); tk is any multiple of TK_MULTIPLE (the
+# TMA maps need 16-byte row strides of bf16).
 CHUNK_HEIGHTS = (64, 32, 16, 8)
 COL_CHUNK = 128
-MAX_CHUNKS = 65535   # CUDA's grid.y and grid.z limit
+MAX_CHUNKS = 65535   # row and column chunks a tile may have
 TK_MULTIPLE = 8
 # pairs the plain version multiplies at once (bounds its temporaries)
 _PLAIN_CHUNK = 4096
@@ -107,6 +111,17 @@ def ptxas_usage(log: str) -> dict:
     return usage
 
 
+# ptxas's -v codes for wgmma instructions it serialised (an extern call,
+# or input or accumulator registers written by other instructions while a
+# product is in flight)
+WGMMA_SERIALISED = ("C7511", "C7513", "C7515")
+
+
+def serialised_wgmma(log: str) -> int:
+    """The number of ptxas -v reports of serialised wgmma instructions."""
+    return sum(log.count(code) for code in WGMMA_SERIALISED)
+
+
 def load_strip_kernel():
     """Build (once per source hash) and load the strip kernel library.
     Fills `build_info` with the library path, build seconds and the
@@ -156,6 +171,24 @@ def chunk_grid(tm: int, tn: int, heights=CHUNK_HEIGHTS,
             or tn // col_chunk > MAX_CHUNKS:
         return None
     return parts, tn // col_chunk
+
+
+def item_coords(item: int, n_cc: int, n_rc: int) -> tuple:
+    """(C tile, column chunk, row chunk) of work item `item` of one launch
+    of the strip or pair kernel (csrc/tile_pipeline.cuh:item_coords): item
+    = (tile * n_cc + cc) * n_rc + rc, over a launch's n_rc row chunks of
+    one height and the tile's n_cc 128-column chunks."""
+    tile, rest = divmod(item, n_cc * n_rc)
+    cc, rc = divmod(rest, n_rc)
+    return tile, cc, rc
+
+
+def cta_items(n_items: int, sms: int) -> list:
+    """The items each CTA of a persistent launch takes, in its order
+    (csrc/tile_pipeline.cuh:launch_items, run_items): min(n_items, sms)
+    CTAs, CTA c taking items c, c + grid, c + 2*grid, ..."""
+    grid = min(n_items, sms)
+    return [list(range(c, n_items, grid)) for c in range(grid)]
 
 
 def strip_kernel_takes(tm: int, tk: int, tn: int) -> bool:
@@ -258,6 +291,10 @@ def strip_numeric(a_val, a_occ, b_val, b_occ, aptr, ak, slots, *,
                          f"({tm}, {tn}) and tk={tk}")
     if n_blocks * max_cblock >= 2 ** 31:
         raise ValueError("strip kernel grid exceeds 2^31-1 C slots")
+    if any(t.data_ptr() % 16 for t in (a_val, a_occ, b_val, b_occ)):
+        raise ValueError("the strip kernel loads its planes by TMA: the "
+                         "value and occupancy planes must start 16-byte "
+                         "aligned")
     lib = load_strip_kernel()
     c_val = torch.empty(n_blocks * max_cblock, tm, tn, dtype=torch.float32,
                         device=a_val.device)

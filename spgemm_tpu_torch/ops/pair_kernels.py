@@ -4,8 +4,10 @@ its plain PyTorch version.
 `pair_accumulate_cuda` is the port of `spgemm_tpu/ops/pallas_kernels.py:
 pair_accumulate_pallas` (:101), which reaches the Pallas kernel
 `_pair_kernel` (:32): one program per C tile over its (A tile, B tile)
-pairs. Its source, `csrc/pair_accumulate.cu`, says what bounds the kernel
-on an H100 and what its design does about it.
+pairs. The kernel runs the strip kernel's tile pipeline
+(`csrc/tile_pipeline.cuh`: persistent, TMA-fed, tf32 wgmma) on each C
+tile's pair_ptr range. Its source, `csrc/pair_accumulate.cu`, says what
+bounds the kernel on an H100 and what its design does about it.
 
 For CPU tensors the wrapper runs the plain PyTorch version (the XLA
 backend's ops/numeric.py:pair_accumulate over the same pairs); for CUDA
@@ -34,8 +36,8 @@ import torch
 from spgemm_tpu_torch.ops import numeric
 from spgemm_tpu_torch.ops.kernels import build_cuda_library, chunk_grid
 
-# the kernel reads A rows in 16-byte runs of bf16: rows of other widths
-# are padded to a multiple of this with zero columns
+# the kernel's TMA maps need 16-byte row strides of bf16: A rows of other
+# widths are padded to a multiple of this with zero columns
 ROW_MULTIPLE = 8
 OCC_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -167,8 +169,8 @@ def pair_accumulate_cuda(a_val, a_occ, b_val, b_occ, pa, pb, pair_ptr, *,
         a_val = torch.nn.functional.pad(a_val, pad)
         a_occ = torch.nn.functional.pad(a_occ, pad)
     if any(t.data_ptr() % 16 for t in (a_val, a_occ, b_val, b_occ)):
-        raise ValueError("the pair kernel copies 16-byte runs: the value and "
-                         "occupancy planes must start 16-byte aligned")
+        raise ValueError("the pair kernel loads its planes by TMA: the value "
+                         "and occupancy planes must start 16-byte aligned")
     with torch.cuda.device(a_val.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.pair_accumulate_f32(

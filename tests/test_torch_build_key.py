@@ -7,7 +7,8 @@ of loading one built from the old header. Nothing is compiled here.
 
 import os
 
-from spgemm_tpu_torch.ops import kernels, pair_kernels, spmm_kernels
+from spgemm_tpu_torch.ops import (kernels, ozaki_kernels, pair_kernels,
+                                  spmm_kernels)
 from spgemm_tpu_torch.utils import native
 
 
@@ -51,12 +52,18 @@ def test_kernel_sources_key_on_their_headers():
     names = lambda src: [os.path.basename(p)
                          for p in native.source_closure(src)]
     # the strip and pair kernels share the tile pipeline, which includes
-    # the common building blocks: an edit to either rebuilds both
+    # the Hopper helpers (shared with the Ozaki kernel) and the common
+    # building blocks: an edit to any of them rebuilds each kernel using it
     assert names(kernels.KERNEL_SRC) == ["strip_numeric.cu",
                                          "tile_pipeline.cuh",
+                                         "sm90_async.cuh",
                                          "sm90_common.cuh"]
     assert names(pair_kernels.KERNEL_SRC) == ["pair_accumulate.cu",
                                               "tile_pipeline.cuh",
+                                              "sm90_async.cuh",
                                               "sm90_common.cuh"]
+    assert names(ozaki_kernels.KERNEL_SRC) == ["ozaki_strip.cu",
+                                               "sm90_async.cuh",
+                                               "sm90_common.cuh"]
     assert names(spmm_kernels.KERNEL_SRC) == ["spmm_strip.cu",
                                               "sm90_common.cuh"]

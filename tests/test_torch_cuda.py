@@ -153,14 +153,117 @@ def test_kernel_rejects_tk_not_multiple_of_8(card):
     assert got.pattern_equal(exp) and np.array_equal(got.data, exp.data)
 
 
+def _dirty_cache(card):
+    """Leaves NaN in the caching allocator's free blocks, so an output
+    allocated with torch.empty next shows any element a kernel leaves
+    unwritten."""
+    junk = torch.full((1 << 26,), float("nan"), device=card)
+    del junk
+
+
+@pytest.mark.parametrize("tm", [8, 64])
+def test_kernel_block_of_many_slot_words(card, tm):
+    # a block of 64 tile rows holds 128 A tiles, 384 slot words: several
+    # of the producer warp's 32-word ballot passes (and more than the 256
+    # words of one pass of the kernel before)
+    a = _matrix("integer", 12000, 64)
+    args = build_strip_args(pt.csr_to_tiles(a, tm, 128),
+                            pt.csr_to_tiles(a, 128, 128), block_rows=64)
+    aptr = args.aptr
+    words = max((aptr[min(r + 64, args.gm)] - aptr[r]) * args.max_b
+                for r in range(0, args.gm, 64))
+    assert words > 256
+    ops = args.to_device(card)
+    kv, kc = kernels.strip_numeric(*ops, **args.kernel_kwargs())
+    pv, pc = kernels.strip_numeric_plain(*ops, **args.kernel_kwargs())
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(kc, pc)
+
+
+@pytest.mark.parametrize("tm,tn", [(64, 128), (40, 256)])
+def test_kernel_empty_slots_and_tiles_are_zero(card, tm, tn):
+    # padded slots no pair reaches (strip) and C tiles without pairs
+    # (pair) are written as zero into torch.empty outputs
+    a = _matrix("gaussian", 3000, 64)
+    args = build_strip_args(pt.csr_to_tiles(a, tm, tn),
+                            pt.csr_to_tiles(a, tn, tn))
+    ops = args.to_device(card)
+    _dirty_cache(card)
+    kv, kc = kernels.strip_numeric(*ops, **args.kernel_kwargs())
+    torch.cuda.synchronize()
+    unused = np.ones(kv.shape[0], bool)
+    unused[args.gather_idx] = False
+    assert unused.any()
+    assert not torch.isnan(kv).any() and not torch.isnan(kc).any()
+    assert not kv[torch.from_numpy(unused).to(card)].any()
+    at, bt = pt.csr_to_tiles(a, tm, tn), pt.csr_to_tiles(a, tn, tn)
+    sched = build_pair_schedule(at, bt)
+    ops = list(_pair_ops(at, bt, sched, card, torch.bfloat16))
+    # three extra C tiles that no pair reaches, at the front
+    ptr = torch.from_numpy(np.concatenate(
+        [[0, 0, 0], sched.pair_ptr]).astype(np.int32)).to(card)
+    ops[6] = ptr
+    _dirty_cache(card)
+    gv, gc = pair_kernels.pair_accumulate_cuda(*ops,
+                                               num_segments=sched.nt_c + 3)
+    pv, pc = pair_kernels.pair_accumulate_plain(*ops,
+                                                num_segments=sched.nt_c + 3)
+    torch.cuda.synchronize()
+    assert not gv[:3].any() and not gc[:3].any()
+    _assert_close(gv, pv, "gaussian")
+    assert torch.equal(gc, pc)
+
+
+@pytest.mark.parametrize("values", ["integer", "gaussian"])
+def test_kernel_slot_of_many_pairs(card, values):
+    # A tiles 64 x 8 on a band of 160: a C slot sums about 40 (A tile, B
+    # slab) pairs, more than one pair record holds (32)
+    a = _matrix(values, 2000, 160)
+    args = build_strip_args(pt.csr_to_tiles(a, 64, 8),
+                            pt.csr_to_tiles(a, 8, 128))
+    blk = np.repeat(np.arange(args.gm), np.diff(args.aptr)) // args.block_rows
+    sl = np.asarray(args.slots).reshape(-1, args.max_b)[:blk.size]
+    hit = sl < args.max_cblock
+    per_slot = np.bincount((blk[:, None] * args.max_cblock + sl)[hit])
+    assert per_slot.max() > 32
+    ops = args.to_device(card)
+    kv, kc = kernels.strip_numeric(*ops, **args.kernel_kwargs())
+    pv, pc = kernels.strip_numeric_plain(*ops, **args.kernel_kwargs())
+    torch.cuda.synchronize()
+    _assert_close(kv, pv, values)
+    assert torch.equal(kc, pc)
+
+
+def test_main_plan_integer_model_bit_equal(card):
+    # the cant-like 62,451^2 A^2 at 64x128 (bench.py's plan): C bit-equal
+    # to the plain version, counts equal
+    a = cantlike(62451, 64)
+    args = build_strip_args(pt.csr_to_tiles(a, 64, 128),
+                            pt.csr_to_tiles(a, 128, 128))
+    ops = args.to_device(card)
+    kv, kc = kernels.strip_numeric(*ops, **args.kernel_kwargs())
+    pv, pc = kernels.strip_numeric_plain(*ops, **args.kernel_kwargs())
+    torch.cuda.synchronize()
+    assert torch.equal(kv, pv) and torch.equal(kc, pc)
+
+
+def _pipeline_usage(info, kernel):
+    """ptxas's (registers, spill stores, spill loads) of each height's
+    instantiation of a tile-pipeline kernel, and the log."""
+    usage = kernels.ptxas_usage(info["ptxas"])
+    return {fn: v for fn, v in usage.items() if kernel in fn}, info["ptxas"]
+
+
 def test_strip_kernel_registers(card):
-    # two 256-thread CTAs per SM need <= 128 registers a thread
+    # one 384-thread CTA per SM: at most 168 registers a thread at launch
+    # (setmaxnreg then moves the producer's to the consumers), no spills,
+    # and no wgmma that ptxas serialises (C7511, C7513, C7515)
     kernels.load_strip_kernel()
-    usage = kernels.ptxas_usage(kernels.build_info["ptxas"])
-    tm64 = [v for fn, v in usage.items() if "strip_numeric_kernelILi64E" in fn]
-    assert len(tm64) == 1
-    regs, spill_stores, spill_loads = tm64[0]
-    assert regs <= 128 and spill_stores == 0 and spill_loads == 0
+    usage, log = _pipeline_usage(kernels.build_info, "strip_numeric_kernel")
+    assert len(usage) == 4
+    assert all(regs <= 168 and st == ld == 0
+               for regs, st, ld in usage.values()), usage
+    assert kernels.serialised_wgmma(log) == 0
 
 
 def test_kernel_rejects_unsupported_tiles(card):
@@ -486,8 +589,9 @@ def test_ozaki_kernel_padded_slots_are_zero(card, tm, pmax):
 def test_ozaki_kernel_registers(card):
     # one 384-thread CTA per SM (two consumer warpgroups and a producer
     # one) launches at <= 168 registers a thread; ptxas must not
-    # serialise the wgmmas (C7511); the heights 32, 16 and 8 for up to 8
-    # groups, 16 and 8 for all 15. Only the main plan's instantiation (32
+    # serialise the wgmmas (C7511, C7513, C7515); the heights 32, 16 and 8
+    # for up to 8 groups, 16 and 8 for all 15. Only the main plan's
+    # instantiation (32
     # rows, 8 groups: 144 accumulator registers) spills, 72 bytes of loop
     # state on an H100 build (PERF.md)
     ozaki_kernels.load_ozaki_kernel()
@@ -495,7 +599,7 @@ def test_ozaki_kernel_registers(card):
     usage = kernels.ptxas_usage(log)
     inst = {fn: v for fn, v in usage.items() if "ozaki_wgmma_kernel" in fn}
     assert len(inst) == 5
-    assert log.count("C7511") == 0
+    assert kernels.serialised_wgmma(log) == 0
     for fn, (regs, spill_stores, spill_loads) in inst.items():
         assert regs <= 168
         if "ILi32ELi8EE" not in fn:
@@ -819,17 +923,40 @@ def test_pair_kernel_tiles_of_0_1_and_many_pairs(card, tm, tk):
         assert not gv[i].any() and not gc[i].any()
 
 
+@pytest.mark.parametrize("tm", [8, 16, 32, 64])
+@pytest.mark.parametrize("tk", [20, 200])
+def test_pair_kernel_ragged_k_tails(card, tm, tk):
+    # tk 20 and 200: the last 32-deep stage runs past tk, which the TMA
+    # maps zero-fill (A's rows are padded to 24 and 200 columns)
+    for values in ("integer", "gaussian"):
+        a = _matrix(values, 1500, 64)
+        at, bt = pt.csr_to_tiles(a, tm, tk), pt.csr_to_tiles(a, tk, 128)
+        sched = build_pair_schedule(at, bt)
+        ops = _pair_ops(at, bt, sched, card, torch.bfloat16)
+        gv, gc = pair_kernels.pair_accumulate_cuda(*ops,
+                                                   num_segments=sched.nt_c)
+        pv, pc = pair_kernels.pair_accumulate_plain(*ops,
+                                                    num_segments=sched.nt_c)
+        torch.cuda.synchronize()
+        _assert_close(gv, pv, values)
+        assert torch.equal(gc, pc)
+
+
 def test_pair_and_spmm_kernel_registers(card):
-    # two 256-thread CTAs per SM need <= 128 registers a thread: the pair
-    # kernel at tm 64 (the main plan's) and every 128-column SpMM
+    # the pair kernel runs the strip kernel's pipeline: one 384-thread CTA
+    # per SM, at most 168 registers a thread at launch, no spills and no
+    # serialised wgmma (C7511, C7513, C7515) at any height; two 256-thread CTAs
+    # per SM
+    # need <= 128 registers a thread: every 128-column SpMM
     # instantiation, none spilling
     pair_kernels.load_pair_kernel()
     spmm_kernels.load_spmm_kernel()
-    usage = kernels.ptxas_usage(pair_kernels.build_info["ptxas"])
-    pair = {fn: v for fn, v in usage.items() if "pair_accumulate_kernel" in fn}
+    pair, log = _pipeline_usage(pair_kernels.build_info,
+                                "pair_accumulate_kernel")
     assert len(pair) == 4
-    tm64 = [v for fn, v in pair.items() if "ILi64E" in fn]
-    assert len(tm64) == 1 and tm64[0][0] <= 128 and tm64[0][1:] == (0, 0)
+    assert all(regs <= 168 and st == ld == 0
+               for regs, st, ld in pair.values()), pair
+    assert kernels.serialised_wgmma(log) == 0
     usage = kernels.ptxas_usage(spmm_kernels.build_info["ptxas"])
     spmm = [v for fn, v in usage.items() if "spmm_strip_kernel" in fn]
     assert len(spmm) == 4
@@ -1132,7 +1259,7 @@ def long_positive_sums(k=4096, n=256, density=0.3, seed=21):
     return mk(n, k), mk(k, n)
 
 
-@pytest.mark.parametrize("tm", [16, 64])
+@pytest.mark.parametrize("tm", [8, 16, 32, 64])
 def test_strip_kernel_long_positive_sums(card, tm):
     """Long sums of positive products stay within rtol 1e-5, atol
     1e-6*max|C| of the f64 sum, as a sequential f32 sum does: the mma
@@ -1151,7 +1278,7 @@ def test_strip_kernel_long_positive_sums(card, tm):
                                atol=1e-6 * np.abs(ref.data).max())
 
 
-@pytest.mark.parametrize("tm", [16, 64])
+@pytest.mark.parametrize("tm", [8, 16, 32, 64])
 def test_pair_kernel_long_positive_sums(card, tm):
     """The pair kernel (backend="pallas") on the same long positive sums:
     32 (A tile, B tile) pairs per C tile, 512 k8 steps per entry, within

@@ -27,6 +27,7 @@ from spgemm_tpu.utils.generators import banded as j_banded
 
 from spgemm_tpu_torch.ops import gustavson as pg
 from spgemm_tpu_torch.ops import kernels
+from test_torch_strip_arith import emulate_walk, strip_pairs
 
 
 def _matrix(values: str, n: int, band: int, seed: int = 5):
@@ -80,6 +81,48 @@ def test_plain_strip_matches_pallas(tm, tn, n, band, block_rows, window,
     unused = np.ones(pv.shape[0], bool)
     unused[g] = False
     assert not pv.numpy()[unused].any() and not pc.numpy()[unused].any()
+
+
+@pytest.mark.parametrize("tm,tn,n,band,block_rows,tk", [
+    (16, 128, 520, 64, 8, None), (40, 128, 400, 48, 4, None),
+    (64, 256, 700, 90, 4, None), (16, 128, 500, 30, 8, 48)])
+@pytest.mark.parametrize("values", ["integer", "gaussian"])
+def test_pipeline_walk_matches_plain_and_pallas(tm, tn, n, band, block_rows,
+                                                tk, values):
+    """csrc/tile_pipeline.cuh's walk for the strip kernel, emulated
+    (tests/test_torch_strip_arith.py:emulate_walk): the persistent CTAs'
+    items (slot, 128-column chunk, row chunk) in order, each slot's pairs
+    by the ordered scan of its block's slot words, 32-deep stages (a
+    ragged tail at tk 48), the per-stage TF32-exact flag and the
+    transposed split product; against the plain version and the Pallas
+    kernel in interpret mode, from the identical plan. Padded slots come
+    out zero."""
+    a = _matrix(values, n, band)
+    tk = tk or tn
+    jp = j_build_strip_args(jtile.csr_to_tiles(a, tm, tk),
+                            jtile.csr_to_tiles(a, tk, tn),
+                            block_rows=block_rows, window=None)
+    jv, jc = gustavson_strip_pallas(*map(jnp.asarray, jp.device_args()),
+                                    **jp.kernel_kwargs(), interpret=True)
+    pp = _port_plan(jp)
+    ops = pp.to_device("cpu")
+    kw = pp.kernel_kwargs()
+    n_slots = -(-kw["gm"] // kw["block_rows"]) * kw["max_cblock"]
+    ev, ec, order = emulate_walk(ops[:4], n_slots, tn,
+                                 strip_pairs(ops, **kw), sms=6)
+    pv, pc = kernels.strip_numeric_plain(*ops, **kw)
+    _assert_close(ev.numpy(), pv.numpy(), values)
+    assert torch.equal(ec, pc)
+    g = pp.gather_idx
+    _assert_close(ev.numpy()[g], np.asarray(jv)[g], values)
+    np.testing.assert_array_equal(ec.numpy()[g] > 0,
+                                  np.asarray(jc, np.float32)[g] > 0)
+    unused = np.ones(n_slots, bool)
+    unused[g] = False
+    assert unused.any()
+    assert not ev.numpy()[unused].any() and not ec.numpy()[unused].any()
+    parts, n_cc = kernels.chunk_grid(tm, tn)
+    assert len(order) == n_slots * n_cc * sum(n for _, _, n in parts)
 
 
 def test_compaction_matches_jax_including_sign_bit():

@@ -22,12 +22,15 @@ from spgemm_tpu.ops import numeric as jnum
 from spgemm_tpu.ops.pallas_kernels import pair_accumulate_pallas
 from spgemm_tpu.ops.symbolic import build_pair_schedule as j_schedule
 from spgemm_tpu.ops.symbolic import grid_symbolic_nnz as j_grid_nnz
+from spgemm_tpu.utils.generators import banded as j_banded
 
 import spgemm_tpu_torch as pt
+from spgemm_tpu_torch.ops import kernels
 from spgemm_tpu_torch.ops import numeric as pnum
 from spgemm_tpu_torch.ops import pair_kernels
 from spgemm_tpu_torch.ops.symbolic import (PairSchedule, build_pair_schedule,
                                            grid_symbolic_nnz)
+from test_torch_strip_arith import emulate_walk, pair_pairs
 
 SCHEDULE_FIELDS = ("pa", "pb", "seg", "pair_ptr", "ctrow", "ctcol", "c_tptr")
 
@@ -205,6 +208,42 @@ def test_spgemm_pallas_uploads_bf16_occupancy(monkeypatch, values):
     jres = spgemm_tpu.spgemm(ja, jb, backend="pallas")
     _assert_same_csr(res.c.to_csr(), jres.c.to_csr(), values)
     assert res.stats["nnzC"] == jres.stats["nnzC"]
+
+
+@pytest.mark.parametrize("tm,tk", [(16, 128), (24, 20), (8, 200)])
+@pytest.mark.parametrize("values", ["integer", "gaussian"])
+def test_pipeline_walk_matches_plain_and_pallas(tm, tk, values):
+    """csrc/tile_pipeline.cuh's walk for the pair kernel, emulated
+    (tests/test_torch_strip_arith.py:emulate_walk): every C tile's
+    chunks in the persistent CTAs' item order, each pair_ptr range in
+    schedule order, 32-deep stages zero-filled past tk (20, 200: ragged
+    tails), the per-stage TF32-exact flag and the transposed split
+    product; against the plain version and the Pallas kernel in
+    interpret mode. Tiles no pair reaches come out zero."""
+    rng = np.random.default_rng(tm + tk)
+    a = j_banded(rng, 300, 40)
+    if values == "gaussian":
+        a = a.with_data(rng.standard_normal(a.nnz))
+    jt = (jtile.csr_to_tiles(a, tm, tk), jtile.csr_to_tiles(a, tk, 128))
+    sched = j_schedule(*jt)
+    planes = _planes(jt, np.float32)
+    idx = (sched.pa, sched.pb, sched.pair_ptr)
+    jv, jc = pair_accumulate_pallas(*map(jnp.asarray, planes + idx),
+                                    num_segments=sched.nt_c, interpret=True)
+    tp = list(map(torch.from_numpy, planes))
+    ev, ec, order = emulate_walk(tp, sched.nt_c, 128,
+                                 pair_pairs(*map(torch.from_numpy, idx)),
+                                 sms=7)
+    pv, pc = pair_kernels.pair_accumulate_plain(
+        *map(torch.from_numpy, planes + idx), num_segments=sched.nt_c)
+    assert len(order) == sched.nt_c * sum(n for _, _, n in
+                                          kernels.chunk_grid(tm, 128)[0])
+    _assert_close(ev.numpy(), pv.numpy(), values)
+    _assert_close(ev.numpy(), jv, values)
+    assert torch.equal(ec, pc)
+    np.testing.assert_array_equal(ec.numpy() > 0, np.asarray(jc) > 0)
+    empty = np.diff(sched.pair_ptr) == 0
+    assert not ev.numpy()[empty].any() and not ec.numpy()[empty].any()
 
 
 def test_plain_pair_empty_tile_is_zero():

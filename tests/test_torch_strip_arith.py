@@ -25,7 +25,25 @@ ties away from zero, as cvt.rna does) and forms the products in f32 (each
 TF32 x TF32 product is exact in f32); it does not reproduce the mma's
 truncating alignment, which the card tests of long positive sums hold
 (tests/test_torch_cuda.py).
+
+Since the strip and pair kernels' pipeline runs on wgmma
+(csrc/tile_pipeline.cuh), `emulate_walk` below emulates it whole: the
+persistent CTAs' work items (C tile, 128-column chunk, row chunk) in each
+CTA's order, the pairs of each item (the strip kernel's ordered scan of
+its block's slot words, the pair kernel's pair_ptr range), the 32-deep
+stages zero-filled past tk as the TMA maps fill them, the per-stage
+TF32-exact flag (the OR of every staged A and B value's low bits), and
+the transposed product C^T = B^T . A^T one k8 step at a time: one product
+accumulated in place on a TF32-exact stage, else six split products into
+a zeroed partial sum and one round-to-nearest add. Its tensor-core add is
+exact and then rounded, to nearest or (`rz`, a model of the hardware's
+truncating alignment) toward zero. tests/test_torch_kernels.py and
+tests/test_torch_pair.py hold it against the plain versions and the
+Pallas kernels in interpret mode.
 """
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -206,6 +224,19 @@ def test_ptxas_usage_parses_registers_and_spills():
                                         "_Z1gv": (40, 0, 0)}
 
 
+def test_serialised_wgmma_counts_each_ptxas_code():
+    loss = ("ptxas info    : ({}) Potential Performance Loss: "
+            "wgmma.mma_async instructions are serialized due to {}\n")
+    log = (loss.format("C7515", "non wgmma instructions defining accumulator"
+                                " registers")
+           + loss.format("C7511", "the presence of Extern calls")
+           + loss.format("C7513", "non wgmma instructions defining input "
+                                  "registers")
+           + "ptxas info    : (C7519) warpgroup.arrive is injected\n")
+    assert kernels.serialised_wgmma(log) == 3
+    assert kernels.serialised_wgmma("ptxas info    : Used 168 registers") == 0
+
+
 def split3_tf32(x: torch.Tensor):
     """The strip kernel's exact split: x = hi + mid + lo, three TF32
     values."""
@@ -240,3 +271,256 @@ def test_split3_products_are_exact_to_2_pow_minus_30():
     three = (al2.double() * bh2.double() + ah2.double() * bl2.double()
              + ah2.double() * bh2.double())
     assert ((three - exact).abs() > 2.0 ** -24 * exact.abs()).any()
+
+
+# --- the wgmma pipeline's walk (csrc/tile_pipeline.cuh), emulated ---------
+
+KC = 32          # k depth of a stage
+COLS = 128       # C columns of an item
+
+
+def _round_f32(x: torch.Tensor, mode: str) -> torch.Tensor:
+    """f64 -> f32, to nearest ("rn") or toward zero ("rz")."""
+    r = x.float()
+    if mode == "rz":
+        over = r.double().abs() > x.abs()
+        r[over] = torch.nextafter(r[over], torch.zeros_like(r[over]))
+    return r
+
+
+def tensor_product(d, x, y, mode="rn"):
+    """One tensor-core product d + x @ y (x, y TF32 values, d f32 or None
+    for scale-d 0): the products and their sum exact (in f64), then one
+    rounding to f32."""
+    s = x.double() @ y.double()
+    if d is not None:
+        s = s + d.double()
+    return _round_f32(s, mode)
+
+
+def stage_takes_split(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The per-stage flag: whether any staged A or B value has one of the
+    13 low bits TF32 drops set."""
+    return bool(((a.contiguous().view(torch.int32) & 0x1FFF).any())
+                or ((b.contiguous().view(torch.int32) & 0x1FFF).any()))
+
+
+def emulate_chunk(stages, h, mode="rn", in_place=False):
+    """One item's h x 128 chunk from its stages [(A h x 32, A_occ, B 32 x
+    128, B_occ)], as the consumer warpgroups compute C^T = B^T . A^T;
+    `in_place` adds the split products straight into the accumulator
+    (the scheme that biased long positive sums). Returns (values,
+    counts), h x 128 f32."""
+    acc = torch.zeros(COLS, h)
+    cnt = torch.zeros(COLS, h)
+    for a, ao, b, bo in stages:
+        at, bt = a.t(), b.t()            # (32, h), (128, 32)
+        split = stage_takes_split(a, b)
+        ah, am, al = split3_tf32(at.contiguous())
+        bh, bm, bl = split3_tf32(bt.contiguous())
+        for j in range(0, KC, 8):
+            k = slice(j, j + 8)
+            if not split:
+                acc = tensor_product(acc, bt[:, k], at[k], mode)
+                continue
+            # (a part, b part): lo.hi, hi.lo, mid.mid, mid.hi, hi.mid,
+            # hi.hi; B^T's part first in the product
+            terms = ((bh, al), (bl, ah), (bm, am), (bh, am), (bm, ah),
+                     (bh, ah))
+            if in_place:
+                for x, y in terms:
+                    acc = tensor_product(acc, x[:, k], y[k], mode)
+                continue
+            part = None
+            for x, y in terms:
+                part = tensor_product(part, x[:, k], y[k], mode)
+            acc = acc + part             # round to nearest
+        cnt = tensor_product(cnt, bo.t().float(), ao.t().float())
+    return acc.t(), cnt.t()
+
+
+def _box(plane, g, r0, rows, k0, c0, cols, k_axis):
+    """A TMA box of a (tiles, ., .) plane: `rows` x `cols` from (r0, c0)
+    of tile g, k along `k_axis` (1: A's columns, 0: B's rows) from k0,
+    zero past the tile's k extent."""
+    t = plane[g].float()
+    if k_axis == 1:
+        out = torch.zeros(rows, KC)
+        part = t[r0:r0 + rows, k0:k0 + KC]
+    else:
+        out = torch.zeros(KC, cols)
+        part = t[k0:k0 + KC, c0:c0 + cols]
+    out[:part.shape[0], :part.shape[1]] = part
+    return out
+
+
+def strip_pairs(ops, *, gm, max_b, max_cblock, block_rows):
+    """The strip kernel's Walk: slot -> [(A tile, B slab, B column)] in
+    ascending slot word order (csrc/strip_numeric.cu:StripWalk)."""
+    _, _, b_val, _, aptr, ak, slots = ops
+    tn = b_val.shape[2] // max_b
+    aptr, ak, slots = aptr.tolist(), ak.tolist(), slots.tolist()
+
+    def pairs(slot):
+        blk, s = divmod(slot, max_cblock)
+        r0 = blk * block_rows
+        r1 = min(r0 + block_rows, gm)
+        out = []
+        for e in range(aptr[r0] * max_b, aptr[r1] * max_b):
+            if slots[e] == s:
+                g, y = divmod(e, max_b)
+                out.append((g, ak[g], y * tn))
+        return out
+    return pairs
+
+
+def pair_pairs(pa, pb, pair_ptr):
+    """The pair kernel's Walk (csrc/pair_accumulate.cu:PairWalk)."""
+    pa, pb, ptr = pa.tolist(), pb.tolist(), pair_ptr.tolist()
+    return lambda seg: [(pa[j], pb[j], 0) for j in range(ptr[seg],
+                                                          ptr[seg + 1])]
+
+
+def emulate_walk(planes, n_tiles, tn, pairs_of, *, sms=5, mode="rn"):
+    """The persistent launches of csrc/tile_pipeline.cuh on `planes` (A
+    values/occupancy (tiles, tm, tk), B (tiles, tk, ldb)): per row part,
+    each CTA's items in its order, each item's stages, each chunk written
+    once. Returns (c_val, c_cnt, order) with order the (cta, tile, cc,
+    row_off) of each item as run."""
+    a_val, a_occ, b_val, b_occ = planes
+    tm, tk = a_val.shape[1:]
+    c_val = torch.full((n_tiles, tm, tn), float("nan"))
+    c_cnt = torch.full((n_tiles, tm, tn), float("nan"))
+    writes = torch.zeros(n_tiles, tm, tn, dtype=torch.int32)
+    parts, n_cc = kernels.chunk_grid(tm, tn)
+    order = []
+    for h, row_base, n_rc in parts:
+        for cta, items in enumerate(kernels.cta_items(n_tiles * n_cc * n_rc,
+                                                      sms)):
+            for item in items:
+                tile, cc, rc = kernels.item_coords(item, n_cc, n_rc)
+                r0, c0 = row_base + rc * h, cc * COLS
+                order.append((cta, tile, cc, r0))
+                stages = [
+                    (_box(a_val, ga, r0, h, k0, 0, 0, 1),
+                     _box(a_occ, ga, r0, h, k0, 0, 0, 1),
+                     _box(b_val, gb, 0, 0, k0, bcol + c0, COLS, 0),
+                     _box(b_occ, gb, 0, 0, k0, bcol + c0, COLS, 0))
+                    for ga, gb, bcol in pairs_of(tile)
+                    for k0 in range(0, tk, KC)]
+                v, c = emulate_chunk(stages, h, mode)
+                sl = (tile, slice(r0, r0 + h), slice(c0, c0 + COLS))
+                c_val[sl], c_cnt[sl] = v, c
+                writes[sl] += 1
+    assert (writes == 1).all(), "every element is written exactly once"
+    return c_val, c_cnt, order
+
+
+@pytest.mark.parametrize("tm,tn,n_tiles,sms", [
+    (64, 128, 7, 3), (40, 384, 2, 5), (8, 256, 9, 132), (128, 128, 1, 4)])
+def test_work_items_cover_each_chunk_once_in_order(tm, tn, n_tiles, sms):
+    """Each launch's items are (tile, cc, rc) in the CUDA numbering, each
+    exactly once over its CTAs, CTA c taking c, c + grid, ... (grid = the
+    SMs, or fewer items)."""
+    parts, n_cc = kernels.chunk_grid(tm, tn)
+    for h, row_base, n_rc in parts:
+        n_items = n_tiles * n_cc * n_rc
+        per_cta = kernels.cta_items(n_items, sms)
+        assert len(per_cta) == min(n_items, sms)
+        seen = sorted(i for items in per_cta for i in items)
+        assert seen == list(range(n_items))
+        for c, items in enumerate(per_cta):
+            assert items == list(range(c, n_items, len(per_cta)))
+        coords = [kernels.item_coords(i, n_cc, n_rc) for i in range(n_items)]
+        assert coords == [(t, cc, rc) for t in range(n_tiles)
+                          for cc in range(n_cc) for rc in range(n_rc)]
+        for item, (t, cc, rc) in enumerate(coords):
+            assert item == (t * n_cc + cc) * n_rc + rc
+            assert row_base + rc * h + h <= tm
+
+
+def test_chunk_constants_match_the_pipeline_source():
+    """ops/kernels.py's mirrors hold the constants of
+    csrc/tile_pipeline.cuh: the row-chunk heights, the column chunk, the
+    chunk limit and the stage depth the emulation uses."""
+    src = open(os.path.join(os.path.dirname(kernels.KERNEL_SRC),
+                            "tile_pipeline.cuh")).read()
+    heights = re.search(r"for_each_row_part<([\d, ]+)>", src).group(1)
+    assert tuple(int(h) for h in heights.split(",")) == kernels.CHUNK_HEIGHTS
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert const("kTN") == kernels.COL_CHUNK == COLS
+    assert const("kMaxChunks") == kernels.MAX_CHUNKS
+    assert const("kKC") == KC
+
+
+def test_stage_flag_is_one_per_stage():
+    """One value off the TF32 grid anywhere in a stage, in A or in either
+    warpgroup's half of B, sends the whole stage through the split; the
+    zero fill past tk never does."""
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.integers(-9, 10, (16, KC)).astype(np.float32))
+    b = torch.from_numpy(rng.integers(-9, 10, (KC, COLS)).astype(np.float32))
+    assert not stage_takes_split(a, b)
+    for where in ("a_first", "a_last", "b_first", "b_last"):
+        a2, b2 = a.clone(), b.clone()
+        if where == "a_first":
+            a2[0, 0] = 1.0 + 2.0 ** -20
+        elif where == "a_last":
+            a2[-1, -1] = 1.0 + 2.0 ** -20
+        elif where == "b_first":
+            b2[0, 0] = 1.0 + 2.0 ** -20
+        else:
+            b2[-1, -1] = 1.0 + 2.0 ** -20   # the second warpgroup's half
+        assert stage_takes_split(a2, b2)
+        got, _ = emulate_chunk([(a2, a2 != 0, b2, b2 != 0)], 16)
+        exp = a2.double() @ b2.double()
+        assert _within(got.numpy(), exp.numpy()).all()
+    # exact stages give the plain f32 product bit for bit
+    got, cnt = emulate_chunk([(a, a != 0, b, b != 0)], 16)
+    assert torch.equal(got, a @ b)
+    assert torch.equal(cnt, (a != 0).float() @ (b != 0).float())
+
+
+@pytest.mark.parametrize("h", [8, 16, 32, 64])
+def test_transposed_split_within_tolerance(h):
+    """Wide-range values (1e-3..1e3) through the transposed split product,
+    over four pairs of tk 128: within rtol 1e-5, atol 1e-6*max|C| of the
+    f64 product, where TF32 alone is not."""
+    rng = np.random.default_rng(h)
+    a = torch.from_numpy(_wide_gaussian(rng, (4, h, 128)))
+    b = torch.from_numpy(_wide_gaussian(rng, (4, 128, COLS)))
+    stages = [(a[t][:, k:k + KC], a[t][:, k:k + KC] != 0, b[t][k:k + KC],
+               b[t][k:k + KC] != 0)
+              for t in range(4) for k in range(0, 128, KC)]
+    got, _ = emulate_chunk(stages, h)
+    exp = np.einsum("tik,tkj->ij", a.double().numpy(), b.double().numpy())
+    assert _within(got.numpy(), exp).all()
+    tf32 = sum(rna_tf32(x) @ rna_tf32(y) for x, y in zip(a, b))
+    assert not _within(tf32.numpy(), exp).all()
+
+
+@pytest.mark.parametrize("h", [8, 64])
+def test_long_positive_sums_show_no_bias(h):
+    """A long positive sum (k = 4096 at 30% density, ~1,230 products per
+    element) with a truncating tensor-core add: the zeroed partial sums
+    folded by round-to-nearest stay within rtol 1e-5 of the f64 product
+    and show no downward bias, where the same products added in place
+    drift low past it."""
+    rng = np.random.default_rng(21)
+    k = 4096
+    a = (rng.random((h, k)) * (rng.random((h, k)) < 0.3)).astype(np.float32)
+    b = (rng.random((k, COLS)) * (rng.random((k, COLS)) < 0.3)).astype(
+        np.float32)
+    at, bt = torch.from_numpy(a), torch.from_numpy(b)
+    stages = [(at[:, j:j + KC], at[:, j:j + KC] != 0, bt[j:j + KC],
+               bt[j:j + KC] != 0) for j in range(0, k, KC)]
+    exp = a.astype(np.float64) @ b.astype(np.float64)
+    got, _ = emulate_chunk(stages, h, mode="rz")
+    rel = (got.double().numpy() - exp) / exp
+    assert np.abs(rel).max() <= RTOL
+    assert abs(rel.mean()) < 0.1 * RTOL
+    drift, _ = emulate_chunk(stages, h, mode="rz", in_place=True)
+    rel_in_place = (drift.double().numpy() - exp) / exp
+    assert rel_in_place.max() < 0 and np.abs(rel_in_place).max() > RTOL
