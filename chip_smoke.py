@@ -8,12 +8,12 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      kernel, the SpMM strip kernel, the pair kernel and the gather kernel
      from spgemm_tpu_torch/csrc with nvcc (one nvcc per source, all six
      started together) and print the build seconds and each kernel's
-     ptxas registers and spills (the four strip and four pair
-     instantiations, one per chunk height, must launch at <= 168
-     registers, and they, the three scan kernels, the four 128-column and
-     sixteen narrow SpMM instantiations must not spill; the five Ozaki
+     ptxas registers and spills (the four strip, four pair and four
+     128-column SpMM instantiations, one per chunk height, must launch at
+     <= 168 registers, and they, the three scan kernels and the sixteen
+     narrow SpMM instantiations must not spill; the five Ozaki
      instantiations must launch at <= 168 registers; ptxas must not
-     serialise the strip, pair or Ozaki kernels' wgmmas);
+     serialise the strip, pair, SpMM or Ozaki kernels' wgmmas);
   3. compare the strip kernel with its plain PyTorch version on the card,
      on random banded plans: 64x128 and 16x128 A tiles (B 128x128),
      integer values (equal exactly) and Gaussian values (rtol 1e-5, atol
@@ -93,7 +93,9 @@ Phases (each prints a line; any failure exits non-zero, with no result):
  15. time the SpMM kernel and its plain version (CUDA events, median of
      20) on the banded65536 operands at k = 128, SpMV and k = 256, beside
      torch.sparse.mm(A, X) and torch.mv(A, x), with GFLOPS = 2*nnz*k /
-     kernel ms, and the gather route's device time at rmat65536; SpMV
+     kernel ms, and the gather route's device time at rmat65536; k = 128
+     and 256 also with integer X (bit-equal; "integer_ms" and
+     "integer_device_ms" in their JSON entries); SpMV
      and torch.mv also with the L2 cache flushed before each timed call;
      SpMV's bound from its occupied sectors, the dense-tile bound beside;
  16. compare the pair kernel with its plain version on random banded
@@ -357,12 +359,12 @@ def build_kernels() -> None:
           "ptxas serialised the Ozaki kernel's wgmma instructions")
     check(len(scan) == 3 and all(v[1:] == (0, 0) for v in scan),
           f"the scan kernels spill: {scan}")
-    # the strip and pair kernels' pipeline (one 384-thread CTA a SM: <=
-    # 168 registers at launch) at every height: no spills, and ptxas must
-    # not serialise their wgmmas; every 128-column SpMM instantiation must
-    # not spill
+    # the strip and pair kernels' pipeline and SpMM's 128-column form (one
+    # 384-thread CTA a SM: <= 168 registers at launch) at every height: no
+    # spills, and ptxas must not serialise their wgmmas
     for name, info in (("strip_numeric_kernel", kernels.build_info),
-                       ("pair_accumulate_kernel", pair_kernels.build_info)):
+                       ("pair_accumulate_kernel", pair_kernels.build_info),
+                       ("spmm_wgmma_kernel", spmm_kernels.build_info)):
         inst = {fn: v for fn, v in usage.items() if name in fn}
         serial = kernels.serialised_wgmma(info["ptxas"])
         print(f"phase build: {name}, (registers at launch, spill stores, "
@@ -373,9 +375,6 @@ def build_kernels() -> None:
               f"a {name} instantiation needs more than 168 registers or "
               f"spills: {inst}")
         check(serial == 0, f"ptxas serialised the {name}'s wgmmas")
-    spmm = [v for fn, v in usage.items() if "spmm_strip_kernelILi" in fn]
-    check(len(spmm) == 4 and all(v[1:] == (0, 0) for v in spmm),
-          f"a 128-column SpMM instantiation spills: {spmm}")
     narrow = {fn: v for fn, v in usage.items() if "spmm_narrow_kernel" in fn}
     print(f"phase build: narrow SpMM form, (registers, spill stores, spill "
           f"loads) by instantiation: {sorted(narrow.values())}")
@@ -1153,6 +1152,10 @@ def run_spmm_path(suite: dict) -> list:
                                 f"{name}", lambda: torch.sparse.mm(a_t, xd),
                                 iters=20)
         dev_ms = profiler_device_ms(lambda: w(*ops, km, **kw))
+        extra = {}
+        if x.ndim == 2:
+            extra = _spmm_integer_x_time(label, t, k, width, block_rows, km,
+                                         kw, rng)
         lib_dev_ms = None
         if lib_ms is not None:
             lib_dev_ms = profiler_device_ms(
@@ -1187,7 +1190,7 @@ def run_spmm_path(suite: dict) -> list:
             launches=launches[label][0], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms, device_ms=dev_ms,
-            library_device_ms=lib_dev_ms, **flushed))
+            library_device_ms=lib_dev_ms, **flushed, **extra))
         del ops
     del a_t
     gms = pspmm.time_spmm_gather(g, xg, warmup=2, iters=20, device="cuda")
@@ -1195,6 +1198,35 @@ def run_spmm_path(suite: dict) -> list:
           f"GFLOPS={2.0 * g.nnz * SPMM_K / (gms * 1e6)!r} (2*nnz*k / ms)")
     torch.cuda.empty_cache()
     return entries
+
+
+def _spmm_integer_x_time(label, t, k, width, block_rows, km, kw,
+                         rng) -> dict:
+    """The 128-column SpMM form on the same tiles with integer X (the
+    suite's A is integer: one tensor-core product a k8 step), bit-equal to
+    its plain version, timed by CUDA events and torch.profiler:
+    {"integer_ms", "integer_device_ms"}."""
+    import torch
+
+    from spgemm_tpu_torch.ops import spmm_kernels as smk
+    from spgemm_tpu_torch.utils.timing import cuda_event_ms, profiler_device_ms
+
+    w = smk.spmm_strip
+    xi = rng.integers(-4, 5, (t.n, k)).astype(np.float32)
+    ops, _ = _spmm_ops(t, xi, width, block_rows)
+    got = w(*ops, km, **kw)
+    exp = smk.spmm_strip_plain(*ops, km, gm=kw["gm"],
+                               block_rows=kw["block_rows"])
+    torch.cuda.synchronize()
+    check(torch.equal(got, exp), f"SpMM kernel differs from its plain "
+                                 f"version on integer X ({label})")
+    del got, exp
+    ms = cuda_event_ms(lambda: w(*ops, km, **kw), warmup=3, iters=20)
+    dev = profiler_device_ms(lambda: w(*ops, km, **kw))
+    print(f"{CARD} | phase spmm-time: {label} k={k} integer X: "
+          f"kernel_ms={ms!r} device_ms={dev!r} (bit-equal to the plain "
+          f"version)")
+    return {"integer_ms": ms, "integer_device_ms": dev}
 
 
 def _pair_operands(at, bt, sched, device, occ=None):

@@ -3,6 +3,10 @@ checkout's sources against another revision's.
 
     git archive <rev> spgemm_tpu_torch/csrc | tar -x -C _checkout/parent
     python3 kernel_ab.py _checkout/parent/spgemm_tpu_torch/csrc
+    python3 kernel_ab.py <csrc dir> --only spmm_strip   # one source's rows
+
+The other side may also be an edited copy of this checkout's csrc (a
+design variant), compared on the same rows.
 
 Both revisions' `ozaki_strip.cu`, `esc_scan.cu`, `strip_numeric.cu`,
 `pair_accumulate.cu` and `spmm_strip.cu` are built with the port's nvcc
@@ -14,9 +18,10 @@ rmat65536 A^2 (premul and mul), random65536 with standard-normal values
 strip kernel, and the pair kernel on the pair schedule with the bfloat16
 occupancy the pair backend uploads; both also with standard-normal
 values; the strip kernel also at 32x128, 16x128 and 8x128), and the
-suite's banded65536 at 16x128 tiles with standard-normal X, then with
-integer A and X, at k = 128 (resident form) and k = 256 (window form; the
-SpMM kernel's 128-column form), and at k = 1 packed at width 8 (SpMV, the
+suite's banded65536 at 16x128 and 64x128 tiles with standard-normal X,
+then with integer A and X, at k = 128 (resident form) and k = 256 (window
+form; the SpMM kernel's 128-column form), and at 16x128 at k = 1 packed
+at width 8 (SpMV, the
 narrow form; device time by torch.profiler, as the call is shorter than a
 launch), then the new side alone at width 1, SpMV's width since the
 redesign. The port's wrapper drives the new side's library and every
@@ -220,7 +225,7 @@ def _ab(label, calls, plain, close=False):
     return times
 
 
-def _long_sums(libs, old_spmm: bool) -> None:
+def _long_sums(libs, old_spmm: bool, names) -> None:
     """Prints each side's worst error on long sums of positive products,
     max |C - C64| / (1e-5 |C64| + 1e-6 max|C64|) against the f64 product
     of the f32-rounded operands (above 1 misses rtol 1e-5), for the strip
@@ -229,7 +234,8 @@ def _long_sums(libs, old_spmm: bool) -> None:
     entry), and for SpMM's 128-column form on Y = A X with a uniform X at
     k = 128, resident, and 256, windowed (about 1,230 products per
     entry). `libs` maps (kernel, side) to a library; `old_spmm`: the base
-    SpMM library is on the interface before the sector map."""
+    SpMM library is on the interface before the sector map; `names` the
+    kernel sources to check."""
     import torch
 
     import spgemm_tpu_torch as pt
@@ -249,12 +255,16 @@ def _long_sums(libs, old_spmm: bool) -> None:
     at, bt = pt.csr_to_tiles(a_csr, 16, 128), pt.csr_to_tiles(b_csr, 128, 128)
     for name, mod, backend in (("strip_numeric", kernels, "strip"),
                                ("pair_accumulate", pk, "pallas")):
+        if name not in names:
+            continue
         for side in ("base", "new"):
             mod._lib = libs[name, side]
             got = pt.spgemm(at, bt, backend=backend, device="cuda").c
             print(f"{name} long positive sums: {side} worst error / "
                   f"(1e-5|C| + 1e-6 max|C|) = "
                   f"{worst(got.to_csr().to_dense(), ref)!r}")
+    if "spmm_strip" not in names:
+        return
     t = pt.csr_to_tiles(a_csr, 16, 128)
     stats = pspmm._spmm_block_stats(t, 8)
     km = torch.from_numpy(pspmm._window_kmin(t, stats)).to("cuda")
@@ -273,27 +283,22 @@ def _long_sums(libs, old_spmm: bool) -> None:
                   f" / (1e-5|Y| + 1e-6 max|Y|) = {worst(got, ref)!r}")
 
 
-def main(base_dir: str) -> int:
+SOURCES = ("ozaki_strip", "esc_scan", "strip_numeric", "pair_accumulate",
+           "spmm_strip")
+
+
+def main(base_dir: str, only=SOURCES) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("kernel_ab: needs a CUDA card", file=sys.stderr)
         return 1
-    from spgemm_tpu_torch.models.tile import csr_to_tiles
     from spgemm_tpu_torch.ops import kernels
     from spgemm_tpu_torch.ops import ozaki_kernels as ok
     from spgemm_tpu_torch.ops import pair_kernels as pk
     from spgemm_tpu_torch.ops import scan_kernels as sk
-    from spgemm_tpu_torch.ops import spmm as pspmm
     from spgemm_tpu_torch.ops import spmm_kernels as smk
-    from spgemm_tpu_torch.ops.esc import (build_esc_scan_plan,
-                                          choose_group_rows, gather_planes,
-                                          scan_dd_planes)
-    from spgemm_tpu_torch.ops.gustavson import build_strip_args
-    from spgemm_tpu_torch.ops.ozaki import build_ozaki_strip
-    from spgemm_tpu_torch.ops.symbolic import build_pair_schedule
     from spgemm_tpu_torch.utils.generators import cantlike, suite
-    from spgemm_tpu_torch.utils.timing import profiler_device_ms
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -306,6 +311,8 @@ def main(base_dir: str) -> int:
             ("strip_numeric", kernels, _bind_strip),
             ("pair_accumulate", pk, _bind_pair),
             ("spmm_strip", smk, _bind_spmm)):
+        if name not in only:
+            continue
         base_src = os.path.join(base_dir, name + ".cu")
         old[name] = _old_abi(name, base_src)
         base_bind = (lambda lib, b=bind: b(lib, old=True)) if old[name] \
@@ -320,7 +327,35 @@ def main(base_dir: str) -> int:
     sides = lambda name: {side: libs[name, side] for side in ("base", "new")}
     out = {}
 
-    a0 = cantlike(62451, 64)
+    if {"ozaki_strip", "strip_numeric", "pair_accumulate"} & set(only):
+        a0 = cantlike(62451, 64)
+    if "ozaki_strip" in only:
+        _ab_ozaki(a0, sides, old["ozaki_strip"], libs, out)
+    if {"esc_scan", "spmm_strip"} & set(only):
+        mats = suite(65536)
+    if "esc_scan" in only:
+        _ab_scans(mats, sides, out)
+    if "strip_numeric" in only:
+        _ab_strip(a0, sides, out)
+    if "pair_accumulate" in only:
+        _ab_pair(a0, sides, out)
+    _long_sums(libs, old.get("spmm_strip", False), only)
+    torch.cuda.empty_cache()
+    if "spmm_strip" in only:
+        _ab_spmm(mats["banded65536"], sides, old["spmm_strip"], libs, out)
+    print(json.dumps(out))
+    return 0
+
+
+def _ab_ozaki(a0, sides, old_abi, libs, out):
+    """The Ozaki kernel on the cant-like A^2 at 32x128, standard-normal
+    values."""
+    import torch
+
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import ozaki_kernels as ok
+    from spgemm_tpu_torch.ops.ozaki import build_ozaki_strip
+
     a = a0.with_data(np.random.default_rng(0).standard_normal(a0.nnz))
     plan = build_ozaki_strip(csr_to_tiles(a, 32, 128),
                              csr_to_tiles(a, 128, 128), strict=True)
@@ -333,7 +368,7 @@ def main(base_dir: str) -> int:
     run = lambda: ok.ozaki_strip_numeric(*ops, **kw)
     calls = {side: _swap(ok, lib, run)
              for side, lib in sides("ozaki_strip").items()}
-    if old["ozaki_strip"]:
+    if old_abi:
         calls["base"] = lambda: _ozaki_old(libs["ozaki_strip", "base"], ops,
                                            kw)
     out["ozaki_strip"] = _ab(
@@ -342,7 +377,17 @@ def main(base_dir: str) -> int:
     del ops, plan, run
     torch.cuda.empty_cache()
 
-    mats = suite(65536)
+
+def _ab_scans(mats, sides, out):
+    """The premul and mul scans on rmat65536's A^2, double-double on
+    random65536's with standard-normal values."""
+    import torch
+
+    from spgemm_tpu_torch.ops import scan_kernels as sk
+    from spgemm_tpu_torch.ops.esc import (build_esc_scan_plan,
+                                          choose_group_rows, gather_planes,
+                                          scan_dd_planes)
+
     r0 = mats["random65536"]
     rg = r0.with_data(np.random.default_rng(23).standard_normal(r0.nnz))
     for name, m, modes in (("rmat65536", mats["rmat65536"],
@@ -373,8 +418,16 @@ def main(base_dir: str) -> int:
         del meta, p
         torch.cuda.empty_cache()
 
-    # the cant-like A^2 at 64x128 with integer values: the strip kernel on
-    # the main plan, the pair kernel on the pair schedule
+
+def _ab_strip(a0, sides, out):
+    """The strip kernel on the cant-like A^2's main plan at 64x128 with
+    integer values, then with standard-normal ones, then at tm 32, 16, 8."""
+    import torch
+
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import kernels
+    from spgemm_tpu_torch.ops.gustavson import build_strip_args
+
     at, bt = csr_to_tiles(a0, 64, 128), csr_to_tiles(a0, 128, 128)
     args = build_strip_args(at, bt)
     ops = args.to_device("cuda")
@@ -415,6 +468,20 @@ def main(base_dir: str) -> int:
             lambda: kernels.strip_numeric_plain(*hops, **hkw))
         del hops, hargs, hrun
     torch.cuda.empty_cache()
+
+
+def _ab_pair(a0, sides, out):
+    """The pair kernel on the cant-like A^2's pair schedule at 64x128,
+    integer values with the bfloat16 occupancy, then standard-normal
+    values."""
+    import torch
+
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import pair_kernels as pk
+    from spgemm_tpu_torch.ops.symbolic import build_pair_schedule
+
+    at, bt = csr_to_tiles(a0, 64, 128), csr_to_tiles(a0, 128, 128)
+    ag = a0.with_data(np.random.default_rng(0).standard_normal(a0.nnz))
     sched = build_pair_schedule(at, bt)
     up = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to("cuda")
     f32_ops = (up(at.dense(np.float32)), up(at.occ()).float(),
@@ -442,40 +509,51 @@ def main(base_dir: str) -> int:
         close=True)
     del f32_ops, bf16_ops, g_ops, grun, ag
     torch.cuda.empty_cache()
-    _long_sums(libs, old["spmm_strip"])
-    torch.cuda.empty_cache()
 
-    # banded65536 at 16x128: k 128 (resident) and 256 (window), with the
-    # suite's values and standard-normal X, then integer A and X (the
-    # one-product path, bit-equal)
-    band = mats["banded65536"]
-    t = csr_to_tiles(band, 16, 128)
-    t_int = csr_to_tiles(band.with_data(np.random.default_rng(42).integers(
-        1, 10, band.nnz).astype(np.float64)), 16, 128)
+
+def _ab_spmm(band, sides, old_abi, libs, out):
+    """SpMM on the suite's banded65536 at 16x128 and 64x128: k 128
+    (resident) and 256 (window, the 128-column form), with the suite's
+    values and standard-normal X, then integer A and X (the one-product
+    path, bit-equal); then SpMV (the narrow form) at 16x128."""
+    import torch
+
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import spmm as pspmm
+    from spgemm_tpu_torch.ops import spmm_kernels as smk
+    from spgemm_tpu_torch.utils.timing import profiler_device_ms
+
     block_rows = 64
-    stats = pspmm._spmm_block_stats(t, block_rows)
     rng = np.random.default_rng(41)
-    for values, tiles in (("", t), (" integer", t_int)):
-        for k, form in ((128, "resident"), (256, "window")):
-            x = (rng.standard_normal((band.n, k)) if not values else
-                 rng.integers(-4, 5, (band.n, k))).astype(np.float32)
-            ops = pspmm._pack_spmm_operands(tiles, x, k, torch.float32,
-                                            block_rows).to_device("cuda")
-            km = (torch.from_numpy(pspmm._window_kmin(t, stats)).to("cuda")
-                  if form == "window" else None)
-            kw = dict(gm=t.gm, block_rows=block_rows)
-            run = lambda: smk.spmm_strip(*ops, km, **kw)
-            calls = {side: _swap(smk, lib, run)
-                     for side, lib in sides("spmm_strip").items()}
-            if old["spmm_strip"]:
-                calls["base"] = lambda: _spmm_old(libs["spmm_strip", "base"],
-                                                  ops, km, **kw)
-            out[f"spmm_strip_k{k}{values.replace(' ', '_')}"] = _ab(
-                f"spmm_strip banded65536 16x128 k {k} {form}{values}", calls,
-                lambda: smk.spmm_strip_plain(*ops, km, **kw),
-                close=not values)
-            del ops, run, calls
-            torch.cuda.empty_cache()
+    band_int = band.with_data(np.random.default_rng(42).integers(
+        1, 10, band.nnz).astype(np.float64))
+    for tm in (16, 64):
+        t = csr_to_tiles(band, tm, 128)
+        t_int = csr_to_tiles(band_int, tm, 128)
+        stats = pspmm._spmm_block_stats(t, block_rows)
+        for values, tiles in (("", t), (" integer", t_int)):
+            for k, form in ((128, "resident"), (256, "window")):
+                x = (rng.standard_normal((band.n, k)) if not values else
+                     rng.integers(-4, 5, (band.n, k))).astype(np.float32)
+                ops = pspmm._pack_spmm_operands(tiles, x, k, torch.float32,
+                                                block_rows).to_device("cuda")
+                km = (torch.from_numpy(pspmm._window_kmin(t, stats)).to(
+                    "cuda") if form == "window" else None)
+                kw = dict(gm=t.gm, block_rows=block_rows)
+                run = lambda: smk.spmm_strip(*ops, km, **kw)
+                calls = {side: _swap(smk, lib, run)
+                         for side, lib in sides("spmm_strip").items()}
+                if old_abi:
+                    calls["base"] = lambda: _spmm_old(
+                        libs["spmm_strip", "base"], ops, km, **kw)
+                key = "" if tm == 16 else f"_tm{tm}"
+                out[f"spmm_strip_k{k}{values.replace(' ', '_')}{key}"] = _ab(
+                    f"spmm_strip banded65536 {tm}x128 k {k} {form}{values}",
+                    calls, lambda: smk.spmm_strip_plain(*ops, km, **kw),
+                    close=not values)
+                del ops, run, calls
+                torch.cuda.empty_cache()
+    t = csr_to_tiles(band, 16, 128)
     # SpMV: k = 1 packed at width 8 on both sides (the narrow form; the new
     # side reads A by its sector map), then the new side at width 1, the
     # width spmv packs X at since the redesign
@@ -488,7 +566,7 @@ def main(base_dir: str) -> int:
         run = lambda: smk.spmm_strip(*ops, **kw, smap=smap)
         calls = {side: _swap(smk, lib, run)
                  for side, lib in sides("spmm_strip").items()}
-        if old["spmm_strip"]:
+        if old_abi:
             calls["base"] = lambda: _spmm_old(libs["spmm_strip", "base"],
                                               ops, None, **kw)
         if width == 1:
@@ -509,12 +587,18 @@ def main(base_dir: str) -> int:
               f"(torch.profiler): {times}")
         out[f"spmm_strip_spmv_w{width}_device"] = times
         del ops, smap, packed, exp
-    print(json.dumps(out))
-    return 0
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 2:
-        print(__doc__, file=sys.stderr)
-        sys.exit(2)
-    sys.exit(main(sys.argv[1]))
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("base_dir", help="the other revision's csrc directory")
+    ap.add_argument("--only", default=",".join(SOURCES),
+                    help="comma-separated kernel sources to compare, of "
+                         + ", ".join(SOURCES))
+    opts = ap.parse_args()
+    only = tuple(opts.only.split(","))
+    if not set(only) <= set(SOURCES):
+        ap.error(f"--only takes {SOURCES}")
+    sys.exit(main(opts.base_dir, only))

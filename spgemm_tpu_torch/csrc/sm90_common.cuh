@@ -1,11 +1,11 @@
-// Device building blocks shared by the tensor-core kernels of the port
-// (spmm_strip.cu, and strip_numeric.cu / pair_accumulate.cu through
-// tile_pipeline.cuh), for sm_90a.
+// Device building blocks shared by the kernels of the port (spmm_strip.cu,
+// ozaki_strip.cu, dyngather.cu, and strip_numeric.cu / pair_accumulate.cu
+// through tile_pipeline.cuh), for sm_90a.
 //
-//   cp.async copies into shared memory, with zero fill for the ragged edge;
+//   cp.async copies into shared memory, with zero fill for the ragged edge
+//   (the narrow SpMM form's);
 //   the TF32 splits of an f32 value (hi/lo, and the exact hi/mid/lo) and
 //   the TF32-exactness test;
-//   mma.sync.m16n8k8 (tf32) with f32 accumulation;
 //   a host helper that sets a kernel's shared-memory attributes once per
 //   device instead of before every launch, and one that launches a tile's
 //   row chunks by height (for_each_row_part).
@@ -70,14 +70,6 @@ __device__ __forceinline__ void split3_tf32(float x, uint32_t& hi,
   mid = m;
   const float rest = x - __uint_as_float(hi) - __uint_as_float(mid);
   lo = __float_as_uint(rest);  // exact in f32, and TF32-exact
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 constexpr int kMaxDevices = 64;

@@ -19,41 +19,6 @@
 // with y laid out (n_blocks*block_rows, tm, k_pad) as the TPU kernels
 // emit it; the padding rows i >= gm of the last block come out zero.
 //
-// What differs from the TPU kernels, and why (128-column form). The TPU
-// kernels hold X (or a block's X window) in VMEM, stream a block's A
-// tiles by one DMA and stage a whole block's Y in VMEM, over an in-order
-// grid. An H100 CTA has at most 227 KB of shared memory and CTAs run in
-// no order. Here one 256-thread CTA owns a group of consecutive tile rows
-// (128 rows of Y: 128/tm tile rows, one m16 row tile per warp) and one
-// 128-wide chunk of k_pad. Neighbouring tile rows of a band read the same
-// X slabs, so the CTA stages each slab its rows use once, in ascending
-// ak, and every warp whose row has a tile on that slab multiplies it:
-//   - the slab order is a merge of the rows' ak lists (each ascending),
-//     made in the kernel by one warp from (aptr, ak): the next slab is the
-//     least next ak over the rows, so every row still adds its tiles in
-//     ascending ak, and every (row, tile) is visited once. Up to kSchedCap
-//     slabs are merged per pass into shared memory;
-//   - the (slab, 16-deep k chunk) steps stream X (16 x 128) and the rows'
-//     A chunks (128 x 16; a row without a tile on the slab is zero-filled)
-//     through a 4-stage cp.async ring, one barrier per step;
-//   - values multiply on mma.sync.m16n8k8 with f32 accumulation, as the
-//     strip kernel's exact three-way TF32 split: each operand is hi + mid
-//     + lo, and the six partial products above 2^-33 |a.b| go into a
-//     zeroed partial sum that one round-to-nearest add folds into the
-//     accumulator (in-place 3xTF32 biased long positive sums downward
-//     through the mma's truncating alignment and left about 2^-22 |a.b|
-//     per product). X is the operand all eight warps read, so it is split
-//     once per chunk, in shared memory, by the whole CTA (hi in place, mid
-//     and lo into one of two buffers each), one step ahead of its
-//     products; A is split by the warp that owns its rows. The products
-//     skip the terms whose mid and lo are all zero (those of A where the
-//     warp's A fragments are TF32 values, those of X where the chunk's X
-//     is), which adds exact zeros only; where both are TF32 values one
-//     product on the raw bits goes straight into the accumulator, so the
-//     integer model stays bit-equal to the plain version.
-// The tm x 128 accumulators (64 registers) stay in registers and each Y
-// row is written once. No atomics, a fixed accumulation order.
-//
 // Tile heights. Any tm % 8 == 0, the tiles the TPU kernels take. Y = A.X
 // is row-wise, so a (tm, tk) A tile with tm = q*h is q tiles of height h
 // stacked in memory: sub-tile j of tile g is the (h, tk) block at
@@ -62,20 +27,115 @@
 // largest that divides tm, chunk_rows) and walk "virtual" tile rows
 // v = i*q + j: row v takes tile row i's ak list, reads sub-tile j of each
 // of its tiles, and writes Y rows v*h .. v*h+h. No copy of A and no other
-// plan: the merge stores each row's sub-tile index g*q + j beside the
-// slab ak[g]. The q sub-rows of a tall tile row share its ak list, so in
-// the 128-column form they land in one row group (when h*q <= 128) and
-// each X slab is staged once for all of them.
+// plan.
+//
+// What differs from the TPU kernels, and why (128-column form). The TPU
+// kernels hold X (or a block's X window) in VMEM, stream a block's A
+// tiles by one DMA and stage a whole block's Y in VMEM, over an in-order
+// grid. An H100 CTA has at most 227 KB of shared memory and CTAs run in
+// no order. Here the work items are (row group, 128-column chunk of
+// k_pad): a group is kN = 64 consecutive Y rows, G = 64/h virtual rows,
+// and neighbouring tile rows of a band read the same X slabs, so an item
+// stages each slab its rows use once, in ascending ak, for all of them.
+// The items of a group's column chunks are numbered back to back (item =
+// group * n_cc + cc), so they run at once on neighbouring SMs and the
+// group's A tiles come from device memory once and from L2 after.
+//
+// Design: persistent and warp-specialised, on TMA and tf32 wgmma (the
+// strip and pair kernels' pipeline, csrc/tile_pipeline.cuh, with the
+// operand roles of SpMM; a sibling loop, not run_items, because an SpMM
+// stage gathers one A box per present row, carries a row mask and has no
+// counts). One 384-thread CTA per SM walks the items:
+//   - a lookup warp merges each item's G ak lists into slab records: the
+//     next slab is the least next ak over the rows, each row whose next
+//     tile sits on it takes it (so every row adds its tiles in ascending
+//     ak and every (row, tile) is visited once), and a record entry holds
+//     (slab, the mask of rows present, each present row's sub-tile index).
+//     Records run through a ring of kNR, ahead of the loads and products;
+//   - one thread issues, per entry and 32-deep k chunk, one stage of TMA
+//     loads: X (32 x 128 f32, four 32-column boxes in the 128-byte
+//     swizzle) and, for each present row, its sub-tile's A rows (32 x h,
+//     the 128-byte swizzle) at the row's place in the stage. The ring of
+//     stages runs across records and items, so an item's first stages
+//     land while the one before finishes and stores;
+//   - two consumer warpgroups compute Y^T = X^T . A^T with wgmma
+//     m64n64k8: the chunk's 128 columns are M, 64 for each warpgroup, the
+//     group's 64 rows N. X^T is the register A operand (X rows are
+//     k-contiguous, so X^T is M-major, which tf32 refuses from shared
+//     memory): each consumer thread loads its 16 X values of a stage once
+//     with ld.shared and splits them once, in registers, for all the
+//     group's rows. A^T is the shared-memory B operand, K-major as TMA
+//     lands A's k-contiguous rows.
+//
+// Arithmetic (the strip and pair kernels'). Each f32 operand x is split
+// exactly into three TF32 values hi = rna(x), mid = rna(x - hi), lo =
+// x - hi - mid; per k8 step the six partial products larger than 2^-33
+// |a.x| (a's part first, smallest first: lo.hi, hi.lo, mid.mid, mid.hi,
+// hi.mid, hi.hi) go into a zeroed partial accumulator, which one
+// round-to-nearest add folds into the accumulator; two partials
+// alternate, so step j's products run while step j-1's partial is folded.
+// A stage has two flags, each the OR of the 13 low bits TF32 drops over
+// its staged values (named-barrier reductions over the consumers): one
+// for A's present rows, one for X. Where a flag is clear its operand's
+// mid and lo are zero, so the products with them are left out (they add
+// exact zeros) and, for A, its split is skipped: Gaussian X against the
+// suite's integer A is three products a step, not six. The consumers
+// split A's planes, where they must, in shared memory: hi in place, mid
+// and lo into one pair of planes the stages share (a stage's products
+// are drained before the next stage's flag barrier, which the split
+// follows). Where both flags are clear and every row of the group is
+// present, each k8 step is one product on the raw bits accumulated in
+// place: integers below 2^11 then give the plain f32 sum bit for bit
+// (the masked fold below is exact on them too). No --use_fast_math.
+//
+// Absent rows receive nothing. A row of the group with no tile on an
+// entry's slab gets no A load: its rows of the stage hold whatever an
+// earlier stage left there, and its columns of the product are garbage
+// (0 * inf or NaN included). A stage whose entry lacks a row never
+// accumulates in place: its products go into the partial, and the fold
+// adds a row's columns of the partial only where the entry's mask has the
+// row (per register, on the CTA-uniform mask: register i of the
+// m64n64 accumulator holds group row 8*(i/4) + 2*(lane%4) + i%2, which
+// lies in virtual row (8*(i/4))/h for every thread, since h is a multiple
+// of 8: a predicated add). The presence never becomes a branch around
+// wgmma, and every
+// stage drains its wgmma groups before its paths merge: groups in flight
+// across a branch merge made ptxas serialise the strip kernel's wgmmas
+// (C7515, C7513).
+//
+// Ragged depth. X is mapped as the 3-D tensor (gk, tk, k_pad) and A as
+// (ntA_pad*q, h, tk), so a stage past a slab's tk is zero-filled by TMA
+// on both sides and never reads the next slab's rows (0 * inf). TMA needs
+// 16-byte global strides, so A's rows need tk % 4 == 0; the wrapper
+// (ops/spmm_kernels.py:spmm_strip) pads A's rows and X's slabs with zero
+// rows to a multiple of 4 for other tk (one copy of each; the narrow form
+// takes any tk as it is).
+//
+// Y leaves straight from the registers: register i of a warp's 32 lanes
+// covers 8 consecutive columns of 4 rows, four whole 32-byte sectors a
+// store. Rows past the virtual rows are not written; rows with no tile
+// come out zero (the wrapper allocates Y with torch.empty).
+//
+// Variants of this design measured on the card (H100, banded65536 at
+// 16x128 and 64x128, k = 128 and 256, kernel_ab.py in turns; PERF.md):
+// 128 rows a group (m64n128k8; the accumulator and two partials need 192
+// registers of the consumers' 232, and it spilled 180-308 bytes: 0.155
+// against 0.103 ms at k = 128 with Gaussian X); Y staged in shared memory
+// for TMA stores (spilled 24-104 bytes, no faster: the store is not what
+// bounds the kernel); every stage through the masked partial, without
+// the in-place product (integer X 0.073 against 0.064 ms).
 //
 // What bounds it on the card. At the suite's banded65536 with 16x128
 // tiles and k = 128 (8,184 A tiles, gm 4,096, gn 512) the bytes each read
 // or written once are A 67 MB, X 33.5 MB and Y 33.5 MB: 40 us at 3.35
 // TB/s. The dense-tile work is 2*8,184*16*128*128 = 4.3 GFLOP (the useful
 // 2*nnz*k is 1.09 GFLOP): as six split products, 25.8 GFLOP at 495
-// TFLOP/s, 52 us (one product on the integer model, 9 us).
-// So bytes bound it; the L2 -> shared stream of X slabs (about 3 slabs of
-// 64 KB per 128-row group on the band, against one 64 KB slab per A tile
-// when each tile row restaged its own) is what the row groups cut.
+// TFLOP/s, 52 us; with integer A and Gaussian X three products, 26 us
+// (one product on the integer model, 9 us). The groups' rows absent from a
+// slab still take products (masked out): about a third more on the band.
+// The L2 -> shared stream of X (about 3 slabs of 64 KB per 64-row group
+// on the band, against one 64 KB slab per A tile when each tile row
+// staged its own) is what the row groups cut.
 //
 // Narrow form (k <= 32, SpMV first). The TPU pads k to 128 lanes; the
 // 128-column form above would then spend 127/128 of its work on padding
@@ -102,37 +162,45 @@
 // width 8.
 //
 // Limits (checked by the caller, spgemm_tpu_torch/ops/spmm_kernels.py):
-//   tm % 8 == 0; any tk >= 1 (16-byte copies of A rows where tk % 4 == 0,
-//   4-byte copies otherwise; the narrow form's sectors 16-byte copies
-//   where tk % 8 == 0); k_pad a multiple of 128, or 1, 8, 16 or 32
-//   (narrow form, with its sector map); n_blocks*block_rows*q < 2^31 (the
-//   virtual rows) and ntA_pad*q < 2^31 (sub-tile indices); k_pad/128 <
-//   65536. All element offsets are int64.
+//   tm % 8 == 0; the 128-column form tk % 4 == 0 (TMA strides; the
+//   wrapper pads other tk), the narrow form any tk >= 1 (its sectors
+//   16-byte copies where tk % 8 == 0); k_pad a multiple of 128, or 1, 8,
+//   16 or 32 (narrow form, with its sector map); n_blocks*block_rows*q <
+//   2^31 (the virtual rows) and ntA_pad*q < 2^31 (sub-tile indices);
+//   k_pad/128 < 65536; every plane 16-byte aligned. All element offsets
+//   are int64.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC spmm_strip.cu -o libspmm_strip.so
 
 #include <climits>
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
-#include "sm90_common.cuh"
+#include "tile_pipeline.cuh"  // with sm90_async.cuh and sm90_common.cuh
 
 namespace {
 
 using namespace sm90;
+using tile_pipeline::pick;
 
-constexpr int kThreads = 256;
-constexpr int kCols = 128;            // k_pad columns per CTA
-constexpr int kNT = kCols / 8;        // n8 column tiles per warp
-constexpr int kGroupRows = 128;       // Y rows per CTA: one m16 per warp
-constexpr int kXK = 16;               // k depth of one step
-constexpr int kStages = 4;            // cp.async ring depth
-constexpr int kRestBufs = 2;          // X mid and lo planes: this step and
-                                      // the next
-constexpr int kXStride = kCols + 8;   // X rows, words: no bank conflicts
-constexpr int kAStride = kXK + 4;     // A rows, words: no bank conflicts
-constexpr int kSchedCap = 64;         // slabs merged per pass
+constexpr int kCols = 128;            // Y columns per item
+constexpr int kWM = 64;               // of them each consumer warpgroup's
+constexpr int kN = 64;                // Y rows per item: wgmma's N
+constexpr int kKC = 32;               // k depth of a stage: 128 bytes of f32
+constexpr int kThreads = 384;         // two consumer warpgroups, a producer
+constexpr int kConsumerThreads = 256;
+constexpr int kTmaWarp = 8;           // the producer warpgroup's TMA warp
+constexpr int kLookupWarp = 9;        // and its slab-merge warp
+constexpr int kProducerRegs = 40;     // setmaxnreg: 168 a thread at launch
+constexpr int kConsumerRegs = 232;
+constexpr int kFlagBarrier = 1;       // named barrier of the consumers
+constexpr int kNR = 8;                // slab records in flight
+constexpr int kRecSlabs = 16;         // slabs a record holds
+constexpr int kMaxStages = 8;
+constexpr int kSmemPerCta = 232448;   // an H100 CTA's shared memory at most
+constexpr int kXBox = kKC * 128;      // one X box: 32 k rows of 128 bytes
 
 // The sub-tile height for A tiles of tm rows: the largest instantiated
 // height that divides tm; 0 where tm % 8 != 0.
@@ -141,290 +209,465 @@ constexpr int chunk_rows(int64_t tm) {
          : tm % 8 == 0 ? 8 : 0;
 }
 
-template <int TM>
-struct SpmmCfg {
-  static constexpr int R = kGroupRows / TM;        // tile rows per CTA
-  static constexpr int XB = kXK * kXStride * 4;    // stage layout, bytes
-  static constexpr int AB = kGroupRows * kAStride * 4;
-  static constexpr int STAGE = XB + AB;
-  static constexpr int SMEM = kStages * STAGE + 2 * kRestBufs * XB;
-  static_assert(R * TM == kGroupRows && R <= 32, "rows must fill a group");
-  static_assert(XB % 16 == 0 && AB % 16 == 0, "16-byte aligned parts");
+// One published slice of an item's slab merge: n entries, each a slab,
+// the mask of the group's rows with a tile on it (bit r: row r) and each
+// such row's sub-tile index; `last` on the item's final slice. An item
+// with more than kRecSlabs slabs takes several records; one with none
+// takes one record of n = 0.
+template <int G>
+struct SlabRecord {
+  int32_t n, last;
+  int32_t slab[kRecSlabs];
+  uint32_t mask[kRecSlabs];
+  int32_t sub[kRecSlabs][G];
 };
 
-template <int TM>
-__global__ void __launch_bounds__(kThreads, 2)
-spmm_strip_kernel(const float* __restrict__ a,
-                  const float* __restrict__ xb,
-                  const int32_t* __restrict__ aptr,
-                  const int32_t* __restrict__ ak,
-                  float* __restrict__ y,
-                  int64_t gm, int64_t n_rows, int64_t tk, int64_t k_pad,
-                  int64_t n_sub) {
-  // gm and n_rows count virtual rows (tile rows times n_sub); TM is
-  // the sub-tile height
-  using C = SpmmCfg<TM>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int32_t sched_v[kSchedCap];          // slab of each entry
-  __shared__ int32_t sched_g[kSchedCap * C::R];   // each row's sub-tile or -1
-  __shared__ int32_t sched_n;
+// One stage of the ring at sub-tile height H, byte offsets from its start
+// (each swizzled region 1 KB aligned): the group's A rows (kN rows of 128
+// bytes; TMA lands row r's sub-tile at r*H rows, the consumers split it in
+// place into hi), then four X boxes (32 k rows of 128 bytes each). The
+// A mid and lo planes of the split are one pair the stages share.
+template <int H>
+struct SpmmStage {
+  static constexpr int G = kN / H;    // virtual rows a group
+  static constexpr int A = kN * 128;
+  static constexpr int X_OFF = A;
+  static constexpr int BYTES = X_OFF + 4 * kXBox;
+  static constexpr int SPLIT = 2 * A;
+  static constexpr int RECS = kNR * static_cast<int>(sizeof(SlabRecord<G>));
+  // 1 KB of alignment slack, the split planes, the records, the mbarriers
+  static constexpr int FIXED = 1024 + SPLIT + RECS +
+                               (2 * kMaxStages + 2 * kNR) * 8;
+  static constexpr int FIT = (kSmemPerCta - FIXED) / BYTES;
+  static constexpr int STAGES = FIT < kMaxStages ? FIT : kMaxStages;
+  static constexpr int SMEM = 1024 + STAGES * BYTES + SPLIT + RECS +
+                              (2 * STAGES + 2 * kNR) * 8;
+  static_assert(G * H == kN && A % 1024 == 0 && BYTES % 1024 == 0 &&
+                    sizeof(SlabRecord<G>) % 8 == 0 && STAGES >= 2,
+                "stage layout");
+};
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int gid = lane >> 2;  // mma fragment row / column group
-  const int tig = lane & 3;   // thread in group
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * C::R;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.y) * kCols;
-  const int nch = static_cast<int>((tk + kXK - 1) / kXK);
-  const bool vec = (tk & 3) == 0;  // A rows 16-byte aligned
-  // the warp's m16 rows 16*warp .. +15 of the group are tile rows r_lo
-  // (and r_lo + 1 at tm 8)
-  const int r_lo = 16 * warp / TM;
-  float* rest_buf = reinterpret_cast<float*>(smem + kStages * C::STAGE);
+struct SpmmItems {
+  const int32_t* aptr;
+  const int32_t* ak;
+  float* y;                  // (n_rows_v*H, k_pad)
+  int64_t n_items, n_cc;     // (row group, column chunk) items
+  int64_t gm_v, n_rows_v;    // virtual rows with tiles, and all of them
+  int64_t q, k_pad;          // sub-tiles a tile row, Y's row stride
+  int nch;                   // 32-deep k chunks a slab
+};
 
-  // merge cursors: lane r < R of warp 0 walks virtual row row0 + r, sub
-  // j of tile row i
-  int cur = 0;
-  int end = 0;
-  int sub = 0;
-  if (warp == 0 && lane < C::R && row0 + lane < gm) {
-    const int64_t i = (row0 + lane) / n_sub;
-    sub = static_cast<int>(row0 + lane - i * n_sub);
-    cur = aptr[i];
-    end = aptr[i + 1];
-  }
-
-  float acc[kNT][4];
+// acc += part on the group rows `mask` holds (G rows of H; see the top of
+// the file), with round-to-nearest; the other rows keep acc. A predicated
+// add a register (a select of part or 0 before the add was 7% slower on
+// the card)
+template <int H, int R>
+__device__ __forceinline__ void fold_rows(float (&acc)[R], float (&part)[R],
+                                          uint32_t mask) {
+  fence_regs(acc);
+  fence_regs(part);
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
-  }
-
-  // copies k chunk `step % nch` of schedule entry `step / nch` into stage
-  // `buf`: X rows from the entry's slab, A rows from each row's tile
-  auto load_step = [&](int buf, int step) {
-    int tid = threadIdx.x;  // opaque: offsets recomputed per step
-    asm volatile("" : "+r"(tid));
-    const int d = step / nch;
-    const int64_t k0 = static_cast<int64_t>(step - d * nch) * kXK;
-    const int kmax = static_cast<int>(tk - k0 < kXK ? tk - k0 : kXK);
-    float* xs = reinterpret_cast<float*>(smem + buf * C::STAGE);
-    float* as = reinterpret_cast<float*>(smem + buf * C::STAGE + C::XB);
-    const float* xg =
-        xb + (static_cast<int64_t>(sched_v[d]) * tk + k0) * k_pad + c0;
-#pragma unroll
-    for (int j = 0; j < kXK * kCols / 4 / kThreads; ++j) {
-      const int i = tid + j * kThreads;
-      const int kr = i / (kCols / 4);
-      const int c = (i % (kCols / 4)) * 4;
-      const bool in = kr < kmax;
-      cp_async16(xs + kr * kXStride + c, in ? xg + kr * k_pad + c : xb, in);
-    }
-    const int32_t* gs = sched_g + d * C::R;
-    if (vec) {
-#pragma unroll
-      for (int j = 0; j < kGroupRows * kXK / 4 / kThreads; ++j) {
-        const int i = tid + j * kThreads;
-        const int m = i / (kXK / 4);
-        const int c = (i % (kXK / 4)) * 4;
-        const int g = gs[m / TM];
-        const bool in = g >= 0 && c < kmax;
-        cp_async16(as + m * kAStride + c,
-                   in ? a + (static_cast<int64_t>(g) * TM + m % TM) * tk +
-                            k0 + c
-                      : a,
-                   in);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kGroupRows * kXK / kThreads; ++j) {
-        const int i = tid + j * kThreads;
-        const int m = i / kXK;
-        const int c = i % kXK;
-        const int g = gs[m / TM];
-        const bool in = g >= 0 && c < kmax;
-        cp_async4(as + m * kAStride + c,
-                  in ? a + (static_cast<int64_t>(g) * TM + m % TM) * tk +
-                           k0 + c
-                     : a,
-                  in);
-      }
-    }
-  };
-
-  // splits the X chunk of stage `buf` exactly into hi (in place), mid
-  // and lo (mid/lo buffer pair `lb`); true if any of this thread's
-  // values is not a TF32 value
-  auto split_x = [&](int buf, int lb) {
-    uint32_t* xs = reinterpret_cast<uint32_t*>(smem + buf * C::STAGE);
-    uint32_t* xm = reinterpret_cast<uint32_t*>(rest_buf) + lb * (C::XB / 4);
-    uint32_t* xl = xm + kRestBufs * (C::XB / 4);
-    uint32_t low = 0u;
-    // both values a thread splits in flight at tm 64, one at a time
-    // below: so each instantiation stays within 128 registers without a
-    // spill (ptxas: the unrolled loop spilled at tm 16, the rolled one at
-    // tm 64)
-#pragma unroll(TM == 64 ? 2 : 1)
-    for (int j = 0; j < kXK * kCols / 4 / kThreads; ++j) {
-      const int i = tid + j * kThreads;
-      const int off = (i / (kCols / 4)) * kXStride + (i % (kCols / 4)) * 4;
-      uint4 v = *reinterpret_cast<uint4*>(xs + off);
-      uint4 h, m, l;
-      low |= v.x | v.y | v.z | v.w;
-      split3_tf32(__uint_as_float(v.x), h.x, m.x, l.x);
-      split3_tf32(__uint_as_float(v.y), h.y, m.y, l.y);
-      split3_tf32(__uint_as_float(v.z), h.z, m.z, l.z);
-      split3_tf32(__uint_as_float(v.w), h.w, m.w, l.w);
-      *reinterpret_cast<uint4*>(xs + off) = h;
-      *reinterpret_cast<uint4*>(xm + off) = m;
-      *reinterpret_cast<uint4*>(xl + off) = l;
-    }
-    return (low & kTf32Low) != 0u;
-  };
-
-  // the warp's products over stage `buf` (schedule entry d); x_rest: some
-  // X value of the chunk is not a TF32 value (has a nonzero mid or lo)
-  auto compute_step = [&](int buf, int lb, int d, bool x_rest) {
-    const int32_t* gs = sched_g + d * C::R;
-    const bool has = gs[r_lo] >= 0 || (TM < 16 && gs[r_lo + 1] >= 0);
-    if (!has) return;  // warp-uniform: no tile of the warp's rows here
-    const float* as = reinterpret_cast<const float*>(smem + buf * C::STAGE +
-                                                     C::XB);
-    const uint32_t* xh =
-        reinterpret_cast<const uint32_t*>(smem + buf * C::STAGE);
-    const uint32_t* xm = reinterpret_cast<const uint32_t*>(rest_buf) +
-                         lb * (C::XB / 4);
-    const uint32_t* xl = xm + kRestBufs * (C::XB / 4);
-    // two k8 steps, not unrolled: one step's fragments live at a time,
-    // within the 128-register budget
-#pragma unroll 1
-    for (int kk = 0; kk < kXK; kk += 8) {
-      const float* ap = as + (16 * warp + gid) * kAStride + kk + tig;
-      const float af[4] = {ap[0], ap[8 * kAStride], ap[4],
-                           ap[8 * kAStride + 4]};
-      uint32_t low = 0u;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) low |= __float_as_uint(af[q]);
-      const bool a_rest = __any_sync(0xffffffffu, (low & kTf32Low) != 0u);
-      const int b0 = (kk + tig) * kXStride + gid;
-      const int b1 = b0 + 4 * kXStride;
-      if (!a_rest && !x_rest) {
-        // every operand is a TF32 value (integers below 2^11 are): one
-        // product each, exact, on the raw bits
-        const uint32_t ah[4] = {__float_as_uint(af[0]), __float_as_uint(af[1]),
-                                __float_as_uint(af[2]), __float_as_uint(af[3])};
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          mma_tf32(acc[nt], ah, xh[b0 + nt * 8], xh[b1 + nt * 8]);
-        }
-        continue;
-      }
-      uint32_t ah[4], am[4], al[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) split3_tf32(af[q], ah[q], am[q], al[q]);
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        // the strip kernel's six partial products, smallest first, into a
-        // zeroed partial sum, without the terms whose mid or lo is zero
-        // throughout; then one round-to-nearest add
-        const uint32_t h0 = xh[b0 + nt * 8];
-        const uint32_t h1 = xh[b1 + nt * 8];
-        float part[4] = {0.f, 0.f, 0.f, 0.f};
-        if (a_rest) mma_tf32(part, al, h0, h1);
-        if (x_rest) mma_tf32(part, ah, xl[b0 + nt * 8], xl[b1 + nt * 8]);
-        if (a_rest && x_rest) {
-          mma_tf32(part, am, xm[b0 + nt * 8], xm[b1 + nt * 8]);
-        }
-        if (a_rest) mma_tf32(part, am, h0, h1);
-        if (x_rest) mma_tf32(part, ah, xm[b0 + nt * 8], xm[b1 + nt * 8]);
-        mma_tf32(part, ah, h0, h1);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[nt][q] += part[q];
-      }
-    }
-  };
-
-  for (;;) {
-    // merge up to kSchedCap slabs of the rows' ak lists (warp 0)
-    if (warp == 0) {
-      int nd = 0;
-      while (nd < kSchedCap) {
-        const int mine = cur < end ? ak[cur] : INT_MAX;
-        const int v = __reduce_min_sync(0xffffffffu, mine);
-        if (v == INT_MAX) break;
-        if (lane < C::R) {
-          sched_g[nd * C::R + lane] =
-              mine == v ? cur * static_cast<int>(n_sub) + sub : -1;
-        }
-        if (lane == 0) sched_v[nd] = v;
-        cur += mine == v;
-        ++nd;
-      }
-      if (lane == 0) sched_n = nd;
-    }
-    __syncthreads();
-    const int nd = sched_n;
-    if (nd == 0) break;
-
-    // the (slab, k chunk) steps through the ring; chunk s+1 is split
-    // while chunk s is multiplied
-    const int steps = nd * nch;
-#pragma unroll
-    for (int p = 0; p < kStages - 1; ++p) {
-      if (p < steps) load_step(p, p);
-      cp_async_commit();
-    }
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // chunk 0 is visible
-    bool x_rest_mine = split_x(0, 0);
-    for (int step = 0; step < steps; ++step) {
-      cp_async_wait<kStages - 3>();
-      // chunk step+1 is visible, the split of chunk step too; the buffers
-      // the copies and the split below overwrite are no longer read
-      const bool x_rest = __syncthreads_or(x_rest_mine) != 0;
-      if (step + 1 < steps) x_rest_mine = split_x((step + 1) % kStages,
-                                                  (step + 1) % kRestBufs);
-      const int next = step + kStages - 1;
-      if (next < steps) load_step(next % kStages, next);
-      cp_async_commit();
-      compute_step(step % kStages, step % kRestBufs, step / nch, x_rest);
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // stages and schedule are free for the next pass
-  }
-
-  // Y rows of the group: group row m is Y row row0*TM + m
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-    const int64_t col = c0 + nt * 8 + 2 * tig;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = 16 * warp + gid + 8 * h;
-      if (row0 + m / TM < n_rows) {
-        *reinterpret_cast<float2*>(y + (row0 * TM + m) * k_pad + col) =
-            make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
-      }
+  for (int i = 0; i < R; ++i) {
+    if ((mask >> ((8 * (i >> 2)) / H)) & 1u) {
+      acc[i] = __fadd_rn(acc[i], part[i]);
     }
   }
 }
 
-template <int TM>
+template <int H>
+__global__ void __launch_bounds__(kThreads, 1)
+spmm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_x,
+                  const SpmmItems q) {
+  using S = SpmmStage<H>;
+  constexpr int G = S::G;
+  constexpr uint32_t kFull = (1u << G) - 1u;
+  using Rec = SlabRecord<G>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  unsigned char* split = ring + S::STAGES * S::BYTES;  // A mid, lo planes
+  Rec* recs = reinterpret_cast<Rec*>(split + S::SPLIT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(recs + kNR);
+  uint64_t* empty = full + S::STAGES;
+  uint64_t* full_r = empty + S::STAGES;
+  uint64_t* empty_r = full_r + kNR;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    // full: the TMA thread's expect_tx arrival; empty: lane 0 of each
+    // consumer warp; full_r: the lookup warp; empty_r: each consumer warp
+    // and the TMA warp
+    for (int i = 0; i < S::STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumerThreads / 32);
+    }
+    for (int i = 0; i < kNR; ++i) {
+      mbar_init(&full_r[i], 1);
+      mbar_init(&empty_r[i], kConsumerThreads / 32 + 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerThreads / 32) {
+    // ---- producer warpgroup ----------------------------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == kLookupWarp) {
+      // merge each item's rows' ak lists into slab records, in order
+      int rs = 0, rph = 0;
+      auto take = [&]() {
+        if (lane == 0) mbar_wait(&empty_r[rs], rph ^ 1);
+        __syncwarp();
+        return &recs[rs];
+      };
+      auto publish = [&](Rec* r, int n, int last) {
+        __syncwarp();  // every lane's entries are written
+        if (lane == 0) {
+          r->n = n;
+          r->last = last;
+          mbar_arrive(&full_r[rs]);
+        }
+        if (++rs == kNR) {
+          rs = 0;
+          rph ^= 1;
+        }
+      };
+      for (int64_t item = blockIdx.x; item < q.n_items; item += gridDim.x) {
+        // lane r < G walks virtual row group*G + r: sub-tile `sub` of tile
+        // row i, its tiles cur .. end
+        const int64_t v = item / q.n_cc * G + lane;
+        int cur = 0, end = 0, sub = 0;
+        if (lane < G && v < q.gm_v) {
+          const int64_t i = v / q.q;
+          sub = static_cast<int>(v - i * q.q);
+          cur = q.aptr[i];
+          end = q.aptr[i + 1];
+        }
+        Rec* r = take();
+        int n = 0;
+        for (;;) {
+          const int mine = cur < end ? q.ak[cur] : INT_MAX;
+          const int s = __reduce_min_sync(0xffffffffu, mine);
+          if (s == INT_MAX) break;
+          const bool hit = mine == s;
+          const uint32_t mask = __ballot_sync(0xffffffffu, hit);
+          if (n == kRecSlabs) {
+            publish(r, n, 0);
+            r = take();
+            n = 0;
+          }
+          if (hit) r->sub[n][lane] = cur * static_cast<int>(q.q) + sub;
+          if (lane == 0) {
+            r->slab[n] = s;
+            r->mask[n] = mask;
+          }
+          cur += hit;
+          ++n;
+        }
+        publish(r, n, 1);
+      }
+      return;
+    }
+    if (warp != kTmaWarp || lane != 0) return;
+    // one thread issues every stage's TMA loads, record by record
+    int rs = 0, rph = 0, st = 0, ph = 0;
+    for (int64_t item = blockIdx.x; item < q.n_items; item += gridDim.x) {
+      const int c0 = static_cast<int>(item % q.n_cc) * kCols;
+      int last = 0;
+      while (!last) {
+        mbar_wait(&full_r[rs], rph);
+        const Rec* r = &recs[rs];
+        const int n = r->n;
+        last = r->last;
+        for (int e = 0; e < n; ++e) {
+          const int slab = r->slab[e];
+          const uint32_t mask = r->mask[e];
+          const uint32_t tx = 4 * kXBox + __popc(mask) * H * 128;
+          for (int kc = 0; kc < q.nch; ++kc) {
+            const int k0 = kc * kKC;
+            mbar_wait(&empty[st], ph ^ 1);
+            unsigned char* sb = ring + st * S::BYTES;
+            uint64_t* bar = &full[st];
+            mbar_expect_tx(bar, tx);
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              tma_3d(sb + S::X_OFF + b * kXBox, &map_x, bar, c0 + 32 * b, k0,
+                     slab);
+            }
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+              if ((mask >> g) & 1u) {
+                tma_3d(sb + g * H * 128, &map_a, bar, k0, 0, r->sub[e][g]);
+              }
+            }
+            if (++st == S::STAGES) {
+              st = 0;
+              ph ^= 1;
+            }
+          }
+        }
+        mbar_arrive(&empty_r[rs]);
+        if (++rs == kNR) {
+          rs = 0;
+          rph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups --------------------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  constexpr int R = kN / 2;  // accumulator registers a thread (m64n64)
+  constexpr int AIT = kN * 8 / kConsumerThreads;  // A float4s a thread
+  const int tid = threadIdx.x;
+  const int wg = warp >> 2;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  // this thread's X^T fragment at k8 step 0 of a stage: register qq holds
+  // X[k][c], c = wg*64 + 16*(warp%4) + gid (+8 for qq odd), k = tig (+4
+  // for qq >= 2); X box c/32 holds 32 rows of 128 bytes, row k's 16-byte
+  // chunks swizzled by k % 8. Step j is 8j rows (1 KB) further
+  int x_off[4];
+#pragma unroll
+  for (int qq = 0; qq < 4; ++qq) {
+    const int c = wg * kWM + 16 * (warp & 3) + gid + 8 * (qq & 1);
+    const int k = tig + 4 * (qq >> 1);
+    x_off[qq] = S::X_OFF + (c >> 5) * kXBox + k * 128 +
+                ((((c & 31) >> 2) ^ k) << 4) + ((c & 3) << 2);
+  }
+  const uint64_t d_mid = sw128_desc(split);
+  const uint64_t d_lo = sw128_desc(split + S::A);
+  float acc[R], p0[R], p1[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    p0[i] = 0.f;
+    p1[i] = 0.f;
+  }
+  int rs = 0, rph = 0, st = 0, ph = 0;
+  for (int64_t item = blockIdx.x; item < q.n_items; item += gridDim.x) {
+    const int64_t group = item / q.n_cc;
+    const int cc = static_cast<int>(item - group * q.n_cc);
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = 0.f;
+    fence_regs(acc);
+    int last = 0;
+    while (!last) {
+      mbar_wait(&full_r[rs], rph);
+      const Rec* rec = &recs[rs];
+      const int n = rec->n;
+      last = rec->last;
+      for (int e = 0; e < n; ++e) {
+        const uint32_t mask = rec->mask[e];
+        for (int kc = 0; kc < q.nch; ++kc) {
+          mbar_wait(&full[st], ph);
+          unsigned char* sb = ring + st * S::BYTES;
+          // this thread's A values of present rows (16 bytes at a time)
+          // and X^T fragments for the stage's four k8 steps, and the OR of
+          // each operand's low bits over all consumer threads
+          float4 ax[AIT];
+          uint32_t low_a = 0u, low_x = 0u;
+#pragma unroll
+          for (int it = 0; it < AIT; ++it) {
+            const int ci = tid + it * kConsumerThreads;  // row ci / 8
+            ax[it] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if ((mask >> ((ci >> 3) / H)) & 1u) {
+              ax[it] = reinterpret_cast<const float4*>(sb)[ci];
+              low_a |= __float_as_uint(ax[it].x) | __float_as_uint(ax[it].y) |
+                       __float_as_uint(ax[it].z) | __float_as_uint(ax[it].w);
+            }
+          }
+          uint32_t xf[4][4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+#pragma unroll
+            for (int qq = 0; qq < 4; ++qq) {
+              xf[j][qq] = *reinterpret_cast<const uint32_t*>(sb + x_off[qq] +
+                                                             1024 * j);
+              low_x |= xf[j][qq];
+            }
+          }
+          const bool a_rest = bar_red_or(kFlagBarrier, kConsumerThreads,
+                                         (low_a & kTf32Low) != 0u);
+          const bool x_rest = bar_red_or(kFlagBarrier, kConsumerThreads,
+                                         (low_x & kTf32Low) != 0u);
+          const uint64_t d_hi = sw128_desc(sb);
+          if (!a_rest && !x_rest && mask == kFull) {
+            // every operand is a TF32 value and every row present: one
+            // product a k8 step, exact, on the raw bits, in place
+            wg_fence();
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              wgmma_tf32<kN>(acc, xf[j], d_hi + 2 * j, 1);
+            }
+            wg_commit();
+            wg_wait<0>();
+            fence_regs(acc);
+          } else {
+            if (a_rest) {
+              // split the present rows of A into hi (in place), mid and lo
+              // and hand them to the async proxy (the other rows' products
+              // are masked out of the fold)
+#pragma unroll
+              for (int it = 0; it < AIT; ++it) {
+                const int ci = tid + it * kConsumerThreads;
+                if ((mask >> ((ci >> 3) / H)) & 1u) {
+                  uint32_t h[4], m[4], l[4];
+                  split3_tf32(ax[it].x, h[0], m[0], l[0]);
+                  split3_tf32(ax[it].y, h[1], m[1], l[1]);
+                  split3_tf32(ax[it].z, h[2], m[2], l[2]);
+                  split3_tf32(ax[it].w, h[3], m[3], l[3]);
+                  reinterpret_cast<uint4*>(sb)[ci] =
+                      make_uint4(h[0], h[1], h[2], h[3]);
+                  reinterpret_cast<uint4*>(split)[ci] =
+                      make_uint4(m[0], m[1], m[2], m[3]);
+                  reinterpret_cast<uint4*>(split + S::A)[ci] =
+                      make_uint4(l[0], l[1], l[2], l[3]);
+                }
+              }
+              fence_proxy_async();
+              bar_sync(kFlagBarrier, kConsumerThreads);
+            }
+            // the split products of the four k8 steps into alternating
+            // zeroed partials, each folded on the present rows; AR / XR:
+            // A's / X's mid and lo are not all zero
+            auto products = [&](auto ar, auto xr) {
+              constexpr bool AR = decltype(ar)::value;
+              constexpr bool XR = decltype(xr)::value;
+              static_for<0, 4>([&](auto jc) {
+                constexpr int J = decltype(jc)::value;
+                float(&p)[R] = pick<J>(p0, p1);
+                float(&prev)[R] = pick<J + 1>(p0, p1);
+                uint32_t xh[4];
+                [[maybe_unused]] uint32_t xm[4], xl[4];
+#pragma unroll
+                for (int qq = 0; qq < 4; ++qq) {
+                  if constexpr (XR) {
+                    split3_tf32(__uint_as_float(xf[J][qq]), xh[qq], xm[qq],
+                                xl[qq]);
+                  } else {
+                    xh[qq] = xf[J][qq];
+                  }
+                }
+                wg_fence();
+                // (A part, X part): lo.hi, hi.lo, mid.mid, mid.hi, hi.mid,
+                // hi.hi, those with a zero part left out
+                if constexpr (AR) wgmma_tf32<kN>(p, xh, d_lo + 2 * J, 0);
+                if constexpr (XR) wgmma_tf32<kN>(p, xl, d_hi + 2 * J, AR);
+                if constexpr (AR && XR) {
+                  wgmma_tf32<kN>(p, xm, d_mid + 2 * J, 1);
+                }
+                if constexpr (AR) wgmma_tf32<kN>(p, xh, d_mid + 2 * J, 1);
+                if constexpr (XR) wgmma_tf32<kN>(p, xm, d_hi + 2 * J, 1);
+                wgmma_tf32<kN>(p, xh, d_hi + 2 * J, AR || XR);
+                wg_commit();
+                if constexpr (J > 0) {
+                  wg_wait<1>();  // step J-1's products are done
+                  fold_rows<H>(acc, prev, mask);
+                }
+              });
+              wg_wait<0>();
+              fold_rows<H>(acc, p1, mask);
+            };
+            using T = std::true_type;
+            using F = std::false_type;
+            if (a_rest && x_rest) {
+              products(T{}, T{});
+            } else if (a_rest) {
+              products(T{}, F{});
+            } else if (x_rest) {
+              products(F{}, T{});
+            } else {
+              products(F{}, F{});
+            }
+          }
+          // every group of the stage is done: the slot is free (a group
+          // in flight past this merge of the paths made ptxas serialise
+          // the wgmmas)
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[st]);
+          if (++st == S::STAGES) {
+            st = 0;
+            ph ^= 1;
+          }
+        }
+      }
+      // the record's slabs are done
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_r[rs]);
+      if (++rs == kNR) {
+        rs = 0;
+        rph ^= 1;
+      }
+    }
+    fence_regs(acc);
+    // Register 4j + 2i + e holds Y row group*kN + 8j + 2*tig + e, column
+    // cc*128 + wg*64 + 16*(warp%4) + gid + 8i: each warp store fills four
+    // 32-byte sectors
+    const int64_t row0 = group * kN + 2 * tig;
+    const int64_t rows = q.n_rows_v * H;
+    float* yc = q.y + cc * kCols + wg * kWM + 16 * (warp & 3) + gid;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int64_t row = row0 + 8 * (i >> 2) + (i & 1);
+      if (row < rows) yc[row * q.k_pad + 8 * ((i >> 1) & 1)] = acc[i];
+    }
+  }
+}
+
+template <int H>
 int launch(cudaStream_t stream, const float* a, const float* xb,
-           const int32_t* aptr, const int32_t* ak, float* y, int64_t gm,
-           int64_t n_rows, int64_t tk, int64_t k_pad, int64_t n_sub) {
-  using C = SpmmCfg<TM>;
-  // all of the SM's unified L1/shared memory to shared, so two CTAs fit;
-  // set once per device
+           const int32_t* aptr, const int32_t* ak, float* y, int64_t gm_v,
+           int64_t n_rows_v, int64_t tk, int64_t k_pad, int64_t q) {
+  using S = SpmmStage<H>;
   static bool ready[kMaxDevices] = {};
-  const cudaError_t err =
-      set_smem_once(spmm_strip_kernel<TM>, C::SMEM, true, ready);
+  cudaError_t err = set_smem_once(spmm_wgmma_kernel<H>, S::SMEM, true, ready);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>((n_rows + C::R - 1) / C::R),
-                  static_cast<unsigned>(k_pad / kCols));
-  spmm_strip_kernel<TM><<<grid, kThreads, C::SMEM, stream>>>(
-      a, xb, aptr, ak, y, gm, n_rows, tk, k_pad, n_sub);
+  // A as (sub-tiles, H, tk) with boxes of 32 x H, X as (slabs, tk, k_pad)
+  // with boxes of 32 x 32, both in the 128-byte swizzle; the outermost
+  // extents are as many as the card holds (every index a plan names is
+  // real), the inner ones the tiles' own, so TMA zero-fills past tk
+  const uint64_t utk = static_cast<uint64_t>(tk);
+  const uint64_t ukp = static_cast<uint64_t>(k_pad);
+  const uint64_t a_dims[3] = {utk, H, tile_pipeline::max_tiles(H * utk * 4)};
+  const uint64_t x_dims[3] = {ukp, utk,
+                              tile_pipeline::max_tiles(utk * ukp * 4)};
+  if (a_dims[2] == 0 || x_dims[2] == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const uint64_t a_str[2] = {utk * 4, H * utk * 4};
+  const uint64_t x_str[2] = {ukp * 4, utk * ukp * 4};
+  const uint32_t a_box[3] = {kKC, H, 1};
+  const uint32_t x_box[3] = {32, kKC, 1};
+  CUtensorMap ma, mx;
+  if (!make_map(&ma, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a, 3, a_dims, a_str,
+                a_box) ||
+      !make_map(&mx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, xb, 3, x_dims, x_str,
+                x_box)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  SpmmItems it{};
+  it.aptr = aptr;
+  it.ak = ak;
+  it.y = y;
+  it.n_cc = k_pad / kCols;
+  it.n_items = (n_rows_v + S::G - 1) / S::G * it.n_cc;
+  it.gm_v = gm_v;
+  it.n_rows_v = n_rows_v;
+  it.q = q;
+  it.k_pad = k_pad;
+  it.nch = static_cast<int>((tk + kKC - 1) / kKC);
+  const unsigned grid =
+      static_cast<unsigned>(it.n_items < sms ? it.n_items : sms);
+  spmm_wgmma_kernel<H><<<grid, kThreads, S::SMEM, stream>>>(ma, mx, it);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -764,9 +1007,10 @@ extern "C" {
 // uint32 words (bit (r*ceil(tk/8) + s) of a tile's words: row r's values
 // 8s .. 8s+7 hold a stored entry); the 128-column form does not read it.
 // `k_pad` is the packed width of X and Y: 1, 8, 16 or 32 runs the narrow
-// form, a multiple of 128 the 128-column form. `tm` is any multiple of 8:
-// the kernels run its sub-tiles of height chunk_rows(tm). Launches on
-// `stream`, does not synchronise, allocates nothing.
+// form, a multiple of 128 the 128-column form, which takes tk % 4 == 0
+// (its TMA strides). `tm` is any multiple of 8: the kernels run its
+// sub-tiles of height chunk_rows(tm). Launches on `stream`, does not
+// synchronise, allocates nothing.
 int spmm_strip_f32(const void* a, const void* xb, const void* aptr,
                    const void* ak, const void* kmin, const void* smap,
                    void* y, int64_t gm, int64_t block_rows, int64_t n_rows,
@@ -778,7 +1022,7 @@ int spmm_strip_f32(const void* a, const void* xb, const void* aptr,
   if (h == 0 || n_rows <= 0 || n_rows > INT32_MAX / q || n_rows < gm ||
       gm < 1 || block_rows < 1 || tk < 1 || (narrow && smap == nullptr) ||
       (!narrow && (k_pad < kCols || k_pad % kCols != 0 ||
-                   k_pad / kCols > 65535))) {
+                   k_pad / kCols > 65535 || tk % 4 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto st = static_cast<cudaStream_t>(stream);

@@ -9,8 +9,10 @@ same (aptr, ak, arow) plan, so one CUDA source, `csrc/spmm_strip.cu`,
 serves both: `kmin` None is the resident form, `kmin` set the window form.
 The packed width of X and Y picks the kernel: 1, 8, 16 or 32 columns (k
 up to 32, `pack_width`; 1 for SpMV) the narrow form, a multiple of 128
-the 128-column form. The narrow form reads A only in the 32-byte sectors (8 values of a
-tile row) that hold a stored entry, by the sector map
+the 128-column form. The 128-column form is a persistent, TMA-fed tf32
+wgmma pipeline on Y^T = X^T·A^T that stages each X slab once for a group
+of 64 Y rows. The narrow form reads A only in the 32-byte sectors (8
+values of a tile row) that hold a stored entry, by the sector map
 (ops/spmm.py:sector_map) the caller packs beside the tiles. The source's
 header says what bounds each on an H100 and what its design does about
 it.
@@ -37,7 +39,7 @@ import torch
 
 from spgemm_tpu_torch.ops.kernels import CHUNK_HEIGHTS, build_cuda_library
 
-KCOLS = 128          # k_pad is a multiple of this (one CTA per 128 columns)
+KCOLS = 128          # k_pad is a multiple of this (128 columns an item)
 NARROW_WIDTHS = (1, 8, 16, 32)  # packed widths of the narrow form (k <= 32)
 # bytes of temporaries the plain version allows per chunk of A tiles
 _PLAIN_CHUNK_BYTES = 256 << 20
@@ -171,9 +173,10 @@ def spmm_strip(a_dense, xb, aptr, ak, arow, kmin=None, *, gm: int,
     (ntA_pad, map_words(tm, tk)) int32 (SpmmOperands.sector_map_to).
     Returns Y (n_blocks*block_rows, tm, k_pad); rows past gm are zero.
     k_pad is xb's packed width: 1, 8, 16 or 32 launches the narrow form,
-    a multiple of 128 the 128-column form. CPU tensors run spmm_strip_plain
-    (f32 or f64, any width); CUDA tensors launch csrc/spmm_strip.cu (f32
-    only)."""
+    a multiple of 128 the 128-column form (which takes A's rows padded
+    to a multiple of 4 columns: the wrapper pads A and X where tk is not
+    one). CPU tensors run spmm_strip_plain (f32 or f64, any width); CUDA
+    tensors launch csrc/spmm_strip.cu (f32 only)."""
     kw = dict(gm=gm, block_rows=block_rows)
     n_blocks = _check_operands(a_dense, xb, aptr, ak, arow, kmin, smap=smap,
                                **kw)
@@ -205,6 +208,14 @@ def spmm_strip(a_dense, xb, aptr, ak, arow, kmin=None, *, gm: int,
     if a_dense.data_ptr() % 16 or xb.data_ptr() % 16:
         raise ValueError("the SpMM kernel copies 16-byte runs: a_dense and "
                          "xb must start 16-byte aligned")
+    if not narrow and tk % 4:
+        # the 128-column form loads A's rows by TMA, which needs 16-byte
+        # row strides: zero columns of A and zero rows of X's slabs up to
+        # a multiple of 4 (one copy of each; they add exact zeros)
+        pad = -tk % 4
+        a_dense = torch.nn.functional.pad(a_dense, (0, pad))
+        xb = torch.nn.functional.pad(xb, (0, 0, 0, pad))
+        tk += pad
     lib = load_spmm_kernel()
     y = torch.empty(n_rows, tm, k_pad, dtype=torch.float32,
                     device=a_dense.device)

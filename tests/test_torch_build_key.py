@@ -53,7 +53,8 @@ def test_kernel_sources_key_on_their_headers():
                          for p in native.source_closure(src)]
     # the strip and pair kernels share the tile pipeline, which includes
     # the Hopper helpers (shared with the Ozaki kernel) and the common
-    # building blocks: an edit to any of them rebuilds each kernel using it
+    # building blocks, and the SpMM kernel takes its helpers from it: an
+    # edit to any of them rebuilds each kernel using it
     assert names(kernels.KERNEL_SRC) == ["strip_numeric.cu",
                                          "tile_pipeline.cuh",
                                          "sm90_async.cuh",
@@ -66,4 +67,6 @@ def test_kernel_sources_key_on_their_headers():
                                                "sm90_async.cuh",
                                                "sm90_common.cuh"]
     assert names(spmm_kernels.KERNEL_SRC) == ["spmm_strip.cu",
+                                              "tile_pipeline.cuh",
+                                              "sm90_async.cuh",
                                               "sm90_common.cuh"]

@@ -707,12 +707,32 @@ def _spmm_matrix(values: str):
     return pt.CSR.from_coo(r[keep], a.indices[keep], a.data[keep], a.shape)
 
 
-@pytest.mark.parametrize("tm", [8, 16, 32, 64])
-@pytest.mark.parametrize("tk", [16, 18, 128])
+@pytest.fixture
+def nan_empty(monkeypatch):
+    """torch.empty returns NaN-filled tensors while it is on, so a kernel
+    output the wrapper allocates shows every element it fails to write."""
+    real = torch.empty
+
+    def empty(*args, **kw):
+        return real(*args, **kw).fill_(float("nan"))
+
+    monkeypatch.setattr(torch, "empty", empty)
+    return monkeypatch
+
+
+@pytest.mark.parametrize("tm", [8, 16, 32, 64, 24, 128])
+@pytest.mark.parametrize("tk", [16, 18, 128, 48, 40, 6])
 @pytest.mark.parametrize("k_pad", [128, 256, 384])
-def test_spmm_kernel_matches_plain(card, tm, tk, k_pad):
-    # block_rows 6: the kernel's row groups (128/tm tile rows) span block
-    # edges and the last group is not full; tk 18 takes 4-byte A copies
+def test_spmm_kernel_matches_plain(card, nan_empty, tm, tk, k_pad):
+    """The 128-column form at every compiled height (8, 16, 32, 64) and two
+    chunked ones (24: three 8-row sub-tiles; 128: two of 64), k_pad 128,
+    256 and 384, resident and windowed, tk 128, 48, 40 and 16 (ragged
+    32-deep stages) and 18 and 6 (A's rows not 16-byte strided: the
+    wrapper pads them). Y comes out of a NaN-filled allocation; block_rows
+    6 makes the kernel's row groups (64/h virtual rows) span block edges
+    and leaves the last group past gm; two empty row ranges leave whole
+    groups without a tile: integer X bit-equal to the plain version,
+    Gaussian X within rtol 1e-5, atol 1e-6*max|Y|, every row written."""
     rng = np.random.default_rng(31)
     for values in ("integer", "gaussian"):
         a = _spmm_matrix(values)
@@ -733,6 +753,7 @@ def test_spmm_kernel_matches_plain(card, tm, tk, k_pad):
             torch.cuda.synchronize()
             assert (w.kernel_launches, w.plain_launches) == (before[0] + 1,
                                                              before[1])
+            assert not torch.isnan(got).any()
             _assert_close(got, exp, values)
             assert not got[t.gm:].any()  # the block padding rows
 
@@ -750,6 +771,55 @@ def test_spmm_kernel_wide_range_values(card):
     got = spmm_kernels.spmm_strip(*ops, gm=t.gm, block_rows=8)
     exp = spmm_kernels.spmm_strip_plain(*ops, gm=t.gm, block_rows=8)
     _assert_close(got, exp, "gaussian")
+
+
+def _absent_rows_case(tm, seed=37):
+    """1024^2 in tm x 128 tiles, each (tile row, 128-column block) tile
+    present with probability 1/2 (integer values, 30% dense inside), so
+    on every X slab some tile rows of a row group have a tile and their
+    neighbours have none."""
+    rng = np.random.default_rng(seed)
+    n = 1024
+    on = rng.random((n // tm, n // 128)) < 0.5
+    on[:, 0] = True
+    d = np.kron(on, np.ones((tm, 128))) * (rng.random((n, n)) < 0.3)
+    d = d * rng.integers(1, 10, (n, n))
+    a = pt.CSR.from_dense(d.astype(np.float64))
+    return a, pt.csr_to_tiles(a, tm, 128), rng
+
+
+@pytest.mark.parametrize("tm", [8, 16])
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+def test_spmm_kernel_nonfinite_x_absent_rows_as_plain(card, tm, bad):
+    """NaN, and separately +inf, in X rows of slabs on which only some of
+    a row group's tile rows have a tile: Y is non-finite where the plain
+    version's (the dense tile products) is, and nowhere else; a row with
+    no tile on the slab gets nothing from it. The exact split turns a*inf
+    into NaN where the plain version gives inf, so the positions are
+    compared by isfinite, and the finite entries within rtol 1e-5."""
+    a, t, rng = _absent_rows_case(tm)
+    x = rng.standard_normal((a.n, 128))
+    for r, c in ((300, 5), (301, 5), (700, 77), (1000, 127)):
+        x[r, c] = bad
+    packed = pspmm._pack_spmm_operands(t, x, 128, torch.float32, 4)
+    stats = pspmm._spmm_block_stats(t, 4)
+    kmin = torch.from_numpy(pspmm._window_kmin(t, stats)).to(card)
+    ops = packed.to_device(card)
+    for form in (None, kmin):
+        got = spmm_kernels.spmm_strip(*ops, form, gm=t.gm, block_rows=4)
+        exp = spmm_kernels.spmm_strip_plain(*ops, form, gm=t.gm,
+                                            block_rows=4)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(exp)
+        # the case arises: in the bad columns, some tile rows are finite
+        assert bool(fin[:, :, 5].any()) and not bool(fin[:, :, 5].all())
+        wrong = torch.isfinite(got) != fin
+        assert not wrong.any(), (
+            f"{int(wrong.sum())} of {fin.numel()} entries ({int(fin.sum())} "
+            f"finite in the plain version) differ in finiteness, in "
+            f"{int(wrong.any(2).any(1).sum())} tile rows")
+        _assert_close(torch.where(fin, got, 0), torch.where(fin, exp, 0),
+                      "gaussian")
 
 
 @pytest.mark.parametrize("tm", [8, 16, 64])
@@ -943,12 +1013,10 @@ def test_pair_kernel_ragged_k_tails(card, tm, tk):
 
 
 def test_pair_and_spmm_kernel_registers(card):
-    # the pair kernel runs the strip kernel's pipeline: one 384-thread CTA
-    # per SM, at most 168 registers a thread at launch, no spills and no
-    # serialised wgmma (C7511, C7513, C7515) at any height; two 256-thread CTAs
-    # per SM
-    # need <= 128 registers a thread: every 128-column SpMM
-    # instantiation, none spilling
+    # the pair kernel runs the strip kernel's pipeline, and SpMM's
+    # 128-column form a sibling of it: one 384-thread CTA per SM, at most
+    # 168 registers a thread at launch, no spills and no serialised wgmma
+    # (C7511, C7513, C7515) at any height
     pair_kernels.load_pair_kernel()
     spmm_kernels.load_spmm_kernel()
     pair, log = _pipeline_usage(pair_kernels.build_info,
@@ -957,10 +1025,12 @@ def test_pair_and_spmm_kernel_registers(card):
     assert all(regs <= 168 and st == ld == 0
                for regs, st, ld in pair.values()), pair
     assert kernels.serialised_wgmma(log) == 0
-    usage = kernels.ptxas_usage(spmm_kernels.build_info["ptxas"])
-    spmm = [v for fn, v in usage.items() if "spmm_strip_kernel" in fn]
+    spmm, log = _pipeline_usage(spmm_kernels.build_info, "spmm_wgmma_kernel")
     assert len(spmm) == 4
-    assert all(regs <= 128 and st == ld == 0 for regs, st, ld in spmm)
+    assert all(regs <= 168 and st == ld == 0
+               for regs, st, ld in spmm.values()), spmm
+    assert kernels.serialised_wgmma(log) == 0
+    usage = kernels.ptxas_usage(spmm_kernels.build_info["ptxas"])
     # the narrow form: every height and width (1, 8, 16, 32), none
     # spilling
     narrow = [v for fn, v in usage.items() if "spmm_narrow_kernel" in fn]

@@ -13,11 +13,14 @@ truncating alignment biased long positive sums downward; the first tests
 below still hold its emulation to the kernels' card tolerance (rtol 1e-5,
 atol 1e-6*max|C| of an f64 product, at tk = 128, on Gaussian values
 spanning 1e-3..1e3) as the yardstick TF32 alone must miss. The SpMM
-kernel splits each X chunk into hi/mid/lo planes once, for all warps, and
-skips the products whose mid and lo operand is zero throughout (those of
-A where its fragments are TF32 values, those of X where the chunk's X
-is); adding those zero products changes no partial sum, so the skipped
-and the full sums agree bit for bit, at the SpMM and pair shapes. Where
+kernel splits each X value once, in the registers of the thread that
+feeds it to wgmma, for all the rows of its group, and skips the products
+whose mid and lo operand is zero throughout a stage (those of A where its
+present rows are TF32 values, those of X where the stage's X is); adding
+those zero products changes no partial sum, so the skipped and the full
+sums agree bit for bit, at the SpMM and pair shapes
+(tests/test_torch_spmm_walk.py emulates the SpMM kernel's walk and
+arithmetic whole, with its masked fold of absent rows). Where
 every operand of a step is a TF32 value (integers below 2^11) the kernels
 run one product on the raw bits, and the sum equals the plain f32 one
 exactly. The emulation rounds to TF32 by bit masking (round to nearest,
