@@ -136,10 +136,16 @@ def main(argv=None) -> int:
     tms = res.timings_ms
     # the route on stderr: stdout keeps the JAX CLI's lines
     print(f"route: {res.stats['backend']}", file=sys.stderr)
-    print(f"step times: symbolic {tms['symbolic_ms']:.2f} ms, "
+    # a phase or counter the route does not have prints as "-"
+    ms = lambda k: f"{tms[k]:.2f} ms" if k in tms else "-"
+    nb = lambda k: f"{int(res.stats[k])} B" if k in res.stats else "-"
+    print(f"step times: route {ms('route_ms')}, tile {ms('tile_ms')}, "
+          f"symbolic {tms['symbolic_ms']:.2f} ms, "
           f"upload {tms['upload_ms']:.2f} ms, "
           f"numeric {tms['numeric_ms']:.2f} ms, "
-          f"compact {tms['compact_ms']:.2f} ms")
+          f"compact {tms['compact_ms']:.2f} ms, "
+          f"download {ms('download_ms')}, result {ms('result_ms')}; "
+          f"h2d {nb('h2d_bytes')}, d2h {nb('d2h_bytes')}")
     print(f"numtile(C): {int(res.stats['numblkC'])} "
           f"(candidates {int(res.stats['numblkC_candidate'])})")
     print(f"nnz(C): {c.nnz}  compression: "

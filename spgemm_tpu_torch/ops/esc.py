@@ -30,7 +30,6 @@ with no hand kernel. Padding products carry av = 0 and add exactly 0.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -38,8 +37,9 @@ import torch
 from spgemm_tpu_torch.models.csr import CSR, INDEX_DTYPE
 from spgemm_tpu_torch.ops import scan_kernels
 from spgemm_tpu_torch.ops.gustavson import full_fp32
-from spgemm_tpu_torch.utils.timing import (cuda_event_ms, profiler_device_ms,
-                                           resolve_device)
+from spgemm_tpu_torch.utils.timing import (count_bytes, cuda_event_ms,
+                                           profiler_device_ms, resolve_device,
+                                           span)
 
 SCAN_WIN = 128
 SCAN_BLK = 2048   # plans pad R to a multiple of this many rows
@@ -212,32 +212,33 @@ def build_esc_plan(a: CSR, b: CSR, *, s_slots: int = S_SLOTS,
                    f_max: int = W_MAX) -> EscPlan:
     """Host symbolic of the digit mode: products -> (group, slot). Native
     C++ (native/csr2tile.cpp esc_* passes) with a NumPy fallback."""
-    t0 = time.perf_counter()
-    if a.n != b.m:
-        raise ValueError(f"dimension mismatch: {a.shape} @ {b.shape}")
-    from spgemm_tpu_torch.utils.native import esc_symbolic_native
+    t: dict[str, float] = {}
+    with span("symbolic", t):
+        if a.n != b.m:
+            raise ValueError(f"dimension mismatch: {a.shape} @ {b.shape}")
+        from spgemm_tpu_torch.utils.native import esc_symbolic_native
 
-    res = esc_symbolic_native(a, b, s_slots, f_max, W_MIN)
-    if res is None:
-        res = _esc_symbolic_numpy(a, b, s_slots, f_max)
-    (c_indptr, c_indices, total, _, asrc, bsrc, slot, layout, av, bv) = res
-    plan = EscPlan(
-        shape=(a.m, b.n), c_indptr=np.asarray(c_indptr, np.int64),
-        c_indices=c_indices.astype(INDEX_DTYPE, copy=False),
-        nnz_c=int(c_indptr[-1]), num_products=int(total), classes=[],
-        a_src=[], b_src=[], s_slots=s_slots,
-    )
-    for cls in layout["classes"]:
-        g, w, o = cls["g"], cls["w"], cls["flat_ofs"]
-        plan.classes.append(dict(
-            w=w, av=av[o : o + g * w].reshape(g, w),
-            bv=bv[o : o + g * w].reshape(g, w),
-            slot=slot[o : o + g * w].reshape(g, w),
-            base=cls["base"], glen=cls["glen"],
-        ))
-        plan.a_src.append(asrc[o : o + g * w])
-        plan.b_src.append(bsrc[o : o + g * w])
-    plan.symbolic_ms = (time.perf_counter() - t0) * 1e3
+        res = esc_symbolic_native(a, b, s_slots, f_max, W_MIN)
+        if res is None:
+            res = _esc_symbolic_numpy(a, b, s_slots, f_max)
+        (c_indptr, c_indices, total, _, asrc, bsrc, slot, layout, av, bv) = res
+        plan = EscPlan(
+            shape=(a.m, b.n), c_indptr=np.asarray(c_indptr, np.int64),
+            c_indices=c_indices.astype(INDEX_DTYPE, copy=False),
+            nnz_c=int(c_indptr[-1]), num_products=int(total), classes=[],
+            a_src=[], b_src=[], s_slots=s_slots,
+        )
+        for cls in layout["classes"]:
+            g, w, o = cls["g"], cls["w"], cls["flat_ofs"]
+            plan.classes.append(dict(
+                w=w, av=av[o : o + g * w].reshape(g, w),
+                bv=bv[o : o + g * w].reshape(g, w),
+                slot=slot[o : o + g * w].reshape(g, w),
+                base=cls["base"], glen=cls["glen"],
+            ))
+            plan.a_src.append(asrc[o : o + g * w])
+            plan.b_src.append(bsrc[o : o + g * w])
+    plan.symbolic_ms = t["symbolic_ms"]
     return plan
 
 
@@ -339,28 +340,29 @@ def build_esc_scan_plan(a: CSR, b: CSR, *, keep_sources: bool = True,
     maps (the plan then cannot refresh values or run the double-double
     route). group_rows=G pads every window's row count to a multiple of
     G; the kernels then emit one sum per G rows (see choose_group_rows)."""
-    t0 = time.perf_counter()
-    if a.n != b.m:
-        raise ValueError(f"dimension mismatch: {a.shape} @ {b.shape}")
-    if group_rows not in (1, 2, 4, 8):
-        raise ValueError(f"group_rows must be 1, 2, 4 or 8: {group_rows}")
-    from spgemm_tpu_torch.utils.native import esc_scan_symbolic_native
+    t: dict[str, float] = {}
+    with span("symbolic", t):
+        if a.n != b.m:
+            raise ValueError(f"dimension mismatch: {a.shape} @ {b.shape}")
+        if group_rows not in (1, 2, 4, 8):
+            raise ValueError(f"group_rows must be 1, 2, 4 or 8: {group_rows}")
+        from spgemm_tpu_torch.utils.native import esc_scan_symbolic_native
 
-    res = esc_scan_symbolic_native(a, b, keep_sources=keep_sources,
-                                   group_rows=group_rows)
-    if res is None:
-        res = _esc_scan_symbolic_numpy(a, b, group_rows=group_rows)
-    (c_indptr, c_indices, total, qv, meta,
-     win_rowptr, asrc, bsrc, max_run) = res
-    plan = ScanPlan(
-        shape=(a.m, b.n), c_indptr=np.asarray(c_indptr, np.int64),
-        c_indices=c_indices.astype(INDEX_DTYPE, copy=False),
-        nnz_c=int(c_indptr[-1]), num_products=int(total),
-        qv=qv, meta=meta, win_rowptr=win_rowptr, a_src=asrc, b_src=bsrc,
-        passes=max(0, int(max_run - 1).bit_length()),
-        group_rows=group_rows,
-    )
-    plan.symbolic_ms = (time.perf_counter() - t0) * 1e3
+        res = esc_scan_symbolic_native(a, b, keep_sources=keep_sources,
+                                       group_rows=group_rows)
+        if res is None:
+            res = _esc_scan_symbolic_numpy(a, b, group_rows=group_rows)
+        (c_indptr, c_indices, total, qv, meta,
+         win_rowptr, asrc, bsrc, max_run) = res
+        plan = ScanPlan(
+            shape=(a.m, b.n), c_indptr=np.asarray(c_indptr, np.int64),
+            c_indices=c_indices.astype(INDEX_DTYPE, copy=False),
+            nnz_c=int(c_indptr[-1]), num_products=int(total),
+            qv=qv, meta=meta, win_rowptr=win_rowptr, a_src=asrc, b_src=bsrc,
+            passes=max(0, int(max_run - 1).bit_length()),
+            group_rows=group_rows,
+        )
+    plan.symbolic_ms = t["symbolic_ms"]
     return plan
 
 
@@ -628,11 +630,19 @@ def _finish(plan: ScanPlan, arr: np.ndarray, tail: np.ndarray | None) -> CSR:
                c_val, plan.shape)
 
 
-def esc_scan_trim_combined(plan: ScanPlan, res, tail) -> CSR:
+def esc_scan_trim_combined(plan: ScanPlan, res, tail,
+                           into: dict | None = None,
+                           moved: dict | None = None) -> CSR:
     """Host epilogue of the device combine: download the (n_win, 128)
-    window sums (~4*nnzC bytes), finish tall windows in f64."""
-    return _finish(plan, _host_f64(res),
-                   None if tail is None else _host_f64(tail))
+    window sums (~4*nnzC bytes), finish tall windows in f64. `into` (a
+    timings dict) gets download_ms: the copies and their f64 conversion;
+    `moved` the d2h_bytes (utils/timing.py:count_bytes)."""
+    if isinstance(res, torch.Tensor):
+        count_bytes(moved, "d2h_bytes", res, tail)
+    with span("download", into):
+        arr = _host_f64(res)
+        tl = None if tail is None else _host_f64(tail)
+    return _finish(plan, arr, tl)
 
 
 def esc_scan_trim_combined_dd(plan: ScanPlan, res, tail) -> CSR:
@@ -820,14 +830,20 @@ def is_f64(dtype) -> bool:
 
 def spgemm_esc(a: CSR, b: CSR, *, dtype=torch.float32,
                plan: ScanPlan | EscPlan | None = None, mode: str = "auto",
-               device=None):
+               device=None, moved: dict | None = None):
     """Unstructured C = A @ B through the ESC engine on `device` (None
     means CUDA). Returns (CSR, timings dict, plan); the plan is reusable
     for new values of the same pattern. mode "scan" (what "auto" runs
     without a plan): f32 runs the scan kernel, f64 the double-double
     kernel. mode "digit": the one-hot digit contraction (torch ops, f32
     or f64). A plan decides the mode ("auto" follows it; a mismatched
-    mode raises)."""
+    mode raises).
+
+    The timings are `span`s (utils/timing.py): route_ms
+    (choose_group_rows, when the plan is built here), symbolic_ms,
+    upload_ms, numeric_ms, compact_ms and, on the f32 scan route, its
+    child download_ms (inside compact_ms). `moved`, a dict, gets the f32
+    scan route's h2d_bytes and d2h_bytes."""
     f64 = is_f64(dtype)
     if mode not in ("auto", "scan", "digit"):
         raise ValueError(f"mode must be 'auto', 'scan' or 'digit': {mode!r}")
@@ -847,28 +863,32 @@ def spgemm_esc(a: CSR, b: CSR, *, dtype=torch.float32,
         return _spgemm_esc_digit(a, b, plan, f64=f64, device=dev)
     timings: dict[str, float] = {}
     if plan is None:
+        with span("route", timings):
+            group_rows = choose_group_rows(a, b)
         plan = build_esc_scan_plan(a, b, keep_sources=f64,
-                                   group_rows=choose_group_rows(a, b))
+                                   group_rows=group_rows)
     timings["symbolic_ms"] = plan.symbolic_ms
     if f64:
-        t0 = time.perf_counter()
-        c = esc_scan_dd(plan, a.data, b.data, device=dev)
-        timings["numeric_ms"] = (time.perf_counter() - t0) * 1e3
+        with span("numeric", timings):
+            c = esc_scan_dd(plan, a.data, b.data, device=dev)
         timings["upload_ms"] = 0.0
         timings["compact_ms"] = 0.0
         return c, timings, plan
-    t0 = time.perf_counter()
-    ops = plan.to_device(dev)
-    _sync(dev)
-    timings["upload_ms"] = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    res, tail = esc_scan_numeric_combined(plan, ops)
-    _sync(dev)
-    timings["numeric_ms"] = (time.perf_counter() - t0) * 1e3
+    layout_cached = str(dev) in plan.__dict__.get("_combine_dev", {})
+    with span("upload", timings):
+        ops = plan.to_device(dev)
+        _sync(dev)
+    count_bytes(moved, "h2d_bytes", *ops.values())
+    with span("numeric", timings):
+        res, tail = esc_scan_numeric_combined(plan, ops)
+        _sync(dev)
+    if not layout_cached:  # the combine's index tensors went up with it
+        classes, perm, sent = _combine_layout(plan, dev)
+        count_bytes(moved, "h2d_bytes", perm, sent,
+                    *(ii for _, ii in classes))
     del ops
-    t0 = time.perf_counter()
-    c = esc_scan_trim_combined(plan, res, tail)
-    timings["compact_ms"] = (time.perf_counter() - t0) * 1e3
+    with span("compact", timings):
+        c = esc_scan_trim_combined(plan, res, tail, timings, moved)
     return c, timings, plan
 
 
@@ -880,16 +900,13 @@ def _spgemm_esc_digit(a: CSR, b: CSR, plan: EscPlan | None, *, f64: bool,
         plan = build_esc_plan(a, b)
     timings["symbolic_ms"] = plan.symbolic_ms
     dtype = torch.float64 if f64 else torch.float32
-    t0 = time.perf_counter()
-    ops = plan.to_device(device, dtype)
-    _sync(device)
-    timings["upload_ms"] = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    outs = esc_numeric(plan, ops)
-    _sync(device)
-    timings["numeric_ms"] = (time.perf_counter() - t0) * 1e3
+    with span("upload", timings):
+        ops = plan.to_device(device, dtype)
+        _sync(device)
+    with span("numeric", timings):
+        outs = esc_numeric(plan, ops)
+        _sync(device)
     del ops
-    t0 = time.perf_counter()
-    c = esc_trim(plan, outs)
-    timings["compact_ms"] = (time.perf_counter() - t0) * 1e3
+    with span("compact", timings):
+        c = esc_trim(plan, outs)
     return c, timings, plan

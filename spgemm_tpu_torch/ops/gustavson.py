@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -42,7 +41,7 @@ import torch
 from spgemm_tpu_torch.models.csr import INDEX_DTYPE
 from spgemm_tpu_torch.models.tile import TileMat
 from spgemm_tpu_torch.ops import kernels
-from spgemm_tpu_torch.utils.timing import resolve_device
+from spgemm_tpu_torch.utils.timing import count_bytes, resolve_device, span
 
 BF16_ONE = np.uint16(0x3F80)
 
@@ -139,70 +138,71 @@ def build_gustavson_plan(a: TileMat, b: TileMat, dtype=np.float32,
     tm, tk, tn = a.tm, a.tn, b.tn
     c_gn = b.gn
 
-    t_prep = time.perf_counter()
-    acsc_ptr, acsc_perm = a.csc_view()
-    bptr = b.tptr.astype(np.int64)
-    cnt_a = np.diff(acsc_ptr).astype(np.int64)
-    cnt_b = np.diff(bptr)
-    max_a = max(1, int(cnt_a.max()) if a.nt else 1)
-    max_b = max(1, int(cnt_b.max()) if b.nt else 1)
+    t: dict[str, float] = {}
+    with span("prep", t):
+        acsc_ptr, acsc_perm = a.csc_view()
+        bptr = b.tptr.astype(np.int64)
+        cnt_a = np.diff(acsc_ptr).astype(np.int64)
+        cnt_b = np.diff(bptr)
+        max_a = max(1, int(cnt_a.max()) if a.nt else 1)
+        max_b = max(1, int(cnt_b.max()) if b.nt else 1)
 
-    a3_val = a3_occ = b3_val = None
-    if a_slabs:
-        # A slot of the r-th tile of column k (csc order): k*max_a + rank
-        rank_a = np.arange(a.nt, dtype=np.int64) - np.repeat(
-            acsc_ptr[:-1].astype(np.int64), cnt_a)
-        slot_a = np.repeat(np.arange(gk, dtype=np.int64), cnt_a) * max_a \
-            + rank_a
-        a3_occ = np.zeros((gk * max_a, tm, tk), dtype=dtype)
-        a3_occ[slot_a] = a.occ()[acsc_perm]
-        a3_occ = a3_occ.reshape(gk, max_a * tm, tk)
+        a3_val = a3_occ = b3_val = None
+        if a_slabs:
+            # A slot of the r-th tile of column k (csc order): k*max_a + rank
+            rank_a = np.arange(a.nt, dtype=np.int64) - np.repeat(
+                acsc_ptr[:-1].astype(np.int64), cnt_a)
+            slot_a = np.repeat(np.arange(gk, dtype=np.int64), cnt_a) * max_a \
+                + rank_a
+            a3_occ = np.zeros((gk * max_a, tm, tk), dtype=dtype)
+            a3_occ[slot_a] = a.occ()[acsc_perm]
+            a3_occ = a3_occ.reshape(gk, max_a * tm, tk)
+            if values:
+                a3_val = np.zeros((gk * max_a, tm, tk), dtype=dtype)
+                a3_val[slot_a] = a.dense(dtype)[acsc_perm]
+                a3_val = a3_val.reshape(gk, max_a * tm, tk)
+
+        rank_b = np.arange(b.nt, dtype=np.int64) - np.repeat(bptr[:-1], cnt_b)
+        slot_b = (np.repeat(np.arange(gk, dtype=np.int64), cnt_b) * max_b
+                  + rank_b)
+
+        def hstack(tiles):  # (nt_b, tk, tn) -> (gk, tk, max_b*tn)
+            out = np.zeros((gk * max_b, tk, tn), dtype=dtype)
+            out[slot_b] = tiles
+            return out.reshape(gk, max_b, tk, tn).transpose(
+                0, 2, 1, 3).reshape(gk, tk, max_b * tn)
+
+        b3_occ = hstack(b.occ())
         if values:
-            a3_val = np.zeros((gk * max_a, tm, tk), dtype=dtype)
-            a3_val[slot_a] = a.dense(dtype)[acsc_perm]
-            a3_val = a3_val.reshape(gk, max_a * tm, tk)
-
-    rank_b = np.arange(b.nt, dtype=np.int64) - np.repeat(bptr[:-1], cnt_b)
-    slot_b = np.repeat(np.arange(gk, dtype=np.int64), cnt_b) * max_b + rank_b
-
-    def hstack(tiles):  # (nt_b, tk, tn) -> (gk, tk, max_b*tn)
-        out = np.zeros((gk * max_b, tk, tn), dtype=dtype)
-        out[slot_b] = tiles
-        return out.reshape(gk, max_b, tk, tn).transpose(0, 2, 1, 3).reshape(
-            gk, tk, max_b * tn)
-
-    b3_occ = hstack(b.occ())
-    if values:
-        b3_val = hstack(b.dense(dtype))
-    prep_ms = (time.perf_counter() - t_prep) * 1e3
+            b3_val = hstack(b.dense(dtype))
 
     # pair expansion + C tile dictionary (the symbolic step)
-    t_sym = time.perf_counter()
-    pairs_per_k = cnt_a * cnt_b
-    total = int(pairs_per_k.sum())
-    plan = GustavsonPlan(
-        gk=gk, max_a=max_a, max_b=max_b, tm=tm, tk=tk, tn=tn, nt_c=0,
-        ctrow=np.zeros(0, INDEX_DTYPE), ctcol=np.zeros(0, INDEX_DTYPE),
-        num_pairs=total, a3_val=a3_val, a3_occ=a3_occ, b3_val=b3_val,
-        b3_occ=b3_occ, seg=np.zeros(gk * max_a * max_b, INDEX_DTYPE),
-        dtype=np.dtype(dtype), prep_ms=prep_ms)
-    if total == 0:
-        return plan
-    kk = np.repeat(np.arange(gk, dtype=np.int64), pairs_per_k)
-    off = np.arange(total, dtype=np.int64) - np.repeat(
-        np.cumsum(pairs_per_k) - pairs_per_k, pairs_per_k)
-    x = off // cnt_b[kk]
-    y = off % cnt_b[kk]
-    ia = acsc_perm[acsc_ptr[kk] + x]
-    ib = bptr[kk] + y
-    ckey = a.trow[ia].astype(np.int64) * c_gn + b.tcol[ib]
-    ukey = np.unique(ckey)
-    plan.nt_c = ukey.size
-    plan.seg = np.full(gk * max_a * max_b, plan.nt_c, dtype=INDEX_DTYPE)
-    plan.seg[(kk * max_a + x) * max_b + y] = np.searchsorted(ukey, ckey)
-    plan.ctrow = (ukey // c_gn).astype(INDEX_DTYPE)
-    plan.ctcol = (ukey % c_gn).astype(INDEX_DTYPE)
-    plan.symbolic_ms = (time.perf_counter() - t_sym) * 1e3
+    with span("symbolic", t):
+        pairs_per_k = cnt_a * cnt_b
+        total = int(pairs_per_k.sum())
+        plan = GustavsonPlan(
+            gk=gk, max_a=max_a, max_b=max_b, tm=tm, tk=tk, tn=tn, nt_c=0,
+            ctrow=np.zeros(0, INDEX_DTYPE), ctcol=np.zeros(0, INDEX_DTYPE),
+            num_pairs=total, a3_val=a3_val, a3_occ=a3_occ, b3_val=b3_val,
+            b3_occ=b3_occ, seg=np.zeros(gk * max_a * max_b, INDEX_DTYPE),
+            dtype=np.dtype(dtype), prep_ms=t["prep_ms"])
+        if total == 0:
+            return plan
+        kk = np.repeat(np.arange(gk, dtype=np.int64), pairs_per_k)
+        off = np.arange(total, dtype=np.int64) - np.repeat(
+            np.cumsum(pairs_per_k) - pairs_per_k, pairs_per_k)
+        x = off // cnt_b[kk]
+        y = off % cnt_b[kk]
+        ia = acsc_perm[acsc_ptr[kk] + x]
+        ib = bptr[kk] + y
+        ckey = a.trow[ia].astype(np.int64) * c_gn + b.tcol[ib]
+        ukey = np.unique(ckey)
+        plan.nt_c = ukey.size
+        plan.seg = np.full(gk * max_a * max_b, plan.nt_c, dtype=INDEX_DTYPE)
+        plan.seg[(kk * max_a + x) * max_b + y] = np.searchsorted(ukey, ckey)
+        plan.ctrow = (ukey // c_gn).astype(INDEX_DTYPE)
+        plan.ctcol = (ukey % c_gn).astype(INDEX_DTYPE)
+    plan.symbolic_ms = t["symbolic_ms"]
     return plan
 
 
@@ -537,38 +537,38 @@ def build_strip_args(a: TileMat, b: TileMat, block_rows: int = 32,
     tm, tk, tn = a.tm, a.tn, b.tn
     gk = a.gn
 
-    t_prep = time.perf_counter()
-    aptr64 = a.tptr.astype(np.int64)
-    block_starts = np.minimum(
-        np.append(np.arange(0, a.gm, block_rows), a.gm), a.gm)
-    per_block = np.diff(aptr64[block_starts])
-    max_ablock = max(mg.get("max_ablock", 1),
-                     int(per_block.max()) if per_block.size else 1)
-    ak = np.zeros(a.nt + max_ablock, dtype=INDEX_DTYPE)
-    ak[: a.nt] = a.tcol
-    cnt_b = np.diff(b.tptr.astype(np.int64))
-    max_b = max(1, int(cnt_b.max()) if b.nt else 1)
-    if b_packed is not None:
-        a_val, a_occ = _pack_a(a, max_ablock)
-        b_val, b_occ = b_packed
-    else:
-        a_val, a_occ, b_val, b_occ = _pack_operands(a, b, max_ablock, max_b)
-    prep_ms = (time.perf_counter() - t_prep) * 1e3
+    t: dict[str, float] = {}
+    with span("prep", t):
+        aptr64 = a.tptr.astype(np.int64)
+        block_starts = np.minimum(
+            np.append(np.arange(0, a.gm, block_rows), a.gm), a.gm)
+        per_block = np.diff(aptr64[block_starts])
+        max_ablock = max(mg.get("max_ablock", 1),
+                         int(per_block.max()) if per_block.size else 1)
+        ak = np.zeros(a.nt + max_ablock, dtype=INDEX_DTYPE)
+        ak[: a.nt] = a.tcol
+        cnt_b = np.diff(b.tptr.astype(np.int64))
+        max_b = max(1, int(cnt_b.max()) if b.nt else 1)
+        if b_packed is not None:
+            a_val, a_occ = _pack_a(a, max_ablock)
+            b_val, b_occ = b_packed
+        else:
+            a_val, a_occ, b_val, b_occ = _pack_operands(a, b, max_ablock,
+                                                        max_b)
 
-    t_sym = time.perf_counter()
-    c_tptr, ctrow, ctcol, slots, gather_idx, max_cblock, nt_c = \
-        run_strip_symbolic(a, b, block_rows, max_b, max_ablock,
-                           max_cblock_min=mg.get("max_cblock", 1))
-    num_pairs = int(cnt_b[a.tcol].sum()) if a.nt else 0
-    symbolic_ms = (time.perf_counter() - t_sym) * 1e3
+    with span("symbolic", t):
+        c_tptr, ctrow, ctcol, slots, gather_idx, max_cblock, nt_c = \
+            run_strip_symbolic(a, b, block_rows, max_b, max_ablock,
+                               max_cblock_min=mg.get("max_cblock", 1))
+        num_pairs = int(cnt_b[a.tcol].sum()) if a.nt else 0
 
     kwin = None
     if window is None or window:
-        _, span = block_k_stats(a, block_rows)
+        _, kspan = block_k_stats(a, block_rows)
         nb_blocks = max(1, -(-a.gm // block_rows))
         # windows of adjacent blocks overlap; cap the refetch overhead
-        if nb_blocks * span <= 2 * gk + 16:
-            kwin = max(span, mg.get("kwin", 1))
+        if nb_blocks * kspan <= 2 * gk + 16:
+            kwin = max(kspan, mg.get("kwin", 1))
             if b_val.shape[0] < kwin:  # B padded to the window, as the JAX plan
                 pad = ((0, kwin - b_val.shape[0]), (0, 0), (0, 0))
                 b_val = np.pad(b_val, pad)
@@ -576,7 +576,7 @@ def build_strip_args(a: TileMat, b: TileMat, block_rows: int = 32,
         elif window:
             raise WindowInfeasible(
                 f"windowed strip plan infeasible: {nb_blocks} blocks x k span "
-                f"{span} exceeds 2*gk+16 = {2 * gk + 16} slab fetches")
+                f"{kspan} exceeds 2*gk+16 = {2 * gk + 16} slab fetches")
 
     return StripArgs(
         a_val=a_val, a_occ=a_occ, b_val=b_val, b_occ=b_occ,
@@ -588,7 +588,7 @@ def build_strip_args(a: TileMat, b: TileMat, block_rows: int = 32,
         gm=a.gm, gn_c=b.gn, tm=tm, tk=tk, tn=tn, max_b=max_b,
         max_ablock=max_ablock, max_cblock=max_cblock,
         block_rows=block_rows, kwin=kwin,
-        prep_ms=prep_ms, symbolic_ms=symbolic_ms,
+        prep_ms=t["prep_ms"], symbolic_ms=t["symbolic_ms"],
     )
 
 
@@ -623,29 +623,48 @@ def unpack_occ_words(words: np.ndarray, tn: int) -> np.ndarray:
 
 
 def download_compact(c_val: torch.Tensor, c_cnt: torch.Tensor,
-                     args: StripArgs) -> tuple[np.ndarray, np.ndarray]:
-    """Compact on the device, then download (nt_c-proportional): values
-    (nt_c, tm, tn) f32 and 0/1 occupancy f32. tn not a multiple of 32
-    (small test tiles) skips the bit packing."""
+                     args: StripArgs, into: dict | None = None,
+                     moved: dict | None = None
+                     ) -> tuple[np.ndarray, np.ndarray]:
+    """Compact on the device, synchronise, then download (nt_c-
+    proportional): values (nt_c, tm, tn) f32 and 0/1 occupancy f32. tn
+    not a multiple of 32 (small test tiles) skips the bit packing.
+    `into` (a timings dict) gets download_ms: the copies and the host
+    unpack of the occupancy; `moved` the h2d_bytes of the gather index
+    and the d2h_bytes of the copies (utils/timing.py:count_bytes)."""
     gidx = torch.from_numpy(args.gather_idx.astype(np.int64)).to(c_val.device)
+    count_bytes(moved, "h2d_bytes", gidx)
     if args.tn % 32 == 0:
         v, words = strip_compact(c_val, c_cnt, gidx)
-        v = v.cpu().numpy()
-        occ = unpack_occ_words(words.cpu().numpy(), v.shape[2])
-        return v, occ.astype(np.float32)
-    v = c_val.index_select(0, gidx).cpu().numpy()
-    cnt = c_cnt.index_select(0, gidx).cpu().numpy()
-    return v, (cnt > 0).astype(np.float32)
+    else:
+        v, words = c_val.index_select(0, gidx), c_cnt.index_select(0, gidx)
+    if v.is_cuda:  # the copies alone inside download_ms
+        torch.cuda.synchronize(v.device)
+    count_bytes(moved, "d2h_bytes", v, words)
+    with span("download", into):
+        v_h = v.cpu().numpy()
+        if args.tn % 32 == 0:
+            occ = unpack_occ_words(words.cpu().numpy(), v_h.shape[2])
+        else:
+            occ = words.cpu().numpy() > 0
+        return v_h, occ.astype(np.float32)
 
 
-def strip_numeric(args: StripArgs,
-                  device=None) -> tuple[np.ndarray, np.ndarray]:
+def strip_numeric(args: StripArgs, device=None, into: dict | None = None,
+                  moved: dict | None = None
+                  ) -> tuple[np.ndarray, np.ndarray]:
     """Upload the plan's operands, run the strip numeric phase
     (ops/kernels.py:strip_numeric) on `device` (None means CUDA) and
     compact on the device. Returns (c_val, c_occ) host arrays in
-    candidate order."""
+    candidate order. `into` (a timings dict) gets upload_ms, numeric_ms
+    (kernel, device compaction and download) and download_ms; `moved`
+    the call's h2d_bytes and d2h_bytes."""
     device = resolve_device(device)
     check_strip_feasible(args, device)
-    c_val, c_cnt = kernels.strip_numeric(*args.to_device(device),
-                                         **args.kernel_kwargs())
-    return download_compact(c_val, c_cnt, args)
+    with span("upload", into):
+        ops = args.to_device(device)
+    count_bytes(moved, "h2d_bytes", *ops)
+    with span("numeric", into):
+        c_val, c_cnt = kernels.strip_numeric(*ops, **args.kernel_kwargs())
+        del ops  # freed before the compaction, as the device peak was
+        return download_compact(c_val, c_cnt, args, into, moved)

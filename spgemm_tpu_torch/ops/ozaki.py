@@ -44,7 +44,6 @@ JAX package:
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -58,7 +57,7 @@ from spgemm_tpu_torch.ops.gustavson import (GustavsonPlan, StripArgs,
                                             build_gustavson_plan, full_fp32,
                                             to_pairs)
 from spgemm_tpu_torch.ops.ozaki_kernels import MAX_SLICES
-from spgemm_tpu_torch.utils.timing import cuda_event_ms, resolve_device
+from spgemm_tpu_torch.utils.timing import cuda_event_ms, resolve_device, span
 
 _INT32_HEADROOM = 2     # require bound * HEADROOM < 2^31
 # the slab engine's f32 slice products are exact while one product's sum,
@@ -314,63 +313,65 @@ def build_ozaki_strip(a: TileMat, b: TileMat, *,
     if a.n != b.m or a.tn != b.tm:
         raise ValueError(f"operands do not chain: A {a.shape} in {a.tm}x"
                          f"{a.tn} tiles, B {b.shape} in {b.tm}x{b.tn} tiles")
-    t0 = time.perf_counter()
-    dense_bytes = (a.nt * a.tm * a.tn + b.nt * b.tm * b.tn) * 8
-    if dense_bytes > (4 << 30):
-        raise OzakiOverflow(
-            f"dense cubes {dense_bytes/1e9:.1f} GB: unstructured pattern; "
-            "use the double-double scan route")
-    prep = _scales_spans_native(a, b, strict=strict)
-    if prep is not None:
-        ea, eb, sa, sb, span = prep
-        ad = bd = None  # tile-CSR slicing below, no dense cubes
-    else:
-        ad, bd, ea, eb, sa, sb, span = _scales_and_slices_prep(
-            a, b, strict=strict)
-    tm, tk, tn = a.tm, a.tn, b.tn
-    # pair-group truncation: when the data's bit span exceeds the slice
-    # window (general doubles), groups p > max(sa, sb) sit below the
-    # slicing truncation error (the Ozaki-scheme diagonal cut);
-    # exactly representable data (span <= 7*S) keeps every group.
-    pmax = (sa + sb - 2) if span <= 7 * min(sa, sb) \
-        else max(1, max(sa, sb) - 1)
-    _check_int32_bound(_max_pairs_per_ctile(a, b), tk, sa, sb)
+    t: dict[str, float] = {}
+    with span("prep", t):
+        dense_bytes = (a.nt * a.tm * a.tn + b.nt * b.tm * b.tn) * 8
+        if dense_bytes > (4 << 30):
+            raise OzakiOverflow(
+                f"dense cubes {dense_bytes/1e9:.1f} GB: unstructured pattern; "
+                "use the double-double scan route")
+        prep = _scales_spans_native(a, b, strict=strict)
+        if prep is not None:
+            ea, eb, sa, sb, bit_span = prep
+            ad = bd = None  # tile-CSR slicing below, no dense cubes
+        else:
+            ad, bd, ea, eb, sa, sb, bit_span = _scales_and_slices_prep(
+                a, b, strict=strict)
+        tm, tk, tn = a.tm, a.tn, b.tn
+        # pair-group truncation: when the data's bit span exceeds the slice
+        # window (general doubles), groups p > max(sa, sb) sit below the
+        # slicing truncation error (the Ozaki-scheme diagonal cut);
+        # exactly representable data (span <= 7*S) keeps every group.
+        pmax = (sa + sb - 2) if bit_span <= 7 * min(sa, sb) \
+            else max(1, max(sa, sb) - 1)
+        _check_int32_bound(_max_pairs_per_ctile(a, b), tk, sa, sb)
 
     stack_rows = max(32, sa * tm)  # the TPU's int8 sublane tile, kept
+    # its own prep and symbolic spans
     sargs = build_strip_args(a, b, block_rows=block_rows or 32, window=True)
 
-    nt_pad = a.nt + sargs.max_ablock
-    av8 = np.zeros((nt_pad, stack_rows, tk), np.int8)
-    gk_pad = sargs.b_val.shape[0]
-    # column layout (t, y): bv8[k][:, (t*max_b + y)*tn : ...] is B slice
-    # t of k-group tile rank y
-    bv8 = np.zeros((gk_pad, tk, sb * sargs.max_b * tn), np.int8)
-    if ad is None:
-        ozaki_slice_a_native(a, sa, stack_rows, ea, av8)
-        ozaki_slice_b_native(b, sargs.max_b, sb, eb, bv8)
-    else:
-        exp_a = ea.reshape(a.gm, tm)[a.trow.astype(np.int64)][:, :, None]
-        exp_b = eb.reshape(b.gn, tn)[b.tcol.astype(np.int64)][:, None, :]
-        a_slices = _slice_int8(ad, exp_a, sa)    # (Sa, nt, tm, tk)
-        b_slices = _slice_int8(bd, exp_b, sb)    # (Sb, nt, tk, tn)
-        av8[: a.nt, : sa * tm] = a_slices.transpose(1, 0, 2, 3).reshape(
-            a.nt, sa * tm, tk)
-        bptr = b.tptr.astype(np.int64)
-        cnt_b = np.diff(bptr)
-        rank_b = (np.arange(b.nt, dtype=np.int64)
-                  - np.repeat(bptr[:-1], cnt_b))
-        kb = np.repeat(np.arange(a.gn, dtype=np.int64), cnt_b)
-        slot_b = kb * sargs.max_b + rank_b
-        bp = np.zeros((sb, gk_pad * sargs.max_b, tk, tn), np.int8)
-        bp[:, slot_b] = b_slices
-        bv8[:] = bp.reshape(sb, gk_pad, sargs.max_b, tk, tn).transpose(
-            1, 3, 0, 2, 4).reshape(gk_pad, tk, sb * sargs.max_b * tn)
+    with span("prep", t):
+        nt_pad = a.nt + sargs.max_ablock
+        av8 = np.zeros((nt_pad, stack_rows, tk), np.int8)
+        gk_pad = sargs.b_val.shape[0]
+        # column layout (t, y): bv8[k][:, (t*max_b + y)*tn : ...] is B slice
+        # t of k-group tile rank y
+        bv8 = np.zeros((gk_pad, tk, sb * sargs.max_b * tn), np.int8)
+        if ad is None:
+            ozaki_slice_a_native(a, sa, stack_rows, ea, av8)
+            ozaki_slice_b_native(b, sargs.max_b, sb, eb, bv8)
+        else:
+            exp_a = ea.reshape(a.gm, tm)[a.trow.astype(np.int64)][:, :, None]
+            exp_b = eb.reshape(b.gn, tn)[b.tcol.astype(np.int64)][:, None, :]
+            a_slices = _slice_int8(ad, exp_a, sa)    # (Sa, nt, tm, tk)
+            b_slices = _slice_int8(bd, exp_b, sb)    # (Sb, nt, tk, tn)
+            av8[: a.nt, : sa * tm] = a_slices.transpose(1, 0, 2, 3).reshape(
+                a.nt, sa * tm, tk)
+            bptr = b.tptr.astype(np.int64)
+            cnt_b = np.diff(bptr)
+            rank_b = (np.arange(b.nt, dtype=np.int64)
+                      - np.repeat(bptr[:-1], cnt_b))
+            kb = np.repeat(np.arange(a.gn, dtype=np.int64), cnt_b)
+            slot_b = kb * sargs.max_b + rank_b
+            bp = np.zeros((sb, gk_pad * sargs.max_b, tk, tn), np.int8)
+            bp[:, slot_b] = b_slices
+            bv8[:] = bp.reshape(sb, gk_pad, sargs.max_b, tk, tn).transpose(
+                1, 3, 0, 2, 4).reshape(gk_pad, tk, sb * sargs.max_b * tn)
 
     return OzakiStripPlan(
         sargs=sargs, av8=av8, bv8=bv8, ea=ea, eb=eb, sa=sa, sb=sb,
         pmax=pmax,
-        prep_ms=(time.perf_counter() - t0) * 1e3 - sargs.symbolic_ms,
-        symbolic_ms=sargs.symbolic_ms)
+        prep_ms=t["prep_ms"] + sargs.prep_ms, symbolic_ms=sargs.symbolic_ms)
 
 
 # --- fused strip route: numeric step and epilogue -------------------------------
@@ -393,17 +394,17 @@ def ozaki_strip_numeric(plan: OzakiStripPlan, device=None,
     (ctrow/ctcol) order and a timing dict."""
     device = resolve_device(device)
     s = plan.sargs
-    t0 = time.perf_counter()
-    ops = plan.to_device(device)
-    gidx = torch.from_numpy(s.gather_idx.astype(np.int64)).to(device)
-    _sync(device)
-    timings = {"upload_ms": (time.perf_counter() - t0) * 1e3}
-    t0 = time.perf_counter()
-    planes = ozaki_kernels.ozaki_strip_numeric(*ops, **plan.kernel_kwargs())
-    out = tuple(p.index_select(0, gidx) for p in planes)
-    if sync:
+    timings: dict[str, float] = {}
+    with span("upload", timings):
+        ops = plan.to_device(device)
+        gidx = torch.from_numpy(s.gather_idx.astype(np.int64)).to(device)
         _sync(device)
-    timings["numeric_ms"] = (time.perf_counter() - t0) * 1e3
+    with span("numeric", timings):
+        planes = ozaki_kernels.ozaki_strip_numeric(*ops,
+                                                   **plan.kernel_kwargs())
+        out = tuple(p.index_select(0, gidx) for p in planes)
+        if sync:
+            _sync(device)
     return out, timings
 
 
@@ -482,20 +483,15 @@ def _spgemm_ozaki_strip(a: TileMat, b: TileMat, *, device, sync: bool,
     plan."""
     from spgemm_tpu_torch.ops.spgemm import SpGEMMResult
 
-    timings: dict[str, float] = {}
-    t0 = time.perf_counter()
     plan = build_ozaki_strip(a, b, strict=strict)
-    timings["symbolic_ms"] = plan.symbolic_ms
-    timings["prep_ms"] = max(
-        0.0, (time.perf_counter() - t0) * 1e3 - plan.symbolic_ms)
+    timings = {"symbolic_ms": plan.symbolic_ms, "prep_ms": plan.prep_ms}
 
     (c_h, c_m, c_l, c_cnt), t_num = ozaki_strip_numeric(plan, device=device,
                                                         sync=sync)
     timings.update(t_num)
 
-    t0 = time.perf_counter()
-    c = ozaki_strip_compact(plan, c_h, c_m, c_l, c_cnt, (a.m, b.n))
-    timings["compact_ms"] = (time.perf_counter() - t0) * 1e3
+    with span("compact", timings):
+        c = ozaki_strip_compact(plan, c_h, c_m, c_l, c_cnt, (a.m, b.n))
 
     s = plan.sargs
     stats = {
@@ -581,38 +577,42 @@ def build_ozaki_plan(a: TileMat, b: TileMat,
     dictionary). Raises OzakiOverflow when the occupancy slabs, slab or
     slice bytes are past their budgets, the int32 accumulation bound
     cannot be guaranteed, or tk > 1040 (the f32 slice products' bound)."""
-    # cheap tile-pointer feasibility before the base plan builds its occ
-    # slabs (pathological k-column skew can blow gk*max_a padding)
-    acsc_ptr, _ = a.csc_view()
-    max_a0 = max(1, int(np.diff(acsc_ptr).max())) if a.nt else 1
-    max_b0 = max(1, int(np.diff(b.tptr).max())) if b.nt else 1
-    occ_bytes = a.gn * (max_a0 * a.tm * a.tn + max_b0 * b.tm * b.tn) * 4
-    if occ_bytes > (4 << 30):
-        raise OzakiOverflow(
-            f"k-group padding explodes (occ slabs {occ_bytes/1e9:.1f} GB): "
-            "unstructured pattern; use the double-double scan route")
+    t: dict[str, float] = {}
+    with span("prep", t):
+        # cheap tile-pointer feasibility before the base plan builds its
+        # occ slabs (pathological k-column skew can blow gk*max_a padding)
+        acsc_ptr, _ = a.csc_view()
+        max_a0 = max(1, int(np.diff(acsc_ptr).max())) if a.nt else 1
+        max_b0 = max(1, int(np.diff(b.tptr).max())) if b.nt else 1
+        occ_bytes = a.gn * (max_a0 * a.tm * a.tn
+                            + max_b0 * b.tm * b.tn) * 4
+        if occ_bytes > (4 << 30):
+            raise OzakiOverflow(
+                f"k-group padding explodes (occ slabs "
+                f"{occ_bytes/1e9:.1f} GB): "
+                "unstructured pattern; use the double-double scan route")
+    # its own prep and symbolic spans
     base = build_gustavson_plan(a, b, dtype=np.float32, values=False)
 
-    t_prep = time.perf_counter()
-    a_sl, b_sl, ea, eb, sa, sb = slice_and_pack(a, b, base, strict=strict)
-    # int8 occupancy: the count products are exact and the upload 4x
-    # smaller than f32 slabs
-    a_occ = base.a3_occ.astype(np.int8)
-    b_occ = base.b3_occ.astype(np.int8)
-    base.a3_occ = base.b3_occ = None
-    # the pair order sorted by destination segment and its boundaries
-    # (padding pairs sort past bounds[nt_c]): the JAX package's
-    # scatter-free combine runs on them; kept so both plans hold the same
-    # arrays
-    perm = np.argsort(base.seg, kind="stable").astype(np.int32)
-    bounds = np.searchsorted(
-        base.seg[perm], np.arange(base.nt_c + 1)).astype(np.int32)
+    with span("prep", t):
+        a_sl, b_sl, ea, eb, sa, sb = slice_and_pack(a, b, base, strict=strict)
+        # int8 occupancy: the count products are exact and the upload 4x
+        # smaller than f32 slabs
+        a_occ = base.a3_occ.astype(np.int8)
+        b_occ = base.b3_occ.astype(np.int8)
+        base.a3_occ = base.b3_occ = None
+        # the pair order sorted by destination segment and its boundaries
+        # (padding pairs sort past bounds[nt_c]): the JAX package's
+        # scatter-free combine runs on them; kept so both plans hold the same
+        # arrays
+        perm = np.argsort(base.seg, kind="stable").astype(np.int32)
+        bounds = np.searchsorted(
+            base.seg[perm], np.arange(base.nt_c + 1)).astype(np.int32)
 
-    prep_ms = (time.perf_counter() - t_prep) * 1e3
     return OzakiPlan(
         base=base, a_occ=a_occ, b_occ=b_occ, a_sl=a_sl, b_sl=b_sl,
         ea=ea, eb=eb, perm=perm, bounds=bounds, sa=sa, sb=sb,
-        prep_ms=prep_ms + base.prep_ms, symbolic_ms=base.symbolic_ms)
+        prep_ms=t["prep_ms"] + base.prep_ms, symbolic_ms=base.symbolic_ms)
 
 
 def slice_and_pack(a: TileMat, b: TileMat, base: GustavsonPlan,
@@ -739,15 +739,14 @@ def ozaki_numeric(plan: OzakiPlan, device=None, sync: bool = True):
     """Upload the plan and run ozaki_core on `device` (None means CUDA).
     Returns device (c_h, c_m, c_l, c_cnt) and a timing dict."""
     device = resolve_device(device)
-    t0 = time.perf_counter()
-    ops = plan.to_device(device)
-    _sync(device)
-    timings = {"upload_ms": (time.perf_counter() - t0) * 1e3}
-    t0 = time.perf_counter()
-    out = ozaki_core(*ops, **plan.core_kwargs())
-    if sync:
+    timings: dict[str, float] = {}
+    with span("upload", timings):
+        ops = plan.to_device(device)
         _sync(device)
-    timings["numeric_ms"] = (time.perf_counter() - t0) * 1e3
+    with span("numeric", timings):
+        out = ozaki_core(*ops, **plan.core_kwargs())
+        if sync:
+            _sync(device)
     return out, timings
 
 
@@ -812,12 +811,8 @@ def spgemm_ozaki(a: TileMat, b: TileMat, *, device=None, sync: bool = True,
             pass
     note = (note + "+" if note else "") + "xla-fallback"
 
-    timings: dict[str, float] = {}
-    t0 = time.perf_counter()
     plan = build_ozaki_plan(a, b, strict=strict)
-    timings["symbolic_ms"] = max(
-        0.0, (time.perf_counter() - t0) * 1e3 - plan.prep_ms)
-    timings["prep_ms"] = plan.prep_ms
+    timings = {"symbolic_ms": plan.symbolic_ms, "prep_ms": plan.prep_ms}
     base = plan.base
 
     if base.nt_c == 0:
@@ -837,9 +832,8 @@ def spgemm_ozaki(a: TileMat, b: TileMat, *, device=None, sync: bool = True,
                                                   sync=sync)
     timings.update(t_num)
 
-    t0 = time.perf_counter()
-    c = ozaki_compact(plan, c_h, c_m, c_l, c_cnt, (a.m, b.n))
-    timings["compact_ms"] = (time.perf_counter() - t0) * 1e3
+    with span("compact", timings):
+        c = ozaki_compact(plan, c_h, c_m, c_l, c_cnt, (a.m, b.n))
 
     stats = {
         "num_pairs": float(base.num_pairs),

@@ -12,12 +12,20 @@ and the per-C-tile pair kernel (backend "pallas"). The dense, slab and
 
 f64 runs as the JAX package runs it with jax_enable_x64 on: the dense,
 slab and "xla" routes multiply in float64 (the port has no x64 switch).
+
+Every host phase of a call is a `span` (utils/timing.py): its wall ms in
+`SpGEMMResult.timings_ms` under `<name>_ms`, and, while a torch.profiler
+records, a `spgemm.<name>` label on the trace's timeline. The top-level
+spans of a `spgemm_csr` call partition it: route, tile (tiled routes),
+prep, symbolic, upload, numeric, compact, result. download_ms is a child
+(inside numeric on the strip route, compact elsewhere); readers never add
+it to its parent. stats["h2d_bytes"] and stats["d2h_bytes"] count what
+the call's uploads and downloads move.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -33,8 +41,8 @@ from spgemm_tpu_torch.ops.gustavson import (build_gustavson_plan,
                                             strip_numeric)
 from spgemm_tpu_torch.ops.ozaki import OzakiOverflow, spgemm_ozaki
 from spgemm_tpu_torch.ops.symbolic import build_pair_schedule
-from spgemm_tpu_torch.utils.timing import (cuda_event_ms, device_trace,
-                                           resolve_device)
+from spgemm_tpu_torch.utils.timing import (count_bytes, cuda_event_ms,
+                                           device_trace, resolve_device, span)
 
 # pairs the XLA pair backend multiplies at once (bounds its gathered tiles)
 DEFAULT_CHUNK = 32768
@@ -73,11 +81,15 @@ def _compact_to_tilemat(ctrow, ctcol, c_val, c_cnt, shape, tm, tn) -> TileMat:
                           gn=gn)
 
 
-def _download(c_val: torch.Tensor, c_cnt: torch.Tensor):
+def _download(c_val: torch.Tensor, c_cnt: torch.Tensor,
+              timings: dict | None = None, moved: dict | None = None):
     """(values f64, occupancy bool) host arrays of device tile planes; the
-    counts leave the device as > 0 only."""
-    return (c_val.cpu().to(torch.float64).numpy(),
-            (c_cnt > 0).cpu().numpy())
+    counts leave the device as > 0 only. A download span into
+    `timings`, the d2h_bytes into `moved`."""
+    occ = c_cnt > 0
+    count_bytes(moved, "d2h_bytes", c_val, occ)
+    with span("download", timings):
+        return c_val.cpu().to(torch.float64).numpy(), occ.cpu().numpy()
 
 
 def _resolve_backend(a: TileMat, b: TileMat, backend: str, compute_dtype,
@@ -161,30 +173,36 @@ def spgemm(a: TileMat, b: TileMat, *, compute_dtype=torch.float32,
 
     acc_dtype (None: compute_dtype) is the accumulator of the torch-op
     routes; the strip and pair kernels take float32 only. sync=False
-    skips the synchronize that ends the numeric phase."""
-    if backend == "ozaki":
-        return spgemm_ozaki(a, b, device=device, sync=sync)
-    f64 = esc.is_f64(compute_dtype)
-    dev = resolve_device(device)
-    if backend == "esc":
-        return _spgemm_tiles_esc(a, b, f64=f64, device=dev)
-    note = ""
-    if backend in ("auto", "strip", "gustavson"):
-        backend, note = _resolve_backend(a, b, backend, compute_dtype, dev)
-    if backend == "strip":
-        _f32_kernel(acc_dtype, "strip")
-        return _spgemm_strip(a, b, device=dev)
-    if backend == "gustavson":
-        return _spgemm_gustavson(a, b, f64=f64, acc_dtype=acc_dtype,
-                                 device=dev, sync=sync, note=note)
-    if backend == "dense":
-        return _spgemm_dense(a, b, f64=f64, acc_dtype=acc_dtype, device=dev,
-                             note=note)
-    if backend in ("pallas", "xla"):
-        return _spgemm_pairs(a, b, backend=backend, f64=f64, device=dev,
-                             acc_dtype=acc_dtype, chunk=chunk, sync=sync,
-                             note=note)
-    raise ValueError(f"unknown backend {backend!r}")
+    skips the synchronize that ends the numeric phase. The whole call is
+    traced under SPGEMM_TPU_TRACE=<dir> (utils/timing.py:device_trace)."""
+    with device_trace("spgemm"):
+        if backend == "ozaki":
+            return spgemm_ozaki(a, b, device=device, sync=sync)
+        f64 = esc.is_f64(compute_dtype)
+        dev = resolve_device(device)
+        if backend == "esc":
+            return _spgemm_tiles_esc(a, b, f64=f64, device=dev)
+        timings: dict[str, float] = {}
+        note = ""
+        if backend in ("auto", "strip", "gustavson"):
+            with span("route", timings):
+                backend, note = _resolve_backend(a, b, backend,
+                                                 compute_dtype, dev)
+        if backend == "strip":
+            _f32_kernel(acc_dtype, "strip")
+            return _spgemm_strip(a, b, device=dev, timings=timings)
+        if backend == "gustavson":
+            return _spgemm_gustavson(a, b, f64=f64, acc_dtype=acc_dtype,
+                                     device=dev, sync=sync, note=note,
+                                     timings=timings)
+        if backend == "dense":
+            return _spgemm_dense(a, b, f64=f64, acc_dtype=acc_dtype,
+                                 device=dev, note=note, timings=timings)
+        if backend in ("pallas", "xla"):
+            return _spgemm_pairs(a, b, backend=backend, f64=f64, device=dev,
+                                 acc_dtype=acc_dtype, chunk=chunk, sync=sync,
+                                 note=note)
+        raise ValueError(f"unknown backend {backend!r}")
 
 
 def _with_note(name: str, note: str) -> str:
@@ -205,77 +223,80 @@ def _spgemm_pairs(a: TileMat, b: TileMat, *, backend: str, f64: bool,
                 f"the pair kernel takes tm % 8 == 0 and tn % 128 == 0 on "
                 f"CUDA, got {a.tm}x{b.tn}; use backend='xla' or 'strip'")
     timings: dict[str, float] = {}
-    t0 = time.perf_counter()
-    sched = build_pair_schedule(a, b)
-    timings["symbolic_ms"] = (time.perf_counter() - t0) * 1e3
+    moved: dict[str, float] = {}
+    with span("symbolic", timings):
+        sched = build_pair_schedule(a, b)
 
-    t0 = time.perf_counter()
-    np_dt = np.float64 if f64 else np.float32
-    up = lambda v: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-    a_val, b_val = up(a.dense(np_dt)), up(b.dense(np_dt))
-    # occupancy travels as uint8 and widens on the device: to bf16 0/1 for
-    # the pair kernel, to the f32 that the xla backend's counts use
-    occ_dt = torch.bfloat16 if backend == "pallas" else torch.float32
-    a_occ, b_occ = up(a.occ()).to(occ_dt), up(b.occ()).to(occ_dt)
-    timings["upload_ms"] = (time.perf_counter() - t0) * 1e3
+    def up(v):
+        v = np.ascontiguousarray(v)
+        count_bytes(moved, "h2d_bytes", v)
+        return torch.from_numpy(v).to(device)
 
-    t0 = time.perf_counter()
-    if backend == "pallas":
-        c_val_d, c_cnt_d = pair_kernels.pair_accumulate_cuda(
-            a_val, a_occ, b_val, b_occ, up(sched.pa), up(sched.pb),
-            up(sched.pair_ptr), num_segments=sched.nt_c)
-    else:
-        pa, pb, seg = numeric.pad_pairs(sched.pa, sched.pb, sched.seg,
-                                        sched.nt_c, chunk)
-        c_val_d, c_cnt_d = numeric.pair_accumulate(
-            a_val, a_occ, b_val, b_occ, up(pa), up(pb), up(seg),
-            num_segments=sched.nt_c, chunk=chunk, acc_dtype=acc_dtype)
-    if sync:
-        _sync(device)
-    timings["numeric_ms"] = (time.perf_counter() - t0) * 1e3
+    with span("upload", timings):
+        np_dt = np.float64 if f64 else np.float32
+        a_val, b_val = up(a.dense(np_dt)), up(b.dense(np_dt))
+        # occupancy travels as uint8 and widens on the device: to bf16 0/1
+        # for the pair kernel, to the f32 that the xla backend's counts use
+        occ_dt = torch.bfloat16 if backend == "pallas" else torch.float32
+        a_occ, b_occ = up(a.occ()).to(occ_dt), up(b.occ()).to(occ_dt)
 
-    t0 = time.perf_counter()
-    c = _compact_to_tilemat(sched.ctrow, sched.ctcol,
-                            *_download(c_val_d, c_cnt_d), (a.m, b.n), a.tm,
-                            b.tn)
-    timings["compact_ms"] = (time.perf_counter() - t0) * 1e3
+    with span("numeric", timings):
+        if backend == "pallas":
+            c_val_d, c_cnt_d = pair_kernels.pair_accumulate_cuda(
+                a_val, a_occ, b_val, b_occ, up(sched.pa), up(sched.pb),
+                up(sched.pair_ptr), num_segments=sched.nt_c)
+        else:
+            pa, pb, seg = numeric.pad_pairs(sched.pa, sched.pb, sched.seg,
+                                            sched.nt_c, chunk)
+            c_val_d, c_cnt_d = numeric.pair_accumulate(
+                a_val, a_occ, b_val, b_occ, up(pa), up(pb), up(seg),
+                num_segments=sched.nt_c, chunk=chunk, acc_dtype=acc_dtype)
+        if sync:
+            _sync(device)
+
+    with span("compact", timings):
+        c = _compact_to_tilemat(
+            sched.ctrow, sched.ctcol,
+            *_download(c_val_d, c_cnt_d, timings, moved), (a.m, b.n), a.tm,
+            b.tn)
     stats = {
         "num_pairs": float(sched.num_pairs),
         "numblkC_candidate": float(sched.nt_c),
         "numblkC": float(c.nt),
         "nnzC": float(c.nnz),
         "backend": _with_note(backend, note),
+        **moved,
     }
     return SpGEMMResult(c=c, schedule=sched, timings_ms=timings, stats=stats)
 
 
 def _spgemm_gustavson(a: TileMat, b: TileMat, *, f64: bool, acc_dtype,
-                      device, sync: bool, note: str) -> SpGEMMResult:
+                      device, sync: bool, note: str,
+                      timings: dict) -> SpGEMMResult:
     """The slab route (`spgemm_tpu/ops/spgemm.py:358-475` without its strip
     branch, which is _spgemm_strip): plan, upload, one batched slab step
     and its scatter, compaction."""
-    timings: dict[str, float] = {}
+    moved: dict[str, float] = {}
     plan = build_gustavson_plan(a, b,
                                 dtype=np.float64 if f64 else np.float32)
     timings["prep_ms"] = plan.prep_ms
     timings["symbolic_ms"] = plan.symbolic_ms
 
-    t0 = time.perf_counter()
-    ops = plan.to_device(device)
-    _sync(device)
-    timings["upload_ms"] = (time.perf_counter() - t0) * 1e3
-
-    t0 = time.perf_counter()
-    c_val, c_cnt = gustavson_numeric(*ops, **plan.numeric_kwargs(),
-                                     acc_dtype=acc_dtype)
-    if sync:
+    with span("upload", timings):
+        ops = plan.to_device(device)
         _sync(device)
-    timings["numeric_ms"] = (time.perf_counter() - t0) * 1e3
+    count_bytes(moved, "h2d_bytes", *ops)
 
-    t0 = time.perf_counter()
-    c = _compact_to_tilemat(plan.ctrow, plan.ctcol,
-                            *_download(c_val, c_cnt), (a.m, b.n), a.tm, b.tn)
-    timings["compact_ms"] = (time.perf_counter() - t0) * 1e3
+    with span("numeric", timings):
+        c_val, c_cnt = gustavson_numeric(*ops, **plan.numeric_kwargs(),
+                                         acc_dtype=acc_dtype)
+        if sync:
+            _sync(device)
+
+    with span("compact", timings):
+        c = _compact_to_tilemat(plan.ctrow, plan.ctcol,
+                                *_download(c_val, c_cnt, timings, moved),
+                                (a.m, b.n), a.tm, b.tn)
     stats = {
         "num_pairs": float(plan.num_pairs),
         "numblkC_candidate": float(plan.nt_c),
@@ -283,6 +304,7 @@ def _spgemm_gustavson(a: TileMat, b: TileMat, *, f64: bool, acc_dtype,
         "nnzC": float(c.nnz),
         "backend": _with_note("gustavson", note),
         "padding_ratio": plan.padding_ratio(),
+        **moved,
     }
     return SpGEMMResult(c=c, schedule=plan, timings_ms=timings, stats=stats)
 
@@ -292,9 +314,11 @@ def _spgemm_tiles_esc(a: TileMat, b: TileMat, *, f64: bool,
     """backend="esc" on tiles (`spgemm_tpu/ops/spgemm.py:271-291`): the ESC
     engine works on CSR, so A and B go to CSR, through spgemm_esc in the
     compute dtype, and C back to tiles of A's height and B's width."""
+    moved: dict[str, float] = {}
     c, timings, plan = esc.spgemm_esc(
         a.to_csr(), b.to_csr(),
-        dtype=torch.float64 if f64 else torch.float32, device=device)
+        dtype=torch.float64 if f64 else torch.float32, device=device,
+        moved=moved)
     c_tiles = csr_to_tiles(c, a.tm, b.tn)
     stats = {
         "num_pairs": float(plan.num_products),
@@ -302,36 +326,34 @@ def _spgemm_tiles_esc(a: TileMat, b: TileMat, *, f64: bool,
         "numblkC": float(c_tiles.nt),
         "nnzC": float(c.nnz),
         "backend": "esc",
+        **moved,
     }
     return SpGEMMResult(c=c_tiles, schedule=plan, timings_ms=timings,
                         stats=stats)
 
 
-def _spgemm_strip(a: TileMat, b: TileMat, *, device) -> SpGEMMResult:
+def _spgemm_strip(a: TileMat, b: TileMat, *, device,
+                  timings: dict) -> SpGEMMResult:
     """The strip branch of the JAX package's _spgemm_gustavson."""
-    timings: dict[str, float] = {}
+    moved: dict[str, float] = {}
     sargs = build_strip_args(a, b)
     timings["prep_ms"] = sargs.prep_ms
     timings["symbolic_ms"] = sargs.symbolic_ms
 
-    t0 = time.perf_counter()
-    # upload + kernel + device compaction + download (syncs on download)
-    with device_trace("spgemm-strip"):
-        c_val, c_occ = strip_numeric(sargs, device)
-    timings["numeric_ms"] = (time.perf_counter() - t0) * 1e3
-    timings["upload_ms"] = 0.0
+    # upload, then kernel + device compaction + download (its child)
+    c_val, c_occ = strip_numeric(sargs, device, timings, moved)
 
-    t0 = time.perf_counter()
-    c = _compact_to_tilemat(sargs.ctrow, sargs.ctcol,
-                            c_val.astype(np.float64), c_occ,
-                            (a.m, b.n), a.tm, b.tn)
-    timings["compact_ms"] = (time.perf_counter() - t0) * 1e3
+    with span("compact", timings):
+        c = _compact_to_tilemat(sargs.ctrow, sargs.ctcol,
+                                c_val.astype(np.float64), c_occ,
+                                (a.m, b.n), a.tm, b.tn)
     stats = {
         "num_pairs": float(sargs.num_pairs),
         "numblkC_candidate": float(sargs.nt_c),
         "numblkC": float(c.nt),
         "nnzC": float(c.nnz),
         "backend": "strip",
+        **moved,
     }
     return SpGEMMResult(c=c, schedule=sargs, timings_ms=timings, stats=stats)
 
@@ -367,10 +389,15 @@ def _dense_step(ad, ao, bd, bo, *, gm: int, gn: int, tm: int, tn: int,
     return cv4, cc4, cc4.amax(dim=(2, 3)) > 0
 
 
-def _dense_operands(a: TileMat, b: TileMat, np_dt, device):
+def _dense_operands(a: TileMat, b: TileMat, np_dt, device,
+                    moved: dict | None = None):
     """(ad, ao, bd, bo) on `device`: the padded dense values and the
-    structural occupancy as bf16 0/1 (explicit zeros are structural)."""
-    up = lambda v: torch.from_numpy(v).to(device)
+    structural occupancy as bf16 0/1 (explicit zeros are structural).
+    The h2d_bytes go into `moved`."""
+    def up(v):
+        count_bytes(moved, "h2d_bytes", v)
+        return torch.from_numpy(v).to(device)
+
     return (up(a.to_dense_padded(np_dt)),
             up(a.occ_dense_padded()).to(torch.bfloat16),
             up(b.to_dense_padded(np_dt)),
@@ -378,31 +405,32 @@ def _dense_operands(a: TileMat, b: TileMat, np_dt, device):
 
 
 def _spgemm_dense(a: TileMat, b: TileMat, *, f64: bool, acc_dtype, device,
-                  note: str = "") -> SpGEMMResult:
+                  note: str = "", timings: dict) -> SpGEMMResult:
     """The dense route (`spgemm_tpu/ops/spgemm.py:778-838`): upload, one
     dense step, one host sync for the tile mask, a gather of the occupied
     tiles on the device, download, compaction. f64 multiplies in f64."""
-    timings: dict[str, float] = {}
+    moved: dict[str, float] = {}
     gm, gn, tm, tn = a.gm, b.gn, a.tm, b.tn
-    t0 = time.perf_counter()
-    ops = _dense_operands(a, b, np.float64 if f64 else np.float32, device)
-    _sync(device)
-    timings["upload_ms"] = (time.perf_counter() - t0) * 1e3
+    with span("upload", timings):
+        ops = _dense_operands(a, b, np.float64 if f64 else np.float32,
+                              device, moved)
+        _sync(device)
     timings["symbolic_ms"] = 0.0  # the pattern rides the count matmul
 
-    t0 = time.perf_counter()
-    cv4, cc4, tile_occ = _dense_step(*ops, gm=gm, gn=gn, tm=tm, tn=tn,
-                                     acc_dtype=acc_dtype)
-    flat = torch.nonzero(tile_occ.reshape(-1)).squeeze(1)  # host sync
-    rows, cols = flat // gn, flat % gn
-    c_val, c_occ = _download(cv4[rows, cols], cc4[rows, cols])
-    timings["numeric_ms"] = (time.perf_counter() - t0) * 1e3
+    with span("numeric", timings):
+        cv4, cc4, tile_occ = _dense_step(*ops, gm=gm, gn=gn, tm=tm, tn=tn,
+                                         acc_dtype=acc_dtype)
+        flat = torch.nonzero(tile_occ.reshape(-1)).squeeze(1)  # host sync
+        rows, cols = flat // gn, flat % gn
+        c_val, c_occ = _download(cv4[rows, cols], cc4[rows, cols], timings,
+                                 moved)
 
     ctrow = rows.cpu().numpy().astype(INDEX_DTYPE)
     ctcol = cols.cpu().numpy().astype(INDEX_DTYPE)
-    t0 = time.perf_counter()
-    c = _compact_to_tilemat(ctrow, ctcol, c_val, c_occ, (a.m, b.n), tm, tn)
-    timings["compact_ms"] = (time.perf_counter() - t0) * 1e3
+    count_bytes(moved, "d2h_bytes", rows, cols)
+    with span("compact", timings):
+        c = _compact_to_tilemat(ctrow, ctcol, c_val, c_occ, (a.m, b.n), tm,
+                                tn)
 
     bptr = b.tptr.astype(np.int64)
     num_pairs = int((bptr[a.tcol + 1] - bptr[a.tcol]).sum()) if a.nt else 0
@@ -414,6 +442,7 @@ def _spgemm_dense(a: TileMat, b: TileMat, *, f64: bool, acc_dtype, device,
         "numblkC": float(c.nt),
         "nnzC": float(c.nnz),
         "backend": _with_note("dense", note),
+        **moved,
     }
     return SpGEMMResult(c=c, schedule=sched, timings_ms=timings, stats=stats)
 
@@ -481,35 +510,68 @@ def spgemm_csr(a: CSR, b: CSR | None = None, *, tm: int = 16, tn: int = 128,
     JAX package's f64 routing: integer data whose f32 sums are exact
     takes the f32 route; otherwise structured patterns run the Ozaki
     route (strict: OzakiOverflow sends them on), and the rest, like
-    backend "esc", the double-double scan."""
+    backend "esc", the double-double scan.
+
+    res.timings_ms holds the call's spans (the module docstring), and
+    the whole call is traced under SPGEMM_TPU_TRACE=<dir>
+    (utils/timing.py:device_trace)."""
+    timings: dict[str, float] = {}
+    with device_trace("spgemm_csr"), span("spgemm_csr"):
+        c, res = _spgemm_csr(a, b, tm=tm, tn=tn, aat=aat, backend=backend,
+                             compute_dtype=compute_dtype, acc_dtype=acc_dtype,
+                             chunk=chunk, device=device, sync=sync,
+                             timings=timings)
+    for k, v in timings.items():  # beside (or into) the route's own spans
+        res.timings_ms[k] = res.timings_ms.get(k, 0.0) + v
+    return c, res
+
+
+def _spgemm_csr(a: CSR, b: CSR | None, *, tm: int, tn: int, aat: bool,
+                backend: str, compute_dtype, acc_dtype, chunk: int, device,
+                sync: bool, timings: dict) -> tuple[CSR, SpGEMMResult]:
+    """spgemm_csr without its trace; its own spans (route, tile, result)
+    go into `timings`, the route's into the result."""
     f64 = esc.is_f64(compute_dtype)
     if backend == "esc":
-        return _spgemm_csr_esc(a, b, aat=aat, f64=f64, device=device)
+        return _spgemm_csr_esc(a, b, aat=aat, f64=f64, device=device,
+                               timings=timings)
     kw = dict(acc_dtype=acc_dtype, chunk=chunk, device=device, sync=sync)
     if backend == "auto":
         if f64:
-            if _f32_exact_for(a, b, aat):
-                c, res = spgemm_csr(a, b, tm=tm, tn=tn, aat=aat,
-                                    compute_dtype=torch.float32, **kw)
+            with span("route", timings):
+                exact = _f32_exact_for(a, b, aat)
+            if exact:
+                c, res = _spgemm_csr(a, b, tm=tm, tn=tn, aat=aat,
+                                     backend=backend,
+                                     compute_dtype=torch.float32,
+                                     timings=timings, **kw)
                 res.stats["backend"] = f"{res.stats['backend']}(f64-exact-int)"
                 return c, res
-            if tile_occupancy_estimate(a, tm, tn) >= ESC_OCCUPANCY_TH:
+            with span("route", timings):
+                occ = tile_occupancy_estimate(a, tm, tn)
+            if occ >= ESC_OCCUPANCY_TH:
                 try:
                     return _spgemm_csr_tiled_f64(a, b, aat=aat, tm=tm, tn=tn,
-                                                 device=device, sync=sync)
+                                                 device=device, sync=sync,
+                                                 timings=timings)
                 except OzakiOverflow:
                     pass
-            return _spgemm_csr_esc(a, b, aat=aat, f64=True, device=device)
-        occ = tile_occupancy_estimate(a, tm, tn)
-        if occ < ESC_OCCUPANCY_TH or (
+            return _spgemm_csr_esc(a, b, aat=aat, f64=True, device=device,
+                                   timings=timings)
+        with span("route", timings):
+            occ = tile_occupancy_estimate(a, tm, tn)
+            to_esc = occ < ESC_OCCUPANCY_TH or (
                 occ < ESC_STRUCTURED_OCC_TH
-                and _mxu_reuse(a, b, aat) < ESC_REUSE_TH):
-            return _spgemm_csr_esc(a, b, aat=aat, f64=False, device=device)
-    at = csr_to_tiles(a, tm, tn)
-    # inner blocking must agree: A tiles (tm, tn) -> B tiles (tn, tn)
-    bt = _tile_b_role(a, b, at, aat, tm, tn)
+                and _mxu_reuse(a, b, aat) < ESC_REUSE_TH)
+        if to_esc:
+            return _spgemm_csr_esc(a, b, aat=aat, f64=False, device=device,
+                                   timings=timings)
+    with span("tile", timings):
+        at = csr_to_tiles(a, tm, tn)
+        # inner blocking must agree: A tiles (tm, tn) -> B tiles (tn, tn)
+        bt = _tile_b_role(a, b, at, aat, tm, tn)
     res = spgemm(at, bt, backend=backend, compute_dtype=compute_dtype, **kw)
-    return _csr_result_tail(res, a, b, aat)
+    return _csr_result_tail(res, a, b, aat, timings)
 
 
 def _f32_exact_for(a: CSR, b: CSR | None, aat: bool) -> bool:
@@ -535,48 +597,54 @@ def _f32_exact_for(a: CSR, b: CSR | None, aat: bool) -> bool:
 
 
 def _spgemm_csr_tiled_f64(a: CSR, b: CSR | None, *, aat: bool, tm: int,
-                          tn: int, device,
-                          sync: bool) -> tuple[CSR, SpGEMMResult]:
+                          tn: int, device, sync: bool,
+                          timings: dict) -> tuple[CSR, SpGEMMResult]:
     """Structured-f64 branch of spgemm_csr: tile, then the Ozaki route
     with strict=True, so data whose per-row significand span is far
     beyond the slice window raises OzakiOverflow and the caller runs the
     double-double scan. Raises OzakiOverflow when the int32 accumulation
     bound fails too."""
-    at = csr_to_tiles(a, tm, tn)
-    bt = _tile_b_role(a, b, at, aat, tm, tn)
+    with span("tile", timings):
+        at = csr_to_tiles(a, tm, tn)
+        bt = _tile_b_role(a, b, at, aat, tm, tn)
     res = spgemm_ozaki(at, bt, device=device, sync=sync, strict=True)
-    return _csr_result_tail(res, a, b, aat)
+    return _csr_result_tail(res, a, b, aat, timings)
 
 
 def _spgemm_csr_esc(a: CSR, b: CSR | None, *, aat: bool, f64: bool,
-                    device) -> tuple[CSR, SpGEMMResult]:
+                    device, timings: dict) -> tuple[CSR, SpGEMMResult]:
     """The ESC route of spgemm_csr: no tiling, CSR in and CSR out. The
     result's `c` is None (there is no tile grid on this route); its
-    schedule is the ScanPlan."""
+    schedule is the ScanPlan. The transpose of aat is B's prep."""
     if aat:
         if b is not None:
             raise ValueError("pass either b or aat=True, not both")
-        b = a.transpose()
+        with span("prep", timings):
+            b = a.transpose()
     elif b is None:
         if a.m != a.n:
             raise ValueError("C = A^2 requires square A")
         b = a
-    c, timings, plan = esc.spgemm_esc(
-        a, b, dtype=torch.float64 if f64 else torch.float32, device=device)
-    nnz_cub = flop_count_spgemm(a, b)
-    stats = {
-        "num_pairs": float(plan.num_products),
-        "numblkC_candidate": 0.0,
-        "numblkC": 0.0,
-        "nnzC": float(c.nnz),
-        "nnzCub": float(nnz_cub),
-        "backend": "esc",
-    }
-    if c.nnz:
-        stats["compression"] = nnz_cub / c.nnz
-    if timings["numeric_ms"] > 0:
-        stats["gflops"] = 2.0 * nnz_cub / (timings["numeric_ms"] * 1e6)
-    return c, SpGEMMResult(c=None, schedule=plan, timings_ms=timings,
+    moved: dict[str, float] = {}
+    c, t_esc, plan = esc.spgemm_esc(
+        a, b, dtype=torch.float64 if f64 else torch.float32, device=device,
+        moved=moved)
+    with span("result", timings):
+        nnz_cub = flop_count_spgemm(a, b)
+        stats = {
+            "num_pairs": float(plan.num_products),
+            "numblkC_candidate": 0.0,
+            "numblkC": 0.0,
+            "nnzC": float(c.nnz),
+            "nnzCub": float(nnz_cub),
+            "backend": "esc",
+            **moved,
+        }
+        if c.nnz:
+            stats["compression"] = nnz_cub / c.nnz
+        if t_esc["numeric_ms"] > 0:
+            stats["gflops"] = 2.0 * nnz_cub / (t_esc["numeric_ms"] * 1e6)
+    return c, SpGEMMResult(c=None, schedule=plan, timings_ms=t_esc,
                            stats=stats)
 
 
@@ -596,17 +664,18 @@ def _tile_b_role(a: CSR, b: CSR | None, at: TileMat, aat: bool,
     return csr_to_tiles(b, tn, tn)
 
 
-def _csr_result_tail(res: SpGEMMResult, a: CSR, b: CSR | None,
-                     aat: bool) -> tuple[CSR, SpGEMMResult]:
+def _csr_result_tail(res: SpGEMMResult, a: CSR, b: CSR | None, aat: bool,
+                     timings: dict) -> tuple[CSR, SpGEMMResult]:
     """CSR extraction + reference-contract stats (nnzCub, compression,
-    GFLOPS over the numeric wall time)."""
-    c_csr = res.c.to_csr()
-    nnz_cub = flop_count_spgemm(
-        a, b if b is not None else (a.transpose() if aat else a))
-    res.stats["nnzCub"] = float(nnz_cub)
-    if res.stats["nnzC"] > 0:
-        res.stats["compression"] = nnz_cub / res.stats["nnzC"]
-    if res.timings_ms["numeric_ms"] > 0:
-        res.stats["gflops"] = 2.0 * nnz_cub / (res.timings_ms["numeric_ms"]
-                                               * 1e6)
+    GFLOPS over the numeric wall time), in a result span."""
+    with span("result", timings):
+        c_csr = res.c.to_csr()
+        nnz_cub = flop_count_spgemm(
+            a, b if b is not None else (a.transpose() if aat else a))
+        res.stats["nnzCub"] = float(nnz_cub)
+        if res.stats["nnzC"] > 0:
+            res.stats["compression"] = nnz_cub / res.stats["nnzC"]
+        if res.timings_ms["numeric_ms"] > 0:
+            res.stats["gflops"] = 2.0 * nnz_cub / (
+                res.timings_ms["numeric_ms"] * 1e6)
     return c_csr, res

@@ -1,7 +1,9 @@
 """Timing (port of `spgemm_tpu/utils/timing.py`) and device resolution.
 
-Host clock: `StepTimer` and `best_of` (the reference's gettimeofday
-bracketing and REPEAT_NUM best-of loop), and `host_mem_calibration`.
+Host clock: `span`, the one phase timer of the port (each route's
+`timings_ms` keys and `StepTimer`'s steps, which are also labels on a
+recording `torch.profiler`'s timeline), `best_of` (the reference's
+REPEAT_NUM best-of loop), and `host_mem_calibration`.
 Device clock: `cuda_event_ms` (and `profiler_device_ms` for calls
 shorter than the host's launch overhead), and `chained_device_ms`, the
 counterpart of the JAX package's timer of the same name. That one timed
@@ -11,7 +13,9 @@ records its own timestamps, with CUDA events on the launching stream,
 read after one synchronize, so it returns one time and no round trip.
 Both event timers can flush the L2 cache before each timed call
 (`flush_l2`), outside its event pair. `device_trace` is the
-`torch.profiler` capture behind SPGEMM_TPU_TRACE=<dir>.
+`torch.profiler` capture of a whole public call (`spgemm_csr`, `spgemm`)
+behind SPGEMM_TPU_TRACE=<dir>; it steps aside when a profiler is already
+recording, so an outer trace (the benchmark's) holds the same spans.
 """
 
 from __future__ import annotations
@@ -143,20 +147,59 @@ def profiler_device_ms(fn, *, iters: int = 20) -> float:
     return us / iters / 1e3
 
 
+class span:
+    """Context manager that times one phase on the host clock.
+
+    With a dict `into`, adds the phase's wall milliseconds to
+    `into[key]` (default f"{name}_ms"): repeated phases accumulate. While
+    a torch.profiler is recording, it also opens
+    `record_function(f"spgemm.{name}")`, so the phase is a
+    `user_annotation` on the trace's timeline, beside the kernels and
+    copies it launched. With no profiler recording it reads one flag and
+    two clocks and never calls record_function."""
+
+    __slots__ = ("name", "into", "key", "_rf", "_t0")
+
+    def __init__(self, name: str, into: dict | None = None,
+                 key: str | None = None):
+        self.name, self.into = name, into
+        self.key = f"{name}_ms" if key is None else key
+
+    def __enter__(self):
+        self._rf = None
+        if torch.autograd._profiler_enabled():
+            self._rf = torch.profiler.record_function(f"spgemm.{self.name}")
+            self._rf.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        ms = (time.perf_counter() - self._t0) * 1e3
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        if self.into is not None:
+            self.into[self.key] = self.into.get(self.key, 0.0) + ms
+        return False
+
+
+def count_bytes(moved: dict | None, key: str, *arrays) -> None:
+    """Adds the summed `nbytes` of `arrays` (NumPy arrays or tensors;
+    None skipped) to moved[key] when `moved` is a dict: the byte counters
+    of a call's uploads (h2d_bytes) and downloads (d2h_bytes)."""
+    if moved is not None:
+        moved[key] = moved.get(key, 0.0) + float(
+            sum(x.nbytes for x in arrays if x is not None))
+
+
 class StepTimer:
-    """Collects named step durations in milliseconds (host clock)."""
+    """Collects named step durations in milliseconds (host clock) under
+    their bare names in `ms`; each step is a `span`."""
 
     def __init__(self) -> None:
         self.ms: dict[str, float] = {}
 
-    @contextlib.contextmanager
-    def step(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.ms[name] = self.ms.get(name, 0.0) + (
-                time.perf_counter() - t0) * 1e3
+    def step(self, name: str) -> span:
+        return span(name, self.ms, key=name)
 
     def total(self) -> float:
         return sum(self.ms.values())
@@ -178,10 +221,13 @@ def best_of(fn, repeats: int = 3) -> tuple[float, object]:
 def device_trace(label: str = "spgemm"):
     """torch.profiler capture of everything inside the context when
     SPGEMM_TPU_TRACE=<dir> is set: writes a Chrome trace
-    <dir>/<label>-<pid>-<ns>.json (host ops, and CUDA kernels where a card
-    is present). Does nothing when the variable is unset."""
+    <dir>/<label>-<pid>-<ns>.json (host ops, the `span` labels, and CUDA
+    kernels and copies where a card is present). Does nothing when the
+    variable is unset, or when a profiler is already recording (the
+    spans then land in that profiler's trace; a second one never
+    nests)."""
     trace_dir = os.environ.get("SPGEMM_TPU_TRACE")
-    if not trace_dir:
+    if not trace_dir or torch.autograd._profiler_enabled():
         yield
         return
     from torch.profiler import ProfilerActivity, profile, record_function

@@ -324,7 +324,9 @@ def test_spgemm_csr_pair_backends_match_jax(backend, kind, values):
     _assert_same_csr(pc, jc, values)
     for k in ("num_pairs", "numblkC_candidate", "numblkC", "nnzC", "nnzCub"):
         assert pres.stats[k] == jres.stats[k], k
-    assert set(pres.timings_ms) == set(jres.timings_ms)
+    # the JAX package's phases, and the port's spans around them
+    assert set(pres.timings_ms) == set(jres.timings_ms) | {
+        "tile_ms", "download_ms", "result_ms"}
     assert isinstance(pres.schedule, PairSchedule)
 
 

@@ -101,8 +101,14 @@ def test_spgemm_strip_runs_inside_the_trace(monkeypatch, tmp_path,
     a = to_port(make_random_csr(200, 200, 0.05))
     c, res = pt.spgemm_csr(a, backend="strip", device="cpu")
     assert res.stats["backend"] == "strip"
+    # one trace of the whole call (the inner spgemm's steps aside), the
+    # strip numeric phase's span inside it
     (name,) = os.listdir(tmp_path)
-    assert name.startswith("spgemm-strip-")
+    assert name.startswith("spgemm_csr-")
+    with open(tmp_path / name) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"spgemm.spgemm_csr", "spgemm.numeric",
+            "spgemm.download"} <= names
 
 
 def test_csr_to_dense_and_sorted_dedup_match_jax():
