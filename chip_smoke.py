@@ -126,8 +126,10 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      l, counts) on the leading 4,096^2 cut must be bit-equal to the CPU's
      ozaki_core on the same plan; an arrow pattern (no windowed plan) at
      32x128 through backend="ozaki" takes it too and matches scipy;
- 21. OzakiExecutor on phase 20's plan: run + assemble equal to phase 20's
-     C; update_values with new values, rerun, within 1e-12*max|C|.
+ 21. OzakiExecutor on phase 20's plan: run + assemble (one pass, the
+     plan's own slices) equal to the one-pass slab engine's C
+     (spgemm(backend="ozaki"); phase 20's auto route adds the hi/lo
+     passes); update_values with new values, rerun, within 1e-12*max|C|.
      Phases 18-21 zero the launch counters first and fail if any hand
      kernel or plain kernel version ran. Each route's timing lines start
      with the card's name and power limit: symbolic, upload and numeric
@@ -227,6 +229,14 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      version), probe_sort (the nine rows, then the three full-array sort
      rows at F = 400,458,682, rmat65536 A^2's products) and
      probe_primitives (nine rows); each file starts with the card's line;
+ 41. (run after phase 12) the auto f64 route's hi/lo passes on top3d's
+     SIMP stiffness (perfbench/matrices/top3d.py) at 24x8x4 elements in
+     64x128 tiles, whose rows span more bits than the slices hold:
+     spgemm_csr(compute_dtype=float64) must run four passes, four
+     kernel launches and no plain version, give the CPU's plain run's C
+     bit for bit, stay within 1e-12 of the plain reference entry by entry
+     (|C - C_ref| / (|A||A|)_ij) and download at most 16 bytes a
+     candidate slot; its phase split;
  40. print the kernels JSON line (the ten hand kernels, each with the
      tile shapes it was held at against its plain version, "tiles", and
      its phase-37 times, "chunked"), then the contract line {"ok": true,
@@ -930,6 +940,60 @@ def run_ozaki_path(a_int, ref_int) -> dict:
                 launches=launches[0], max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms)
+
+
+def run_ozaki_passes_phase() -> None:
+    """Phase 41: the auto f64 route's four hi/lo passes on the card
+    against the CPU's plain run and the plain reference."""
+    import torch
+
+    from perfbench import reference
+    from perfbench.matrices.top3d import Stiffness
+    from spgemm_tpu_torch.models.csr import CSR
+    from spgemm_tpu_torch.ops import ozaki_kernels as ok
+    from spgemm_tpu_torch.ops.spgemm import spgemm_csr
+
+    k = Stiffness({"nelx": 24, "nely": 8, "nelz": 4, "nu": 0.3,
+                   "penal": 3.0, "E0": 1.0, "Emin": 1e-9})
+    g = torch.Generator().manual_seed(2**31 + 11)
+    a = CSR(k.indptr, k.indices, k.values(g, torch.float64).numpy(),
+            k.shape)
+    oz = ok.ozaki_strip_numeric
+    _zero_counters(oz)
+    t0 = time.perf_counter()
+    gc, res = spgemm_csr(a, tm=TM, tn=TN, compute_dtype=torch.float64,
+                         device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (oz.kernel_launches, oz.plain_launches)
+    hc, _ = spgemm_csr(a, tm=TM, tn=TN, compute_dtype=torch.float64,
+                       device="cpu")
+    same = gc.pattern_equal(hc) and np.array_equal(gc.data, hc.data)
+    ip, idx, val, mag = reference.spgemm(
+        a.indptr, a.indices, a.data, a.indptr, a.indices, a.data, a.n,
+        device="cuda")
+    pat = (np.array_equal(ip.cpu().numpy(), gc.indptr)
+           and np.array_equal(idx.cpu().numpy(), gc.indices))
+    err = float((np.abs(gc.data - val.cpu().numpy())
+                 / mag.cpu().numpy()).max()) if pat else float("inf")
+    st, tms = res.stats, res.timings_ms
+    slots = st["numblkC_candidate"] * TM * TN
+    print(f"phase f64-passes: SIMP 24x8x4 n={a.m} nnz={a.nnz} "
+          f"backend={st['backend']} passes={st['ozaki_passes']} "
+          f"S={[(p.sa, p.sb, p.pmax) for p in res.schedule.passes]} "
+          f"launches (kernel, plain)={launches} bit-equal to the CPU: "
+          f"{same} pattern_equal={pat} max_scaled_err={err!r} (limit "
+          f"1e-12) d2h_bytes={st['d2h_bytes']!r} candidate slots={slots!r} "
+          f"wall_s={wall!r} " + " ".join(
+              f"{k}={v:.3f}" for k, v in sorted(tms.items())))
+    check(st["ozaki_passes"] == 4 and launches == (4, 0),
+          f"the hi/lo passes did not run as four kernel launches: "
+          f"{st['ozaki_passes']} passes, launches {launches}")
+    check(same, "the hi/lo passes on the card differ from the CPU's")
+    check(pat and err <= 1e-12,
+          f"the hi/lo passes miss f64 entry by entry: {err!r}")
+    check(st["d2h_bytes"] <= 16 * slots,
+          f"d2h_bytes {st['d2h_bytes']} past 16 B a candidate slot")
 
 
 def _close(got, exp, *, rtol=GAUSS_RTOL, atol_rel=1e-6):
@@ -1715,10 +1779,13 @@ def run_slab_f64_route(ag, ref_g):
     occ = out[3].cpu().numpy() > 0
     kept = occ.any(axis=(1, 2))
     vals = cube[kept][occ[kept]]
-    same = np.array_equal(vals, res.c.val)
+    one_pass = spgemm(at, at, backend="ozaki", device="cuda").c
+    same = np.array_equal(vals, one_pass.val)
     print(f"phase ozaki-executor: run+assemble values={vals.size} equal to "
-          f"the f64-slab C: {same}")
-    check(same, "OzakiExecutor's run+assemble differs from spgemm_csr's C")
+          f"the one-pass f64-slab C: {same}")
+    check(same, "OzakiExecutor's run+assemble differs from the one-pass "
+          "slab engine's C")
+    del one_pass
     ag2 = ag.with_data(np.random.default_rng(1).standard_normal(ag.nnz))
     at2 = csr_to_tiles(ag2, SLAB_T, SLAB_T)
     ex.update_values(at2, at2)
@@ -3256,6 +3323,8 @@ def run() -> dict:
 
     compare_ozaki_plans()
     oz_entry = run_ozaki_path(a, ref)
+    torch.cuda.empty_cache()
+    run_ozaki_passes_phase()
     torch.cuda.empty_cache()
 
     compare_pair_plans()

@@ -139,13 +139,16 @@ def main(argv=None) -> int:
     # a phase or counter the route does not have prints as "-"
     ms = lambda k: f"{tms[k]:.2f} ms" if k in tms else "-"
     nb = lambda k: f"{int(res.stats[k])} B" if k in res.stats else "-"
+    passes = res.stats.get("ozaki_passes")
     print(f"step times: route {ms('route_ms')}, tile {ms('tile_ms')}, "
+          f"slice {ms('slice_ms')}, "
           f"symbolic {tms['symbolic_ms']:.2f} ms, "
           f"upload {tms['upload_ms']:.2f} ms, "
           f"numeric {tms['numeric_ms']:.2f} ms, "
           f"compact {tms['compact_ms']:.2f} ms, "
           f"download {ms('download_ms')}, result {ms('result_ms')}; "
-          f"h2d {nb('h2d_bytes')}, d2h {nb('d2h_bytes')}")
+          f"h2d {nb('h2d_bytes')}, d2h {nb('d2h_bytes')}, "
+          f"ozaki passes {'-' if passes is None else int(passes)}")
     print(f"numtile(C): {int(res.stats['numblkC'])} "
           f"(candidates {int(res.stats['numblkC_candidate'])})")
     print(f"nnz(C): {c.nnz}  compression: "

@@ -21,8 +21,10 @@ C slot (h 32, 16 or 8; 16 or 8 with all 15 pair groups: `ozaki_grid`).
 int8 wgmma reads both operands K-major, so each call first writes the
 K-major copies of bv8 and b_occ (`k_major_b_plain` is that step's plain
 version) into scratch the wrapper allocates; the copy's time is part of
-the call's. The library is built with nvcc at first use (never at
-import) into `spgemm_tpu_torch/_build/`.
+the call's. `ozaki_strip_passes` runs the kernel once per value pass
+over one geometry (the auto router's hi/lo split, ops/ozaki.py), with
+the planes and the scratch allocated once. The library is built with
+nvcc at first use (never at import) into `spgemm_tpu_torch/_build/`.
 
 Launch counters: `ozaki_strip_numeric.kernel_launches` counts kernel
 launches and `ozaki_strip_numeric.plain_launches` dispatches to the plain
@@ -239,6 +241,65 @@ def k_major_b_plain(bv8, b_occ):
             b_occ.transpose(1, 2).contiguous())
 
 
+def _check_card_operands(av8, a_occ, bv8, b_occ, kw: dict) -> None:
+    """The kernel's own limits beside _check_operands: the tiles it takes,
+    16-byte aligned planes, and item and TMA row counts under 2^31."""
+    ntp, _, tm, tk, tn, n_blocks, _, _ = _geometry(
+        av8, a_occ, b_occ, **{k: kw[k] for k in (
+            "gm", "max_b", "block_rows", "sa", "sb", "pmax")})
+    if not ozaki_kernel_takes(tm, tk, tn):
+        raise ValueError(f"Ozaki strip kernel takes tm % 8 == 0, tn % 128 "
+                         f"== 0 (at most 65535 chunks of each) and tk % "
+                         f"{TK_MULTIPLE} == 0, got ({tm}, {tn}), tk={tk}")
+    if any(t.data_ptr() % 16 for t in (av8, a_occ, bv8, b_occ)):
+        raise ValueError("the Ozaki strip kernel copies 16-byte runs: av8, "
+                         "a_occ, bv8 and b_occ must start 16-byte aligned")
+    if (n_blocks * kw["max_cblock"] * (tn // OZAKI_COLS) * (tm // 8)
+            >= 2 ** 31 or ntp * tm >= 2 ** 31 or bv8.shape[2] >= 2 ** 31):
+        raise ValueError("Ozaki strip kernel items or TMA rows exceed "
+                         "2^31-1")
+
+
+def _card_buffers(a_occ, b_occ, bv8_cols: int, *, gm: int, max_b: int,
+                  max_cblock: int, block_rows: int, **_):
+    """(the four f32 output planes, the K-major scratch of a bv8 of up to
+    `bv8_cols` columns, that of b_occ) on a_occ's card."""
+    dev = a_occ.device
+    tm, tk = a_occ.shape[1], a_occ.shape[2]
+    gk, tn = b_occ.shape[0], b_occ.shape[2] // max_b
+    n_slots = max(1, -(-gm // block_rows)) * max_cblock
+    planes = [torch.empty(n_slots, tm, tn, dtype=torch.float32, device=dev)
+              for _ in range(4)]
+    bt8 = torch.empty(gk * bv8_cols * tk, dtype=torch.int8, device=dev)
+    bt_occ = torch.empty(gk, b_occ.shape[2], tk, dtype=torch.bfloat16,
+                         device=dev)
+    return planes, bt8, bt_occ
+
+
+def _launch(av8, a_occ, bv8, b_occ, aptr, ak, slots, planes, bt8, bt_occ,
+            kw: dict) -> None:
+    """One launch of csrc/ozaki_strip.cu into `planes`: the kernel first
+    writes the K-major copies of bv8 and b_occ into bt8 and bt_occ."""
+    ntp, stack_rows, tm, tk, tn, n_blocks, pmax, _ = _geometry(
+        av8, a_occ, b_occ, **{k: kw[k] for k in (
+            "gm", "max_b", "block_rows", "sa", "sb", "pmax")})
+    lib = load_ozaki_kernel()
+    with torch.cuda.device(av8.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ozaki_strip_f32(
+            av8.data_ptr(), a_occ.data_ptr(), bv8.data_ptr(),
+            b_occ.data_ptr(), aptr.data_ptr(), ak.data_ptr(),
+            slots.data_ptr(), bt8.data_ptr(), bt_occ.data_ptr(),
+            *[p.data_ptr() for p in planes],
+            kw["gm"], kw["block_rows"], kw["max_b"], kw["max_cblock"],
+            n_blocks, tm, tk, tn, stack_rows, kw["sa"], kw["sb"], pmax, ntp,
+            bv8.shape[0], stream)
+    if err != 0:
+        raise RuntimeError(f"Ozaki strip kernel launch failed: CUDA error "
+                           f"{err}")
+    ozaki_strip_numeric.kernel_launches += 1
+
+
 def ozaki_strip_numeric(av8, a_occ, bv8, b_occ, aptr, ak, slots, *,
                         gm: int, max_b: int, max_cblock: int,
                         block_rows: int, sa: int, sb: int,
@@ -259,43 +320,39 @@ def ozaki_strip_numeric(av8, a_occ, bv8, b_occ, aptr, ak, slots, *,
     if av8.device.type != "cuda":
         raise ValueError(f"ozaki_strip_numeric runs on cpu or cuda, not "
                          f"{av8.device}")
-    ntp, stack_rows, tm, tk, tn, n_blocks, pmax, _ = _geometry(
-        av8, a_occ, b_occ, gm=gm, max_b=max_b, block_rows=block_rows, sa=sa,
-        sb=sb, pmax=pmax)
-    if not ozaki_kernel_takes(tm, tk, tn):
-        raise ValueError(f"Ozaki strip kernel takes tm % 8 == 0, tn % 128 "
-                         f"== 0 (at most 65535 chunks of each) and tk % "
-                         f"{TK_MULTIPLE} == 0, got ({tm}, {tn}), tk={tk}")
-    if any(t.data_ptr() % 16 for t in (av8, a_occ, bv8, b_occ)):
-        raise ValueError("the Ozaki strip kernel copies 16-byte runs: av8, "
-                         "a_occ, bv8 and b_occ must start 16-byte aligned")
-    if (n_blocks * max_cblock * (tn // OZAKI_COLS) * (tm // 8) >= 2 ** 31
-            or ntp * tm >= 2 ** 31 or bv8.shape[2] >= 2 ** 31):
-        raise ValueError("Ozaki strip kernel items or TMA rows exceed "
-                         "2^31-1")
-    lib = load_ozaki_kernel()
-    dev = av8.device
-    planes = [torch.empty(n_blocks * max_cblock, tm, tn, dtype=torch.float32,
-                          device=dev) for _ in range(4)]
-    # scratch: the K-major copies of bv8 and b_occ the kernel writes first
-    gk = bv8.shape[0]
-    bt8 = torch.empty(gk, bv8.shape[2], tk, dtype=torch.int8, device=dev)
-    bt_occ = torch.empty(gk, b_occ.shape[2], tk, dtype=torch.bfloat16,
-                         device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ozaki_strip_f32(
-            av8.data_ptr(), a_occ.data_ptr(), bv8.data_ptr(),
-            b_occ.data_ptr(), aptr.data_ptr(), ak.data_ptr(),
-            slots.data_ptr(), bt8.data_ptr(), bt_occ.data_ptr(),
-            *[p.data_ptr() for p in planes],
-            gm, block_rows, max_b, max_cblock, n_blocks, tm, tk, tn,
-            stack_rows, sa, sb, pmax, ntp, gk, stream)
-    if err != 0:
-        raise RuntimeError(f"Ozaki strip kernel launch failed: CUDA error "
-                           f"{err}")
-    ozaki_strip_numeric.kernel_launches += 1
+    _check_card_operands(av8, a_occ, bv8, b_occ, kw)
+    planes, bt8, bt_occ = _card_buffers(a_occ, b_occ, bv8.shape[2], **kw)
+    _launch(av8, a_occ, bv8, b_occ, aptr, ak, slots, planes, bt8, bt_occ, kw)
     return tuple(planes)
+
+
+def ozaki_strip_passes(a_occ, b_occ, aptr, ak, slots, passes, *, gm: int,
+                       max_b: int, max_cblock: int, block_rows: int):
+    """The Ozaki strip kernel over one geometry for several value passes
+    (ops/ozaki.py's hi/lo split): `passes` lists (av8, bv8, sa, sb, pmax)
+    per pass, each with the shared a_occ, b_occ, aptr, ak and slots.
+    Yields each pass's (c_h, c_m, c_l, c_cnt) in turn, as
+    ozaki_strip_numeric returns them. On CUDA the four output planes and
+    the K-major scratch are allocated once, for the widest bv8, and every
+    launch writes over them: the caller queues its reads of one pass's
+    planes before it asks for the next, and stream order does the rest.
+    CPU tensors run the plain version, fresh planes each pass."""
+    geom = dict(gm=gm, max_b=max_b, max_cblock=max_cblock,
+                block_rows=block_rows)
+    bufs = None
+    for av8, bv8, sa, sb, pmax in passes:
+        kw = dict(geom, sa=sa, sb=sb, pmax=pmax)
+        if a_occ.device.type != "cuda":
+            yield ozaki_strip_numeric(av8, a_occ, bv8, b_occ, aptr, ak,
+                                      slots, **kw)
+            continue
+        _check_operands(av8, a_occ, bv8, b_occ, aptr, ak, slots, **kw)
+        _check_card_operands(av8, a_occ, bv8, b_occ, kw)
+        if bufs is None:
+            bufs = _card_buffers(a_occ, b_occ,
+                                 max(p[1].shape[2] for p in passes), **kw)
+        _launch(av8, a_occ, bv8, b_occ, aptr, ak, slots, *bufs, kw)
+        yield tuple(bufs[0])
 
 
 ozaki_strip_numeric.kernel_launches = 0

@@ -615,7 +615,9 @@ def test_ozaki_entry_points_on_card_match_cpu(card):
     before = (w.kernel_launches, w.plain_launches)
     gc, res = pt.spgemm_csr(a, tm=32, compute_dtype=torch.float64,
                             device=card)
-    assert (w.kernel_launches, w.plain_launches) == (before[0] + 1,
+    # Gaussian rows span more bits than the slices: the four hi/lo passes
+    assert res.stats["ozaki_passes"] == 4
+    assert (w.kernel_launches, w.plain_launches) == (before[0] + 4,
                                                      before[1])
     assert res.stats["backend"] == "ozaki-strip(S=8x8)"
     hc, _ = pt.spgemm_csr(a, tm=32, compute_dtype=torch.float64,
@@ -1821,7 +1823,8 @@ def test_chunked_entry_points_route_to_the_kernels(card, tm, tn):
     gc, res = pt.spgemm_csr(ag, tm=tm, tn=tn, compute_dtype=torch.float64,
                             device=card)
     assert res.stats["backend"] == "ozaki-strip(S=8x8)"
-    assert w.kernel_launches == before + 1
+    assert w.kernel_launches == before + res.stats["ozaki_passes"] == \
+        before + 4
     hc, _ = pt.spgemm_csr(ag, tm=tm, tn=tn, compute_dtype=torch.float64,
                           device="cpu")
     assert gc.pattern_equal(hc) and np.array_equal(gc.data, hc.data)
@@ -1913,3 +1916,39 @@ def test_chained_timer_and_l2_flush_on_card(card):
     assert 0 < chained_device_ms(chain, x, loop=4) < 1e3
     assert 0 < chained_device_ms(chain, x, loop=4, flush_l2=True) < 1e3
     assert 0 < cuda_event_ms(lambda: x.sum(), iters=5, flush_l2=True) < 1e3
+
+
+def test_ozaki_passes_on_card_bit_equal_to_cpu(card):
+    """top3d's SIMP stiffness (perfbench/matrices/top3d.py) at 24x8x4
+    elements in 64x128 tiles: the auto f64 route runs its four hi/lo
+    passes on the card, one kernel launch each and the combine on the
+    card, and gives the CPU plain version's C bit for bit, within 1e-12
+    of the plain reference entry by entry (|C - C_ref| / (|A||A|)_ij)."""
+    from perfbench import reference
+    from perfbench.matrices.top3d import Stiffness
+
+    k = Stiffness({"nelx": 24, "nely": 8, "nelz": 4, "nu": 0.3,
+                   "penal": 3.0, "E0": 1.0, "Emin": 1e-9})
+    g = torch.Generator().manual_seed(2**31 + 11)
+    a = pt.CSR(k.indptr, k.indices, k.values(g, torch.float64).numpy(),
+               k.shape)
+    w = ozaki_kernels.ozaki_strip_numeric
+    before = (w.kernel_launches, w.plain_launches)
+    gc, res = pt.spgemm_csr(a, tm=64, tn=128, compute_dtype=torch.float64,
+                            device=card)
+    assert res.stats["backend"] == "ozaki-strip(S=8x8)"
+    assert res.stats["ozaki_passes"] == 4
+    assert (w.kernel_launches, w.plain_launches) == (before[0] + 4,
+                                                     before[1])
+    hc, hres = pt.spgemm_csr(a, tm=64, tn=128, compute_dtype=torch.float64,
+                             device="cpu")
+    assert gc.pattern_equal(hc) and np.array_equal(gc.data, hc.data)
+    assert res.stats["d2h_bytes"] == hres.stats["d2h_bytes"] <= \
+        16 * res.stats["numblkC_candidate"] * 64 * 128
+    ip, idx, val, mag = reference.spgemm(
+        a.indptr, a.indices, a.data, a.indptr, a.indices, a.data, a.n,
+        device=card)
+    assert np.array_equal(ip.cpu().numpy(), gc.indptr)
+    assert np.array_equal(idx.cpu().numpy(), gc.indices)
+    err = np.abs(gc.data - val.cpu().numpy()) / mag.cpu().numpy()
+    assert err.max() <= 1e-12, err.max()

@@ -25,6 +25,7 @@ from spgemm_tpu.utils.generators import banded as j_banded
 
 import spgemm_tpu_torch as pt
 from spgemm_tpu_torch.ops import ozaki as po
+from test_torch_ozaki import entry_err
 
 PLAN_FIELDS = ("a_sl", "b_sl", "ea", "eb", "perm", "bounds", "a_occ",
                "b_occ")
@@ -130,17 +131,33 @@ def test_slab_route_on_tiles_matches_jax():
         assert pres.stats[k] == jres.stats[k], k
 
 
-def test_auto_f64_router_on_the_arrow_matches_jax():
+def test_auto_f64_router_on_the_arrow_matches_jax(monkeypatch):
+    """The auto f64 router on an arrow (no windowed strip plan): the JAX
+    package runs its slab engine. The port runs the strip kernel on the
+    plain strip plan, and the slab engine, under the JAX package's name,
+    where the kernel does not take the tiles (as on the card at tm % 8 !=
+    0). Both run the hi/lo passes (Gaussian rows span more bits than the
+    slice window): the JAX package's pattern, f64 entry by entry."""
     rng = np.random.default_rng(2)
     a = _arrow()
     a = a.with_data(rng.standard_normal(a.nnz))
     jc, jres = spgemm_tpu.spgemm_csr(a, tm=32, compute_dtype=np.float64)
+    assert jres.stats["backend"] == "ozaki(S=8x8)(xla-fallback)"
     pc, pres = pt.spgemm_csr(to_port(a), tm=32, compute_dtype=torch.float64,
                              device="cpu")
-    assert pres.stats["backend"] == jres.stats["backend"] \
-        == "ozaki(S=8x8)(xla-fallback)"
-    assert pc.pattern_equal(jc)
-    np.testing.assert_array_equal(pc.data, jc.data)
+    assert pres.stats["backend"] == "ozaki-strip(S=8x8)"
+    monkeypatch.setattr(po, "strip_kernel_takes", lambda *args: False)
+    sc, sres = pt.spgemm_csr(to_port(a), tm=32, compute_dtype=torch.float64,
+                             device="cpu")
+    assert sres.stats["backend"] == jres.stats["backend"]
+    assert isinstance(sres.schedule, po.OzakiPlan)
+    jax_err = entry_err(jc, a, a)
+    for c, res in ((pc, pres), (sc, sres)):
+        assert res.stats["ozaki_passes"] == 4
+        assert c.pattern_equal(jc)
+        port_err = entry_err(c, a, a)
+        assert port_err <= 1e-14 and port_err <= jax_err, (port_err,
+                                                            jax_err)
 
 
 @pytest.mark.parametrize("kind", ["integer", "gaussian"])
