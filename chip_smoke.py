@@ -237,6 +237,16 @@ Phases (each prints a line; any failure exits non-zero, with no result):
      bit for bit, stay within 1e-12 of the plain reference entry by entry
      (|C - C_ref| / (|A||A|)_ij) and download at most 16 bytes a
      candidate slot; its phase split;
+ 42. (run after phase 41) C's entries picked on the card
+     (gustavson.pick_tiles) at the top3d.a2 cell's full mesh, 90x30x6
+     elements (perfbench/configs/top3d.json), in 64x128 tiles, f32 (the
+     strip route) and f64 (the four Ozaki passes): one spgemm_csr call of
+     each after a warm-up, its download and compact spans, d2h_bytes
+     (equal to the picked arrays' bytes, beside the dense planes' figure
+     it replaces) and peak device memory; then the route's own planes on
+     the card, picked there and, copied, on the CPU, and assembled on the
+     host by _compact_to_tilemat: the three TileMats equal array for
+     array, values bit for bit;
  40. print the kernels JSON line (the ten hand kernels, each with the
      tile shapes it was held at against its plain version, "tiles", and
      its phase-37 times, "chunked"), then the contract line {"ok": true,
@@ -994,6 +1004,102 @@ def run_ozaki_passes_phase() -> None:
           f"the hi/lo passes miss f64 entry by entry: {err!r}")
     check(st["d2h_bytes"] <= 16 * slots,
           f"d2h_bytes {st['d2h_bytes']} past 16 B a candidate slot")
+
+
+TILE_FIELDS = ("trow", "tcol", "tptr", "tnnz_ptr", "rc", "val", "mask",
+               "rowptr")
+
+
+def _same_tilemat(x, y) -> bool:
+    """Every TileMat field equal, dtype and all; values bit for bit."""
+    return (x.shape, x.tm, x.tn) == (y.shape, y.tm, y.tn) and all(
+        getattr(x, f).dtype == getattr(y, f).dtype
+        and np.array_equal(getattr(x, f).view(np.uint8),
+                           getattr(y, f).view(np.uint8))
+        for f in TILE_FIELDS)
+
+
+def run_pick_phase(mesh: dict | None = None, dev: str = "cuda") -> None:
+    """Phase 42: C's entries picked on the card at the top3d.a2 cell's
+    full mesh (`mesh` overrides its nelx, nely, nelz), f32 and f64,
+    against the CPU's picking and the host assembly of the same
+    planes."""
+    import torch
+
+    from perfbench.matrices.top3d import Stiffness
+    from spgemm_tpu_torch.models.csr import CSR
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import gustavson as gu
+    from spgemm_tpu_torch.ops import kernels
+    from spgemm_tpu_torch.ops.ozaki import (build_ozaki_strip,
+                                            ozaki_strip_passes_numeric)
+    from spgemm_tpu_torch.ops.spgemm import _compact_to_tilemat, spgemm_csr
+
+    with open("perfbench/configs/top3d.json") as f:
+        k = Stiffness({**json.load(f), **(mesh or {})})
+    for dtype in (torch.float32, torch.float64):
+        f32 = dtype == torch.float32
+        g = torch.Generator().manual_seed(2**31 + 17)
+        a = CSR(k.indptr, k.indices, k.values(g, dtype).numpy(), k.shape)
+        spgemm_csr(a, tm=TM, tn=TN, compute_dtype=dtype, device=dev)
+        calls = gu.pick_tiles.device_calls
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, res = spgemm_csr(a, tm=TM, tn=TN, compute_dtype=dtype,
+                            device=dev)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        st, tms, c = res.stats, res.timings_ms, res.c
+        nt_c = int(st["numblkC_candidate"])
+        picked = (nt_c + c.nnz * (4 + (4 if f32 else 8))
+                  + c.nt * TM * (TN // 32) * 4 + c.nt * (TM + 1) * 4)
+        planes = nt_c * TM * TN * ((4 + 4 / 32) if f32 else 9)
+        print(f"{CARD} | phase pick: top3d {k.shape[0]} rows nnz="
+              f"{a.nnz} {dtype} backend={st['backend']} nt_c={nt_c} "
+              f"nt={c.nt} nnzC={c.nnz} d2h_bytes={st['d2h_bytes']!r} "
+              f"(picked arrays {picked!r}; the dense planes' figure "
+              f"{planes!r}) peak_device_bytes={peak!r} wall_s={wall!r} "
+              + " ".join(f"{n}={v:.3f}" for n, v in sorted(tms.items())))
+        check(gu.pick_tiles.device_calls == calls + 1,
+              f"{dtype}: C's entries were not picked on the card")
+        check(st["d2h_bytes"] == picked,
+              f"{dtype}: d2h_bytes {st['d2h_bytes']} != {picked}")
+        at, bt = csr_to_tiles(a, TM, TN), csr_to_tiles(a, TN, TN)
+        if f32:
+            sargs = gu.build_strip_args(at, bt)
+            ops = sargs.to_device(dev)
+            cv, cc = kernels.strip_numeric(*ops, **sargs.kernel_kwargs())
+            del ops
+            gidx = torch.from_numpy(sargs.gather_idx.astype(np.int64))
+            v, occ = gu.strip_compact(cv, cc, gidx.to(dev))
+            del cv, cc
+        else:
+            plan = build_ozaki_strip(at, bt, strict=True)
+            sargs = plan.sargs
+            (v, occ), _ = ozaki_strip_passes_numeric(plan, device=dev)
+        where = (sargs.ctrow, sargs.ctcol, (a.m, a.n))
+        on_card = gu.pick_tiles(v, occ).tilemat(*where)
+        v, occ = v.cpu(), occ.cpu()
+        t0 = time.perf_counter()
+        on_cpu = gu.pick_tiles(v, occ).tilemat(*where)
+        cpu_s = time.perf_counter() - t0
+        occ = (gu.unpack_occ_words(occ.numpy(), TN) if f32
+               else occ.numpy())
+        t0 = time.perf_counter()
+        host = _compact_to_tilemat(*where[:2], v.numpy(), occ, where[2],
+                                   TM, TN)
+        host_s = time.perf_counter() - t0
+        del v, occ
+        torch.cuda.empty_cache()
+        same = (_same_tilemat(on_card, on_cpu), _same_tilemat(on_card, host))
+        print(f"phase pick: {dtype} the route's planes picked on the card "
+              f"== on the CPU: {same[0]} == the host assembly: {same[1]} "
+              f"(CPU pick {cpu_s!r} s, host assembly {host_s!r} s); the "
+              f"call's TileMat == the card's pick: "
+              f"{_same_tilemat(c, on_card)}")
+        check(all(same), f"{dtype}: the card's picked TileMat differs "
+                         f"from the CPU's or the host assembly's: {same}")
 
 
 def _close(got, exp, *, rtol=GAUSS_RTOL, atol_rel=1e-6):
@@ -3325,6 +3431,8 @@ def run() -> dict:
     oz_entry = run_ozaki_path(a, ref)
     torch.cuda.empty_cache()
     run_ozaki_passes_phase()
+    torch.cuda.empty_cache()
+    run_pick_phase()
     torch.cuda.empty_cache()
 
     compare_pair_plans()

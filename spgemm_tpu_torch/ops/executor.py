@@ -48,14 +48,10 @@ class StripExecutor:
         return kernels.strip_numeric(*self._dev, **self.args.kernel_kwargs())
 
     def run_compact(self) -> TileMat:
-        """run() + device-side compaction + TileMat assembly."""
-        from spgemm_tpu_torch.ops.spgemm import _compact_to_tilemat
-
+        """run() + device-side compaction and picking + TileMat assembly."""
         c_val, c_cnt = self.run()
-        c_val, c_occ = download_compact(c_val, c_cnt, self.args)
-        return _compact_to_tilemat(
-            self.args.ctrow, self.args.ctcol, c_val.astype(np.float64),
-            c_occ, self.shape, self.args.tm, self.args.tn)
+        return download_compact(c_val, c_cnt, self.args).tilemat(
+            self.args.ctrow, self.args.ctcol, self.shape)
 
     def update_values(self, a: TileMat) -> None:
         """Re-upload A's value plane for a matrix with the SAME sparsity

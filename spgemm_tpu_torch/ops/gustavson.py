@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from spgemm_tpu_torch.models.csr import INDEX_DTYPE
-from spgemm_tpu_torch.models.tile import TileMat
+from spgemm_tpu_torch.models.tile import MASK_BITS, MASK_DTYPE, TileMat, cdiv
 from spgemm_tpu_torch.ops import kernels
 from spgemm_tpu_torch.utils.timing import count_bytes, resolve_device, span
 
@@ -622,43 +622,130 @@ def unpack_occ_words(words: np.ndarray, tn: int) -> np.ndarray:
         :, :, :tn].astype(bool)
 
 
+@dataclasses.dataclass
+class PickedTiles:
+    """C's entries picked out of candidate-order tile planes (pick_tiles)
+    and downloaded: the candidate tiles that hold an entry, and the
+    TileMat arrays of those tiles."""
+
+    tm: int
+    tn: int
+    keep: np.ndarray    # (nt_c,) bool: the candidate tile holds an entry
+    rc: np.ndarray      # (nnz,) int32 r*tn + c
+    val: torch.Tensor   # (nnz,) host tensor in the planes' dtype
+    mask: np.ndarray    # (nt, tm, ceil(tn/32)) uint32, LSB first
+    rowptr: np.ndarray  # (nt, tm+1) int32
+
+    def tilemat(self, ctrow, ctcol, shape: tuple[int, int]) -> TileMat:
+        """The TileMat of C (values widened to f64), the candidate tiles
+        at (ctrow, ctcol): array for array what _compact_to_tilemat
+        builds from the same planes."""
+        trow = np.asarray(ctrow)[self.keep].astype(INDEX_DTYPE)
+        tcol = np.asarray(ctcol)[self.keep].astype(INDEX_DTYPE)
+        gm = cdiv(shape[0], self.tm)
+        tptr = np.zeros(gm + 1, dtype=INDEX_DTYPE)
+        np.cumsum(np.bincount(trow, minlength=gm), out=tptr[1:])
+        tnnz_ptr = np.zeros(trow.size + 1, dtype=INDEX_DTYPE)
+        np.cumsum(self.rowptr[:, self.tm], out=tnnz_ptr[1:])
+        return TileMat(shape=shape, tm=self.tm, tn=self.tn, trow=trow,
+                       tcol=tcol, tptr=tptr, tnnz_ptr=tnnz_ptr, rc=self.rc,
+                       val=self.val.to(torch.float64).numpy(),
+                       mask=self.mask, rowptr=self.rowptr)
+
+
+def pick_tiles(c_val: torch.Tensor, c_occ: torch.Tensor,
+               into: dict | None = None,
+               moved: dict | None = None) -> PickedTiles:
+    """Pick C's entries out of candidate-order tile planes where the
+    planes are (torch ops, the same on the card and the CPU), then
+    download C's arrays alone: the keep flags, rc, the values in the
+    planes' dtype, and the kept tiles' mask words and row pointers.
+
+    c_val is (nt_c, tm, tn). c_occ is either strip_compact's int32
+    occupancy words (nt_c, tm, tn/32), or counts or bools (nt_c, tm, tn)
+    read as > 0, so a structural zero (value 0, count > 0) stays an
+    entry. Candidate tiles with no entry are pruned; the entries keep the
+    candidate order, row-major inside a tile, as _compact_to_tilemat
+    does. `into` (a timings dict) gets download_ms, the copies alone;
+    `moved` their d2h_bytes. `pick_tiles.device_calls` counts calls on
+    CUDA planes, `pick_tiles.host_calls` on CPU planes."""
+    nt_c, tm, tn = c_val.shape
+    mw = cdiv(tn, MASK_BITS)
+    dev = c_val.device
+    if c_val.is_cuda:
+        pick_tiles.device_calls += 1
+    else:
+        pick_tiles.host_calls += 1
+    # bytes of the words, LSB first: bit k of byte j is column 8j + k
+    weights = torch.tensor([1 << k for k in range(8)], dtype=torch.uint8,
+                           device=dev)
+    if c_occ.dtype == torch.int32:
+        words = c_occ
+        by = words.view(torch.uint8).reshape(nt_c, tm, mw * 4, 1)
+        bits = (by & weights) != 0
+        occ = bits.reshape(nt_c, tm, mw * MASK_BITS)[:, :, :tn]
+    else:
+        occ = c_occ > 0
+        if tn % MASK_BITS:
+            padded = torch.zeros(nt_c, tm, mw * MASK_BITS,
+                                 dtype=torch.bool, device=dev)
+            padded[:, :, :tn] = occ
+        else:
+            padded = occ
+        by = padded.view(torch.uint8).reshape(nt_c, tm, mw * 4, 8)
+        words = (by * weights).sum(dim=3, dtype=torch.uint8).view(
+            torch.int32)
+    rowptr = torch.zeros(nt_c, tm + 1, dtype=torch.int32, device=dev)
+    rowptr[:, 1:] = occ.sum(dim=2).cumsum(dim=1)
+    keep = rowptr[:, tm] > 0
+    kept = torch.nonzero(keep).squeeze(1)
+    # int64: nt_c*tm*tn may pass 2^31
+    flat = torch.nonzero(occ.reshape(-1)).squeeze(1)
+    rc = (flat % (tm * tn)).to(torch.int32)
+    val = c_val.reshape(-1).index_select(0, flat)
+    out = (keep, rc, val, words.index_select(0, kept),
+           rowptr.index_select(0, kept))
+    if c_val.is_cuda:  # the copies alone inside download_ms
+        torch.cuda.synchronize(dev)
+    count_bytes(moved, "d2h_bytes", *out)
+    with span("download", into):
+        keep, rc, val, mask, rowptr = (t.cpu() for t in out)
+    return PickedTiles(tm=tm, tn=tn, keep=keep.numpy(), rc=rc.numpy(),
+                       val=val, mask=mask.numpy().view(MASK_DTYPE),
+                       rowptr=rowptr.numpy())
+
+
+pick_tiles.device_calls = 0
+pick_tiles.host_calls = 0
+
+
 def download_compact(c_val: torch.Tensor, c_cnt: torch.Tensor,
                      args: StripArgs, into: dict | None = None,
-                     moved: dict | None = None
-                     ) -> tuple[np.ndarray, np.ndarray]:
-    """Compact on the device, synchronise, then download (nt_c-
-    proportional): values (nt_c, tm, tn) f32 and 0/1 occupancy f32. tn
-    not a multiple of 32 (small test tiles) skips the bit packing.
-    `into` (a timings dict) gets download_ms: the copies and the host
-    unpack of the occupancy; `moved` the h2d_bytes of the gather index
-    and the d2h_bytes of the copies (utils/timing.py:count_bytes)."""
+                     moved: dict | None = None) -> PickedTiles:
+    """Gather the real candidate tiles out of the block-padded planes,
+    pack their occupancy into words (strip_compact) and pick C's entries
+    on the device (pick_tiles): only C's arrays are downloaded. tn not a
+    multiple of 32 (small test tiles) skips the bit packing. `into` (a
+    timings dict) gets download_ms; `moved` the h2d_bytes of the gather
+    index and the d2h_bytes of the copies."""
     gidx = torch.from_numpy(args.gather_idx.astype(np.int64)).to(c_val.device)
     count_bytes(moved, "h2d_bytes", gidx)
     if args.tn % 32 == 0:
-        v, words = strip_compact(c_val, c_cnt, gidx)
+        v, occ = strip_compact(c_val, c_cnt, gidx)
     else:
-        v, words = c_val.index_select(0, gidx), c_cnt.index_select(0, gidx)
-    if v.is_cuda:  # the copies alone inside download_ms
-        torch.cuda.synchronize(v.device)
-    count_bytes(moved, "d2h_bytes", v, words)
-    with span("download", into):
-        v_h = v.cpu().numpy()
-        if args.tn % 32 == 0:
-            occ = unpack_occ_words(words.cpu().numpy(), v_h.shape[2])
-        else:
-            occ = words.cpu().numpy() > 0
-        return v_h, occ.astype(np.float32)
+        v, occ = c_val.index_select(0, gidx), c_cnt.index_select(0, gidx)
+    return pick_tiles(v, occ, into, moved)
 
 
 def strip_numeric(args: StripArgs, device=None, into: dict | None = None,
-                  moved: dict | None = None
-                  ) -> tuple[np.ndarray, np.ndarray]:
+                  moved: dict | None = None) -> PickedTiles:
     """Upload the plan's operands, run the strip numeric phase
-    (ops/kernels.py:strip_numeric) on `device` (None means CUDA) and
-    compact on the device. Returns (c_val, c_occ) host arrays in
-    candidate order. `into` (a timings dict) gets upload_ms, numeric_ms
-    (kernel, device compaction and download) and download_ms; `moved`
-    the call's h2d_bytes and d2h_bytes."""
+    (ops/kernels.py:strip_numeric) on `device` (None means CUDA), compact
+    and pick C's entries on the device (download_compact). Returns the
+    downloaded PickedTiles, in candidate order. `into` (a timings dict)
+    gets upload_ms, numeric_ms (kernel, device compaction and picking,
+    download) and download_ms; `moved` the call's h2d_bytes and
+    d2h_bytes."""
     device = resolve_device(device)
     check_strip_feasible(args, device)
     with span("upload", into):

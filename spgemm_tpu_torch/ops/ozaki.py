@@ -81,7 +81,7 @@ from spgemm_tpu_torch.ops.esc import _sync
 from spgemm_tpu_torch.ops.gustavson import (GustavsonPlan, StripArgs,
                                             WindowInfeasible, _u16_to_bf16,
                                             build_gustavson_plan, full_fp32,
-                                            to_pairs)
+                                            pick_tiles, to_pairs)
 from spgemm_tpu_torch.ops.ozaki_kernels import MAX_SLICES
 from spgemm_tpu_torch.utils.timing import (count_bytes, cuda_event_ms,
                                            resolve_device, span)
@@ -661,18 +661,6 @@ def _combine_passes(planes_of, rows, exps, ctrow, ctcol, shape):
     return c_val, c_occ
 
 
-def _compact_passes(ctrow, ctcol, c_val, c_occ, shape, tm, tn,
-                    timings: dict, moved: dict) -> TileMat:
-    """Download the passes' f64 plane and occupancy (a download span, the
-    d2h_bytes) and build the TileMat on the host, as the f32 strip route
-    does (ops/spgemm.py:_compact_to_tilemat)."""
-    from spgemm_tpu_torch.ops.spgemm import _compact_to_tilemat, _download
-
-    vals, occ = _download(c_val, c_occ, timings, moved)
-    return _compact_to_tilemat(np.asarray(ctrow), np.asarray(ctcol), vals,
-                               occ, shape, tm, tn)
-
-
 def time_ozaki_strip(plan: OzakiStripPlan, *, warmup: int = 3,
                      iters: int = 20, device=None) -> float:
     """Median device milliseconds of the plan's kernel launches, one a
@@ -767,8 +755,8 @@ def _spgemm_ozaki_strip(a: TileMat, b: TileMat, *, device, sync: bool,
             plan, device=device, sync=sync, moved=moved)
         timings.update(t_num)
         with span("compact", timings):
-            c = _compact_passes(s.ctrow, s.ctcol, c_val, c_occ, (a.m, b.n),
-                                s.tm, s.tn, timings, moved)
+            c = pick_tiles(c_val, c_occ, timings, moved).tilemat(
+                s.ctrow, s.ctcol, (a.m, b.n))
     else:
         planes, t_num = ozaki_strip_numeric(plan, device=device, sync=sync,
                                             moved=moved)
@@ -1207,8 +1195,8 @@ def spgemm_ozaki(a: TileMat, b: TileMat, *, device=None, sync: bool = True,
             plan, device=device, sync=sync, moved=moved)
         timings.update(t_num)
         with span("compact", timings):
-            c = _compact_passes(base.ctrow, base.ctcol, c_val, c_occ,
-                                (a.m, b.n), base.tm, base.tn, timings, moved)
+            c = pick_tiles(c_val, c_occ, timings, moved).tilemat(
+                base.ctrow, base.ctcol, (a.m, b.n))
     else:
         planes, t_num = ozaki_numeric(plan, device=device, sync=sync,
                                       moved=moved)

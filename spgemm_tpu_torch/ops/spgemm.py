@@ -37,8 +37,8 @@ from spgemm_tpu_torch.ops import esc, kernels, numeric, pair_kernels
 from spgemm_tpu_torch.ops.esc import _sync
 from spgemm_tpu_torch.ops.gustavson import (build_gustavson_plan,
                                             build_strip_args, full_fp32,
-                                            gustavson_numeric, product_dtype,
-                                            strip_numeric)
+                                            gustavson_numeric, pick_tiles,
+                                            product_dtype, strip_numeric)
 from spgemm_tpu_torch.ops.ozaki import OzakiOverflow, spgemm_ozaki
 from spgemm_tpu_torch.ops.symbolic import build_pair_schedule
 from spgemm_tpu_torch.utils.timing import (count_bytes, cuda_event_ms,
@@ -62,8 +62,10 @@ class SpGEMMResult:
 
 
 def _compact_to_tilemat(ctrow, ctcol, c_val, c_cnt, shape, tm, tn) -> TileMat:
-    """Dense per-tile accumulators -> TileMat; prunes structurally empty
-    candidate tiles. c_cnt is read only as > 0."""
+    """Dense per-tile accumulators -> TileMat on the host; prunes
+    structurally empty candidate tiles. c_cnt is read only as > 0. The
+    single-card routes pick C's entries where the planes are instead
+    (gustavson.pick_tiles), which gives this TileMat array for array."""
     occ = c_cnt > 0
     keep = occ.any(axis=(1, 2))
     ctrow, ctcol = ctrow[keep], ctcol[keep]
@@ -79,17 +81,6 @@ def _compact_to_tilemat(ctrow, ctcol, c_val, c_cnt, shape, tm, tn) -> TileMat:
     return _build_tilemat(shape=shape, tm=tm, tn=tn, tile_key=tile_key,
                           rc=rcflat.astype(INDEX_DTYPE), val=vals, gm=gm,
                           gn=gn)
-
-
-def _download(c_val: torch.Tensor, c_cnt: torch.Tensor,
-              timings: dict | None = None, moved: dict | None = None):
-    """(values f64, occupancy bool) host arrays of device tile planes; the
-    counts leave the device as > 0 only. A download span into
-    `timings`, the d2h_bytes into `moved`."""
-    occ = c_cnt > 0
-    count_bytes(moved, "d2h_bytes", c_val, occ)
-    with span("download", timings):
-        return c_val.cpu().to(torch.float64).numpy(), occ.cpu().numpy()
 
 
 def _resolve_backend(a: TileMat, b: TileMat, backend: str, compute_dtype,
@@ -255,10 +246,8 @@ def _spgemm_pairs(a: TileMat, b: TileMat, *, backend: str, f64: bool,
             _sync(device)
 
     with span("compact", timings):
-        c = _compact_to_tilemat(
-            sched.ctrow, sched.ctcol,
-            *_download(c_val_d, c_cnt_d, timings, moved), (a.m, b.n), a.tm,
-            b.tn)
+        c = pick_tiles(c_val_d, c_cnt_d, timings, moved).tilemat(
+            sched.ctrow, sched.ctcol, (a.m, b.n))
     stats = {
         "num_pairs": float(sched.num_pairs),
         "numblkC_candidate": float(sched.nt_c),
@@ -294,9 +283,8 @@ def _spgemm_gustavson(a: TileMat, b: TileMat, *, f64: bool, acc_dtype,
             _sync(device)
 
     with span("compact", timings):
-        c = _compact_to_tilemat(plan.ctrow, plan.ctcol,
-                                *_download(c_val, c_cnt, timings, moved),
-                                (a.m, b.n), a.tm, b.tn)
+        c = pick_tiles(c_val, c_cnt, timings, moved).tilemat(
+            plan.ctrow, plan.ctcol, (a.m, b.n))
     stats = {
         "num_pairs": float(plan.num_pairs),
         "numblkC_candidate": float(plan.nt_c),
@@ -340,13 +328,12 @@ def _spgemm_strip(a: TileMat, b: TileMat, *, device,
     timings["prep_ms"] = sargs.prep_ms
     timings["symbolic_ms"] = sargs.symbolic_ms
 
-    # upload, then kernel + device compaction + download (its child)
-    c_val, c_occ = strip_numeric(sargs, device, timings, moved)
+    # upload, then kernel + device compaction and picking + download (its
+    # child)
+    picked = strip_numeric(sargs, device, timings, moved)
 
     with span("compact", timings):
-        c = _compact_to_tilemat(sargs.ctrow, sargs.ctcol,
-                                c_val.astype(np.float64), c_occ,
-                                (a.m, b.n), a.tm, b.tn)
+        c = picked.tilemat(sargs.ctrow, sargs.ctcol, (a.m, b.n))
     stats = {
         "num_pairs": float(sargs.num_pairs),
         "numblkC_candidate": float(sargs.nt_c),
@@ -422,15 +409,13 @@ def _spgemm_dense(a: TileMat, b: TileMat, *, f64: bool, acc_dtype, device,
                                          acc_dtype=acc_dtype)
         flat = torch.nonzero(tile_occ.reshape(-1)).squeeze(1)  # host sync
         rows, cols = flat // gn, flat % gn
-        c_val, c_occ = _download(cv4[rows, cols], cc4[rows, cols], timings,
-                                 moved)
+        picked = pick_tiles(cv4[rows, cols], cc4[rows, cols], timings, moved)
 
     ctrow = rows.cpu().numpy().astype(INDEX_DTYPE)
     ctcol = cols.cpu().numpy().astype(INDEX_DTYPE)
     count_bytes(moved, "d2h_bytes", rows, cols)
     with span("compact", timings):
-        c = _compact_to_tilemat(ctrow, ctcol, c_val, c_occ, (a.m, b.n), tm,
-                                tn)
+        c = picked.tilemat(ctrow, ctcol, (a.m, b.n))
 
     bptr = b.tptr.astype(np.int64)
     num_pairs = int((bptr[a.tcol + 1] - bptr[a.tcol]).sum()) if a.nt else 0

@@ -50,6 +50,7 @@ from spgemm_tpu_torch.ops.symbolic import build_pair_schedule
 from spgemm_tpu_torch.tools.probe_dyngather import (CASES as GATHER_CASES,
                                                     case_inputs)
 from spgemm_tpu_torch.utils.generators import banded, cantlike, random_uniform
+from test_torch_compact import FIELDS as TILE_FIELDS, _assert_same
 from test_torch_fuzz import CASES as FUZZ_CASES, _operands as fuzz_operands
 
 pytestmark = pytest.mark.cuda
@@ -1952,3 +1953,71 @@ def test_ozaki_passes_on_card_bit_equal_to_cpu(card):
     assert np.array_equal(idx.cpu().numpy(), gc.indices)
     err = np.abs(gc.data - val.cpu().numpy()) / mag.cpu().numpy()
     assert err.max() <= 1e-12, err.max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_picked_tilemat_on_card_equals_cpu(card, dtype):
+    """top3d's SIMP stiffness at 24x8x4 elements in 64x128 tiles through
+    spgemm_csr: float32 takes the strip route, float64 the four Ozaki
+    passes. C's entries are picked on the card (pick_tiles.device_calls
+    moves) and only C's arrays come down (d2h_bytes: keep flags, rc and
+    values, the kept tiles' mask words and row pointers). The route's
+    own planes, picked on the card, picked on the CPU and assembled on
+    the host by _compact_to_tilemat, give one TileMat, bit for bit; so
+    does the CPU's whole call in float64 (the passes are bit-equal), and
+    in float32 its structure (the strip kernel's split rounds otherwise
+    than the plain version)."""
+    from perfbench.matrices.top3d import Stiffness
+    from spgemm_tpu_torch.models.tile import csr_to_tiles
+    from spgemm_tpu_torch.ops import gustavson as gu
+    from spgemm_tpu_torch.ops.ozaki import ozaki_strip_passes_numeric
+    from spgemm_tpu_torch.ops.spgemm import _compact_to_tilemat
+
+    f32 = dtype == torch.float32
+    k = Stiffness({"nelx": 24, "nely": 8, "nelz": 4, "nu": 0.3,
+                   "penal": 3.0, "E0": 1.0, "Emin": 1e-9})
+    g = torch.Generator().manual_seed(2**31 + 13)
+    a = pt.CSR(k.indptr, k.indices, k.values(g, dtype).numpy(), k.shape)
+    calls = gu.pick_tiles.device_calls
+    _, res = pt.spgemm_csr(a, tm=64, tn=128, compute_dtype=dtype,
+                           device=card)
+    assert gu.pick_tiles.device_calls == calls + 1
+    assert res.stats["backend"] == ("strip" if f32 else "ozaki-strip(S=8x8)")
+    _, hres = pt.spgemm_csr(a, tm=64, tn=128, compute_dtype=dtype,
+                            device="cpu")
+    c, hc = res.c, hres.c
+    nt_c = int(res.stats["numblkC_candidate"])
+    picked = (nt_c + c.nnz * (4 + (4 if f32 else 8)) + c.nt * 64 * 4 * 4
+              + c.nt * 65 * 4)
+    assert res.stats["d2h_bytes"] == hres.stats["d2h_bytes"] == picked
+    if f32:
+        for f in TILE_FIELDS:
+            if f != "val":
+                assert np.array_equal(getattr(c, f), getattr(hc, f)), f
+        np.testing.assert_allclose(c.val, hc.val, rtol=1e-5,
+                                   atol=1e-6 * np.abs(hc.val).max())
+    else:
+        _assert_same(c, hc)
+
+    at, bt = csr_to_tiles(a, 64, 128), csr_to_tiles(a, 128, 128)
+    if f32:
+        s = build_strip_args(at, bt)
+        cv, cc = kernels.strip_numeric(*s.to_device(card),
+                                       **s.kernel_kwargs())
+        gidx = torch.from_numpy(s.gather_idx.astype(np.int64)).to(card)
+        v, occ = gu.strip_compact(cv, cc, gidx)
+    else:
+        plan = build_ozaki_strip(at, bt, strict=True)
+        s = plan.sargs
+        (v, occ), _ = ozaki_strip_passes_numeric(plan, device=card)
+    where = (s.ctrow, s.ctcol, (a.m, a.n))
+    on_card = gu.pick_tiles(v, occ).tilemat(*where)
+    v, occ = v.cpu(), occ.cpu()
+    on_cpu = gu.pick_tiles(v, occ).tilemat(*where)
+    host = _compact_to_tilemat(
+        *where[:2], v.numpy(),
+        gu.unpack_occ_words(occ.numpy(), 128) if f32 else occ.numpy(),
+        where[2], 64, 128)
+    _assert_same(on_card, on_cpu)
+    _assert_same(on_card, host)
+    _assert_same(on_card, c)

@@ -258,8 +258,17 @@ def test_spans_and_counters_on_the_ozaki_route(route):
     assert st["h2d_bytes"] > 0 and st["d2h_bytes"] > 0
     s = res.schedule.sargs
     slots = s.nt_c * s.tm * s.tn
-    # the passes' f64 plane and one occupancy byte; one pass: h, m, l, cnt
-    assert st["d2h_bytes"] == slots * (9 if route == "auto" else 16)
+    if route == "auto":
+        # C's entries picked from the passes' f64 plane on the device: a
+        # keep flag a candidate tile, rc int32 and the f64 value an entry,
+        # the kept tiles' mask words and row pointers; no longer the
+        # plane and an occupancy byte a candidate slot
+        c = res.c
+        picked = (s.nt_c + c.nnz * (4 + 8) + c.nt * s.tm * (s.tn // 32) * 4
+                  + c.nt * (s.tm + 1) * 4)
+        assert st["d2h_bytes"] == picked < slots * 9
+    else:  # one pass: h, m, l, cnt
+        assert st["d2h_bytes"] == slots * 16
     assert st["d2h_bytes"] <= 16 * slots
     passes = res.schedule.passes
     int8 = {id(x): x.nbytes for p in passes for x in (p.av8, p.bv8)}

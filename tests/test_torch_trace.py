@@ -140,8 +140,14 @@ def test_strip_counters_and_upload():
     up = (s.a_val, s.a_occ, s.b_val, s.b_occ, s.aptr, s.ak, s.slots)
     assert res.stats["h2d_bytes"] == sum(x.nbytes for x in up) \
         + s.gather_idx.size * 8
-    # values f32 and one occupancy bit a column, packed in int32 words
-    assert res.stats["d2h_bytes"] == s.nt_c * s.tm * s.tn * (4 + 4 / 32)
+    # C's entries picked on the device: a keep flag a candidate tile, rc
+    # int32 and the f32 value an entry, the kept tiles' mask words and
+    # row pointers; no longer every candidate slot's value and bit
+    c = res.c
+    picked = (s.nt_c + c.nnz * (4 + 4) + c.nt * s.tm * (s.tn // 32) * 4
+              + c.nt * (s.tm + 1) * 4)
+    assert res.stats["d2h_bytes"] == picked
+    assert picked < s.nt_c * s.tm * s.tn * (4 + 4 / 32)
     assert res.timings_ms["upload_ms"] > 0.0
 
 
